@@ -1,7 +1,8 @@
 """Stateful chat session: templating, window shift, streaming, stop logic.
 
-The counterpart of ``mlc_llm_tpu/engine/session.py`` in engine mode
-(the scheduler and speculative-decoding branches wait for their slices):
+The counterpart of ``mlc_llm_tpu/engine/session.py``, in engine mode
+and scheduler mode (the speculative-decoding branch waits for ROADMAP.md
+queue 1, item 5):
 
 - incremental prompt assembly: only new turns are tokenized per round
 - window-shift long-context policy: when
@@ -14,6 +15,7 @@ The counterpart of ``mlc_llm_tpu/engine/session.py`` in engine mode
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import Iterator, List, Optional
 
 from ..conversation import Conversation, get_conversation
@@ -37,23 +39,43 @@ class ChatConfig:
 
 
 class ChatSession:
-    """One chat session on engine slot 0."""
+    """One chat session.
+
+    Two backends:
+    - engine mode (default): drives InferenceEngine.generate_stream
+      directly on engine slot 0 (one session per engine);
+    - scheduler mode (pass ``scheduler=``): reserves a persistent slot on
+      a ContinuousBatchingScheduler and appends each turn to it through
+      the scheduler, so N sessions share one engine and their turns ride
+      the same batched decode step.
+    """
 
     def __init__(
         self,
-        engine: InferenceEngine,
-        tokenizer: Tokenizer,
-        cfg: ModelConfig,
+        engine: Optional[InferenceEngine] = None,
+        tokenizer: Tokenizer = None,
+        cfg: ModelConfig = None,
         chat: ChatConfig = ChatConfig(),
         conv_template: Optional[str] = None,
+        scheduler=None,
     ):
+        slot = 0
+        if scheduler is not None:
+            engine = scheduler.engine
+            slot = scheduler.reserve_slot()
+        self.scheduler = scheduler
         self.engine = engine
         self.tokenizer = tokenizer
         self.cfg = cfg
         self.chat = chat
-        self.slot = 0
+        self.slot = slot
         self.conv: Conversation = get_conversation(conv_template or cfg.conv_template)
         self.total_len = 0  # tokens currently in the KV cache for this slot
+
+    def close(self) -> None:
+        """Release the scheduler slot (scheduler mode)."""
+        if self.scheduler is not None:
+            self.scheduler.release_slot(self.slot)
 
     # ------------------------------------------------------------------ utils
     @property
@@ -109,6 +131,22 @@ class ChatSession:
         ):
             yield tok
 
+    def _scheduler_tokens(self, tokens: List[int], gen: GenerationConfig):
+        out = deque()
+        req = self.scheduler.submit(tokens, gen, on_token=out.append, pin_slot=self.slot,
+                                    append=self.total_len > 0)
+        try:
+            while not req.done and self.scheduler.has_work():
+                self.scheduler.step()
+                while out:
+                    yield out.popleft()
+            self.scheduler._drain(all_remaining=True)
+            while out:
+                yield out.popleft()
+        finally:
+            if not req.done:  # the consumer stopped early (stop string)
+                self.scheduler.cancel(req)
+
     # ------------------------------------------------------------------ chat
     def chat_stream(self, user_text: str) -> Iterator[str]:
         """Yields incremental reply text as it is generated; the full
@@ -132,7 +170,10 @@ class ChatSession:
         emitted_chars = 0
         stopped = False
         final_text = ""
-        source = self._engine_tokens(tokens, gen)
+        if self.scheduler is not None:
+            source = self._scheduler_tokens(tokens, gen)
+        else:
+            source = self._engine_tokens(tokens, gen)
         try:
             for tok in source:
                 reply_ids.append(tok)

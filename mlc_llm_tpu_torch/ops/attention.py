@@ -37,7 +37,16 @@ def attend(q, k, v, q_pos, *, mask_value: float = -1e30, v_transposed: bool = Fa
     return torch.matmul(probs, vt).to(q.dtype)
 
 
-def attend_cache(q, kc, vc, q_pos):
-    """Attention of a query block against the bf16 cache: kc [B, Hkv,
-    Smax, D], vc [B, Hkv, D, Smax] (current tokens already written)."""
-    return attend(q, kc.to(q.dtype), vc.to(q.dtype), q_pos, v_transposed=True)
+def attend_cache(q, kc, vc, ksc, vsc, q_pos):
+    """Attention of a query block against the (possibly int8) cache.
+
+    kc [B, Hkv, Smax, D], vc [B, Hkv, D, Smax] (current tokens already
+    written); ksc/vsc: int8-mode scales [B, Hkv, Smax], else None. int8
+    codes are scaled in f32 (k = kc*ksc, v = vc*vsc), then cast to
+    q.dtype, as the JAX package does."""
+    if ksc is not None:
+        k = (kc.float() * ksc[..., None]).to(q.dtype)
+        v = (vc.float() * vsc[:, :, None, :]).to(q.dtype)
+    else:
+        k, v = kc.to(q.dtype), vc.to(q.dtype)
+    return attend(q, k, v, q_pos, v_transposed=True)

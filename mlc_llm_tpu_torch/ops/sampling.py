@@ -9,8 +9,9 @@ package's threefry draws.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -42,10 +43,21 @@ def sample_token(logits, generator=None, temperature: float = 0.7,
                         for row in logits])
 
 
-def sample_token_perslot(logits, generators: Sequence[torch.Generator],
-                         temperature: float, top_p: float, top_k: int = 64):
-    """Per-slot sampling: slot b draws from generators[b] only."""
-    if temperature < 1e-6:
-        return torch.argmax(logits.float(), dim=-1)
-    return torch.stack([sample_top_p(row, g, temperature, top_p, top_k)
-                        for row, g in zip(logits, generators)])
+def sample_token_perslot(logits, generators: Sequence[Optional[torch.Generator]],
+                         temperature, top_p, top_k: int = 64):
+    """Per-slot sampling for the continuous-batching decode step.
+
+    temperature and top_p are host scalars or [B] host vectors (as the
+    JAX package's [B] parameters). A row with T < 1e-6 is argmax and
+    draws nothing; every other row b draws from generators[b] only, so a
+    request's stream depends on its own seed and draw count, whatever
+    else shares the batch. Rows are written into the argmax vector on
+    the device: no host readback."""
+    B = logits.shape[0]
+    temps = np.broadcast_to(np.asarray(temperature, np.float64), (B,))
+    topps = np.broadcast_to(np.asarray(top_p, np.float64), (B,))
+    out = torch.argmax(logits.float(), dim=-1)
+    for b in np.nonzero(temps >= 1e-6)[0]:
+        out[b] = sample_top_p(logits[b], generators[b], float(temps[b]), float(topps[b]),
+                              top_k)
+    return out
