@@ -4,20 +4,22 @@
 
 Phases (any failed check exits non-zero before the last line):
 
-1. card identity (nvidia-smi name and power limit), then the kernels are
-   built from csrc/ with nvcc, one process per source, all at once
+1. card identity (nvidia-smi name and power limit), then the five kernels
+   are built from csrc/ with nvcc, one process per source, all at once
    (build seconds printed);
 2. kernel phase: each hand-written kernel against its plain PyTorch
-   version on the card, at the Vicuna-7B q4bf16 shapes of the main paths
-   (GEMV at m=1 and m=8, GEMM at m=128 and m=2048 and on the flat lm head
-   at m=128; paged flash-decode at batch 8 over mixed lengths, bf16 and
-   int8 KV), with kernel, plain, bound and library times;
+   version on the card, at the Vicuna-7B shapes of the main paths, with
+   kernel, plain, bound and library times: q4bf16 (qsplit GEMV at m=1 and
+   m=8, GEMM at m=128 and m=2048 and on the flat lm head at m=128);
+   q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and 2048);
+   the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1 and m=128;
+   paged flash-decode at batch 8 over mixed lengths, bf16 and int8 KV;
 3. parity phase: a 2-layer Vicuna-7B at full width, the same params
    through forward on the card (kernels) and on the CPU (plain versions),
-   logits compared for a 64-token prefill and 4 decode steps; then on the
-   card, 8 slots of mixed prompt lengths, the paged cache against the slot
-   cache (bf16) and int8 paged KV against bf16 paged KV, for a prefill and
-   4 decode steps;
+   logits compared for a 64-token prefill and 4 decode steps, in q4bf16 and
+   in q3bf16_s16; then on the card (q4bf16), 8 slots of mixed prompt
+   lengths, the paged cache against the slot cache (bf16) and int8 paged KV
+   against bf16 paged KV, for a prefill and 4 decode steps;
 4. chat phase: full-depth Vicuna-7B q4bf16 on random weights through
    InferenceEngine and ChatSession (slot cache, batch 1), 3 greedy turns
    of 32 new tokens, with the launch counters held to the counts the path
@@ -28,7 +30,14 @@ Phases (any failed check exits non-zero before the last line):
    seed submitted by RemoteScheduler over localhost, with TTFT, decode
    rates, step wall and launch counts; then a shorter in-process run
    with int8 KV under kv_layout="auto", which must resolve to paged;
-6. one JSON line of kernels, the card line, and the final ok line.
+6. q3 chat phase: the q4 params are freed; full-depth Vicuna-7B
+   q3bf16_s16 (random weights quantized on the card) with int8 slot KV at
+   batch 1, 3 greedy turns of 32 new tokens through ChatSession: every
+   decode matmul on the int3 GEMV, every prefill layer matmul on the plane
+   GEMM, launch counts held to the path's;
+7. q3 scheduler run: 8 requests in process, int8 KV under
+   kv_layout="auto" (paged), b8 decode through the plane GEMM and kernel 7;
+8. one JSON line of kernels, the card line, and the final ok line.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; launches made to compare a kernel with its plain version do
@@ -37,6 +46,7 @@ not count. Needs a CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -58,7 +68,7 @@ from mlc_llm_tpu_torch.models import (
     init_random_params,
 )
 from mlc_llm_tpu_torch.models.transformer import tree_map
-from mlc_llm_tpu_torch.ops import build_kernels
+from mlc_llm_tpu_torch.ops import KERNELS, build_kernels
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
 from mlc_llm_tpu_torch.parallel.wire import RemoteScheduler, SchedulerServer
@@ -94,9 +104,26 @@ SOURCES = {
                 "mlc_llm_tpu/ops/pallas/dequant_matmul.py:1430"),
     "gemm_qs": ("mlc_llm_tpu_torch/csrc/dequant_gemm_qs.cu",
                 "mlc_llm_tpu/ops/pallas/dequant_matmul.py:1670"),
+    "gemv_gp3": ("mlc_llm_tpu_torch/csrc/dequant_gemv_gp3.cu",
+                 "mlc_llm_tpu/ops/pallas/dequant_matmul.py:592"),
+    # rows 5 (stacked, :725) and 4 (the flat generic branch, :791)
+    "gemm_plane": ("mlc_llm_tpu_torch/csrc/dequant_gemm_plane.cu",
+                   "mlc_llm_tpu/ops/pallas/dequant_matmul.py:725"),
     "paged_flash_decode": ("mlc_llm_tpu_torch/csrc/paged_flash_decode.cu",
                            "mlc_llm_tpu/ops/pallas/paged_attention.py:145"),
 }
+# (kernel, preset) -> the m of each main-path shape; the lm head is flat
+# (f32 out), every other weight stacked [2, ...] and read at layer 1
+MATMUL_CASES = [
+    ("gemv_qs", "q4bf16", {"*": (1, 8)}),
+    ("gemm_qs", "q4bf16", {"*": (128, 2048), "lm_head": (128,)}),
+    ("gemv_gp3", "q3bf16_s16", {"*": (1, 2)}),
+    ("gemm_plane", "q3bf16_s16", {"*": (8, 128, 2048)}),
+    # the other plane formats once each, at their decode and prefill widths
+    ("gemm_plane", "q3bf16", {"w_in": (1, 128)}),
+    ("gemm_plane", "fp4bf16", {"w_in": (1, 128)}),
+    ("gemm_plane", "q8bf16", {"w_in": (1, 128)}),
+]
 # the serve phase's paged pool and the kernel phase's paged shapes
 PAGE_SIZE, SERVE_BATCH, SERVE_SEQ = 128, 8, 2048
 PAGED_LENGTHS = [1, 127, 128, 511, 1023, 1024, 1536, 2047]
@@ -109,13 +136,17 @@ def fail(msg: str):
     sys.exit(1)
 
 
+COUNTED = {"gemv_qs": dm.gemv_qs, "gemm_qs": dm.gemm_qs, "gemv_gp3": dm.gemv_gp3,
+           "gemm_plane": dm.gemm_plane, "paged_flash_decode": pa.paged_flash_decode}
+
+
 def reset_counters():
-    dm.gemv_qs.launches = dm.gemm_qs.launches = pa.paged_flash_decode.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
 
 
 def read_counters():
-    return {"gemv_qs": dm.gemv_qs.launches, "gemm_qs": dm.gemm_qs.launches,
-            "paged_flash_decode": pa.paged_flash_decode.launches}
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def time_ms(fn, flush, reps: int) -> float:
@@ -138,11 +169,12 @@ def time_ms(fn, flush, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
-def bound(m: int, k: int, n: int, groups: int, out_bytes: int):
+def bound(m: int, k: int, n: int, weight_bytes: int, out_bytes: int):
     """Least time (ms) for y[m,n] = x[m,k] @ dequant(W): every input read
-    once (x bf16, int4 words, bf16 scale and zero), the output written
-    once, against the bf16 tensor-core rate for 2*m*k*n operations."""
-    nbytes = m * k * 2 + k * n // 2 + 2 * groups * n * 2 + m * n * out_bytes
+    once (x bf16; the weight's stored bytes: words or int8 plane, bf16
+    scales, and minima when asym), the output written once, against the
+    bf16 tensor-core rate for 2*m*k*n operations."""
+    nbytes = m * k * 2 + weight_bytes + m * n * out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * m * k * n / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -167,65 +199,96 @@ def paged_bound(lengths, ps: int, hkv: int, hq: int, d: int, int8: bool, window:
 
 
 def stack(qts):
+    z = qts[0].zero
     return QuantizedTensor(data=torch.stack([q.data for q in qts]),
                            scale=torch.stack([q.scale for q in qts]),
-                           zero=torch.stack([q.zero for q in qts]),
+                           zero=None if z is None else torch.stack([q.zero for q in qts]),
                            spec=qts[0].spec, shape=qts[0].shape)
+
+
+def call_kernel(kname, x, w, layer, out_dtype):
+    """The kernel's wrapper on w (stacked with layer, or flat)."""
+    fn = getattr(dm, kname)
+    if kname == "gemv_gp3":
+        return fn(x, w.data, w.scale, layer=layer, out_dtype=out_dtype)
+    if kname == "gemm_plane":
+        return fn(x, w.data, w.scale, w.zero, w.spec, layer=layer, out_dtype=out_dtype)
+    return fn(x, w.data, w.scale, w.zero, layer=layer, out_dtype=out_dtype)
+
+
+def call_plain(kname, x, w, out_dtype):
+    """The kernel's plain version on the flat weight w."""
+    fn = getattr(dm, kname + "_plain")
+    if kname == "gemv_gp3":
+        return fn(x, w.data, w.scale, out_dtype)
+    if kname == "gemm_plane":
+        return fn(x, w.data, w.scale, w.zero, w.spec, out_dtype)
+    return fn(x, w.data, w.scale, w.zero, out_dtype)
+
+
+def stored_k(w):
+    rows = w.data.shape[-2]
+    return rows if w.spec.storage == "i8" else rows * w.spec.elems_per_word
 
 
 def matmul_rows(gen, flush):
     rows = []
-    for name, k, n in SHAPES:
-        flat = name == "lm_head"
-        qts = [pad_quantized_groups(quantize(
-            torch.randn((k, n), generator=gen, device="cuda") * 0.02, "q4bf16"))
-            for _ in range(1 if flat else 2)]
-        # layer weights stacked [2, KW, N], read at layer 1; the lm head flat
-        one = qts[-1]
-        w, layer = (one, None) if flat else (stack(qts), 1)
-        words, scale, zero = w.data, w.scale, w.zero
-        wl = (one.data, one.scale, one.zero)
-        K, N, G = one.data.shape[0] * 8, one.data.shape[1], one.scale.shape[0]
-        # the library yardstick multiplies by the whole stored [K, N] weight
-        dense = dequantize(QuantizedTensor(*wl, spec=one.spec, shape=(K, N)), torch.bfloat16)
-        out_dtype = torch.float32 if flat else torch.bfloat16
-        # the flat lm head at m=128 is the flat int4 GEMM (TPU kernel table row 3)
-        cases = [("gemv_qs", 1), ("gemv_qs", 8), ("gemm_qs", 128)]
-        if not flat:
-            cases += [("gemm_qs", 2048)]
-        for kname, m in cases:
-            x = torch.zeros((m, K), dtype=torch.bfloat16, device="cuda")
-            x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-            kern = getattr(dm, kname)
-            plain = getattr(dm, kname + "_plain")
+    for preset in dict.fromkeys(p for _, p, _ in MATMUL_CASES):
+        for name, k, n in SHAPES:
+            cases = [(kname, ms_by_shape.get(name, ms_by_shape.get("*")))
+                     for kname, p, ms_by_shape in MATMUL_CASES if p == preset]
+            cases = [(kname, m) for kname, ms in cases if ms for m in ms]
+            if cases:
+                rows += shape_rows(gen, flush, preset, name, k, n, cases)
+    return rows
 
-            def run_kernel():
-                return kern(x, words, scale, zero, layer=layer, out_dtype=out_dtype)
 
-            def run_plain():
-                return plain(x, *wl, out_dtype)
+def shape_rows(gen, flush, preset, name, k, n, cases):
+    """Every (kernel, m) case of one preset at one shape, on one weight."""
+    rows = []
+    flat = name == "lm_head"
+    qts = [pad_quantized_groups(quantize(
+        torch.randn((k, n), generator=gen, device="cuda") * 0.02, preset))
+        for _ in range(1 if flat else 2)]
+    # layer weights stacked [2, KW, N], read at layer 1; the lm head flat
+    one = qts[-1]
+    w, layer = (one, None) if flat else (stack(qts), 1)
+    K, N = stored_k(one), one.data.shape[1]
+    # the library yardstick multiplies by the whole stored [K, N] weight
+    dense = dequantize(QuantizedTensor(one.data, one.scale, one.zero, spec=one.spec,
+                                       shape=(K, N)), torch.bfloat16)
+    out_dtype = torch.float32 if flat else torch.bfloat16
+    for kname, m in cases:
+        x = torch.zeros((m, K), dtype=torch.bfloat16, device="cuda")
+        x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
 
-            def run_library():
-                return torch.matmul(x, dense)
+        def run_kernel():
+            return call_kernel(kname, x, w, layer, out_dtype)
 
-            got, want = run_kernel(), run_plain()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
-            reps = 20 if m <= 128 else 5
-            b_ms, b_by = bound(m, K, N, G, 4 if flat else 2)
-            row = dict(kernel=kname, shape=name, m=m, k=K, n=N, max_abs_err=err,
-                       ms=time_ms(run_kernel, flush, reps),
-                       plain_ms=time_ms(run_plain, flush, min(reps, 5)),
-                       library_ms=time_ms(run_library, flush, reps),
-                       bound_ms=b_ms, bound_by=b_by)
-            print(f"  {kname} {name} m={m} K={K} N={N}: max_abs_err={err:.3g} "
-                  f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
-            if not ok:
-                fail(f"{kname} {name} m={m} disagrees with its plain version (max {err})")
-            rows.append(row)
-        del w, dense
+        def run_plain():
+            return call_plain(kname, x, one, out_dtype)
+
+        def run_library():
+            return torch.matmul(x, dense)
+
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        reps = 20 if m <= 128 else 5
+        b_ms, b_by = bound(m, K, N, one.nbytes(), 4 if flat else 2)
+        row = dict(kernel=kname, quant=preset, shape=name, m=m, k=K, n=N, max_abs_err=err,
+                   ms=time_ms(run_kernel, flush, reps),
+                   plain_ms=time_ms(run_plain, flush, min(reps, 5)),
+                   library_ms=time_ms(run_library, flush, reps),
+                   bound_ms=b_ms, bound_by=b_by)
+        print(f"  {kname} {preset} {name} m={m} K={K} N={N}: max_abs_err={err:.3g} "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        if not ok:
+            fail(f"{kname} {preset} {name} m={m} disagrees with its plain version (max {err})")
+        rows.append(row)
+    del w, dense
     return rows
 
 
@@ -392,19 +455,55 @@ def paged_vs_slot(cfg, params):
 
 
 def parity_phase():
-    print("== parity phase: 2-layer Vicuna-7B width")
     cfg = VICUNA.replace(num_layers=2)
-    params = pad_params(init_random_params(cfg, "q4bf16", seed=1, device="cuda"))
-    card_vs_cpu(cfg, params)
-    paged_vs_slot(cfg, params)
-    del params
-    torch.cuda.empty_cache()
+    for quant in ("q4bf16", "q3bf16_s16"):
+        print(f"== parity phase: 2-layer Vicuna-7B width, {quant}")
+        params = pad_params(init_random_params(cfg, quant, seed=1, device="cuda"))
+        card_vs_cpu(cfg, params)
+        if quant == "q4bf16":
+            paged_vs_slot(cfg, params)
+        del params
+        torch.cuda.empty_cache()
 
 
-def chat_phase(params):
-    print("== chat phase: vicuna-v1-7b q4bf16, 32 layers, slot cache, batch 1")
-    engine = InferenceEngine(VICUNA, params, max_batch=1,
+# the kernel of each quantized matmul on the main paths, by preset: the
+# layer matmuls of a prefill (m = the bucket), every matmul at m = 1 (b1
+# decode, and the lm head of a prefill, which runs at its last position
+# only), and every matmul of a b8 decode step (m = 8)
+PATH_KERNELS = {"q4bf16": {"prefill": "gemm_qs", "m1": "gemv_qs", "m8": "gemv_qs"},
+                "q3bf16_s16": {"prefill": "gemm_plane", "m1": "gemv_gp3", "m8": "gemm_plane"}}
+
+
+def expected_launches(quant, *, b1_steps=0, prefills=0, b8_forwards=0):
+    """Launch counts a path implies: per prefill 4L layer matmuls and the
+    lm head at m=1; per b1 decode step 4L + 1 matmuls at m=1; per b8
+    decode forward 4L + 1 matmuls at m=8 and L paged decodes."""
+    k, L = PATH_KERNELS[quant], VICUNA.num_layers
+    want = dict.fromkeys(COUNTED, 0)
+    want[k["prefill"]] += 4 * L * prefills
+    want[k["m1"]] += (4 * L + 1) * b1_steps + prefills
+    want[k["m8"]] += (4 * L + 1) * b8_forwards
+    want["paged_flash_decode"] += L * b8_forwards
+    return want
+
+
+def param_bytes(params) -> int:
+    sizes = []
+    tree_map(lambda x: sizes.append(x.nbytes() if isinstance(x, QuantizedTensor)
+                                    else x.numel() * x.element_size()), params)
+    return sum(sizes)
+
+
+def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16):
+    kv = "int8" if cache_dtype == torch.int8 else "bf16"
+    print(f"== chat phase: vicuna-v1-7b {quant}, 32 layers, {kv} slot cache, batch 1")
+    engine = InferenceEngine(VICUNA, params, max_batch=1, cache_dtype=cache_dtype,
                              max_seq_len=min(VICUNA.max_seq_len, 768 * 2), device="cuda")
+    if engine.kv_layout != "slot" or engine.cache.k.dtype != cache_dtype:
+        fail(f"chat engine runs {engine.kv_layout} {engine.cache.k.dtype} KV")
+    nbytes = param_bytes(engine.params)
+    print(f"  params (groups padded to multiples of 32): {nbytes} bytes, "
+          f"{nbytes / 2**30:.3f} GiB")
     lg = engine.prefill([[VICUNA.bos_token_id] + list(b"Hello")])
     if lg.shape != (1, VICUNA.vocab_size) or not torch.isfinite(lg).all():
         fail("full-depth prefill logits not finite or of the wrong shape")
@@ -422,17 +521,15 @@ def chat_phase(params):
         print(f"  USER: {prompt!r} -> {len(reply)} chars")
     launches = read_counters()
     steps = engine.stats.decode_tokens
+    stats = dict(quant=quant, kv=kv, param_bytes=nbytes, prefill_ms=ttft,
+                 decode_tok_s=engine.stats.decode_tps, decode_steps=steps)
     print(f"  prefill ms per turn (TTFT less sampling): {[round(t, 2) for t in ttft]}; "
           f"decode {engine.stats.decode_tps:.2f} tok/s over {steps} steps")
-    # per prefill: the 4 layer weights x L layers on the GEMM, the lm head
-    # (last position only, m=1) on the GEMV; per decode step: 4L + 1 GEMVs
-    per_layer = 4 * VICUNA.num_layers
-    want = {"gemm_qs": per_layer * len(prompts), "gemv_qs": (per_layer + 1) * steps + len(prompts),
-            "paged_flash_decode": 0}
+    want = expected_launches(quant, b1_steps=steps, prefills=len(prompts))
     print(f"  launches: {launches} (want {want})")
     if steps == 0 or launches != want:
         fail("launch counts do not match the chat path")
-    return launches
+    return launches, stats
 
 
 def serve_requests():
@@ -499,10 +596,8 @@ def serve_phase(params):
     if sum(lens) < 0.9 * 16 * 32:  # a stop token ends a request early only by chance
         fail(f"serve: only {sum(lens)} tokens generated")
     ttft = sorted((first_at[i] - t_sub) * 1e3 for i, (_, t_sub) in enumerate(reqs))
-    forwards = engine.decode_forwards
-    L, per_layer, n_pre = VICUNA.num_layers, 4 * VICUNA.num_layers, len(admitted)
-    want = {"paged_flash_decode": L * forwards, "gemm_qs": per_layer * n_pre,
-            "gemv_qs": (per_layer + 1) * forwards + n_pre}
+    forwards, n_pre = engine.decode_forwards, len(admitted)
+    want = expected_launches("q4bf16", b8_forwards=forwards, prefills=n_pre)
     p50 = float(np.percentile(ttft, 50))
     p99 = float(np.percentile(ttft, 99))
     out = dict(
@@ -519,27 +614,41 @@ def serve_phase(params):
     return launches, out
 
 
-def int8_auto_phase(params):
-    print("== int8 KV under kv_layout='auto' (in-process scheduler, 8 requests)")
+def int8_auto_phase(params, quant="q4bf16"):
+    print(f"== {quant}, int8 KV under kv_layout='auto' (in-process scheduler, 8 requests)")
     engine = InferenceEngine(VICUNA, params, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
                              cache_dtype=torch.int8, kv_layout="auto", page_size=PAGE_SIZE,
                              device="cuda")
     if engine.kv_layout != "paged" or engine.cache.k_pages.dtype != torch.int8:
         fail(f"kv_layout='auto' with int8 KV resolved to {engine.kv_layout}")
     sched = ContinuousBatchingScheduler(engine, seed=0)
+    admitted = []
+    prefill_slot = engine._prefill_slot
+
+    def counted_prefill(*a, **kw):
+        admitted.append(1)
+        return prefill_slot(*a, **kw)
+
+    engine._prefill_slot = counted_prefill
     reset_counters()
     t0 = time.perf_counter()
     reqs = [sched.submit(p, g) for p, g in serve_requests()[:8]]
     sched.run()
     wall = time.perf_counter() - t0
-    got = read_counters()["paged_flash_decode"]
-    print(f"  kv_layout={engine.kv_layout}, {sum(len(r.output) for r in reqs)} tokens in "
-          f"{wall:.2f} s, decode {engine.stats.decode_tps:.2f} tok/s, "
-          f"paged_flash_decode launches {got} (want {VICUNA.num_layers * engine.decode_forwards})")
+    launches = read_counters()
+    want = expected_launches(quant, b8_forwards=engine.decode_forwards, prefills=len(admitted))
+    stats = dict(quant=quant, tokens=sum(len(r.output) for r in reqs), wall_s=wall,
+                 decode_tok_s=engine.stats.decode_tps, decode_forwards=engine.decode_forwards,
+                 admissions=len(admitted), prefill_s=engine.stats.prefill_time)
+    print(f"  kv_layout={engine.kv_layout}, {stats['tokens']} tokens in {wall:.2f} s, "
+          f"decode {engine.stats.decode_tps:.2f} tok/s over {engine.decode_forwards} forwards, "
+          f"{len(admitted)} admissions, prefill {engine.stats.prefill_time:.2f} s")
+    print(f"  launches: {launches} (want {want})")
     if not all(r.done and r.output for r in reqs):
         fail("int8 auto run: a request did not complete")
-    if engine.decode_forwards == 0 or got != VICUNA.num_layers * engine.decode_forwards:
-        fail("int8 auto run: paged_flash_decode launches do not match its decode forwards")
+    if engine.decode_forwards == 0 or launches != want:
+        fail("int8 auto run: launch counts do not match the path")
+    return launches, stats
 
 
 def main():
@@ -550,8 +659,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     t0 = time.perf_counter()
-    build_kernels(["dequant_gemv_qs", "dequant_gemm_qs", "paged_flash_decode"],
-                  extra_flags=("-Xptxas", "-v"))
+    build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
     rows = kernel_phase()
@@ -561,34 +669,56 @@ def main():
     torch.cuda.synchronize()
     print(f"full-depth params in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    chat = chat_phase(params)
+    paths = {}
+    paths["chat"], chat_stats = chat_phase(params)
     torch.cuda.empty_cache()
-    serve, serve_stats = serve_phase(params)
+    paths["serve"], serve_stats = serve_phase(params)
     torch.cuda.empty_cache()
-    int8_auto_phase(params)
+    paths["int8_auto"], _ = int8_auto_phase(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # per kernel: its main-path shape (GEMV: w_in at decode m=1; GEMM: w_in
+    t0 = time.perf_counter()
+    params = init_random_params(VICUNA, "q3bf16_s16", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"full-depth q3bf16_s16 params in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    paths["q3_chat"], q3_chat_stats = chat_phase(params, "q3bf16_s16", torch.int8)
+    torch.cuda.empty_cache()
+    paths["q3_serve"], q3_serve_stats = int8_auto_phase(params, "q3bf16_s16")
+    del params
+
+    # per kernel: its main-path shape (GEMVs: w_in at decode m=1; GEMMs: w_in
     # at prefill m=128; paged: bf16 KV at b8); every shape is in "shapes".
-    # launches: the serve path's counts, and each path's in launches_by_path
+    # launches: the count on the kernel's own slice's path (the q4 serve
+    # phase for rows 1-3 and 7, the q3 chat phase for rows 4-6), and each
+    # path's count in launches_by_path
     kernels = []
-    tops = {"gemv_qs": ("w_in", 1), "gemm_qs": ("w_in", 128),
-            "paged_flash_decode": ("vicuna b8 bf16 KV", SERVE_BATCH)}
-    for kname, (shape, m) in tops.items():
+    tops = {"gemv_qs": ("q4bf16", "w_in", 1, "serve"),
+            "gemm_qs": ("q4bf16", "w_in", 128, "serve"),
+            "gemv_gp3": ("q3bf16_s16", "w_in", 1, "q3_chat"),
+            "gemm_plane": ("q3bf16_s16", "w_in", 128, "q3_chat"),
+            "paged_flash_decode": (None, "vicuna b8 bf16 KV", SERVE_BATCH, "serve")}
+    for kname, (quant, shape, m, path) in tops.items():
         mine = [r for r in rows if r["kernel"] == kname]
-        top = next(r for r in mine if r["shape"] == shape and r["m"] == m)
+        top = next(r for r in mine
+                   if r.get("quant") == quant and r["shape"] == shape and r["m"] == m)
         src, replaces = SOURCES[kname]
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=serve[kname], launches_by_path={"chat": chat[kname], "serve": serve[kname]},
+            launches=paths[path][kname],
+            launches_by_path={p: c[kname] for p, c in paths.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
-            shapes=[{k: r[k] for k in ("shape", "m", "k", "n", "max_abs_err", "ms",
-                                        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            shapes=[{k: r.get(k) for k in ("quant", "shape", "m", "k", "n", "max_abs_err", "ms",
+                                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
                     for r in mine]))
-    if not all(math.isfinite(k["ms"]) for k in kernels):
-        fail("a kernel time is not finite")
-    print(json.dumps({"serve": serve_stats}))
+    if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels):
+        fail("a kernel time is not finite or a kernel never ran on its path")
+    print(json.dumps({"chat": chat_stats, "serve": serve_stats, "q3_chat": q3_chat_stats,
+                      "q3_serve": q3_serve_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

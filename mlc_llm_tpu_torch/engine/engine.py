@@ -68,9 +68,11 @@ class InferenceEngine:
         device="cuda",
     ):
         """params may live on any device; they are moved to `device`.
-        Every quantized leaf is zero-padded to a multiple of 32 groups
-        (exact), as the reference engine does, so the kernels see the
-        reference's stored shapes (w_out at 7B: 344 -> 352 groups).
+        Every word-packed quantized leaf (u32 or u16 words, any code
+        width) is zero-padded to a multiple of 32 groups (exact), as the
+        reference engine does, so the kernels see the reference's stored
+        shapes (w_out at 7B: 344 -> 352 groups in q4, 276 -> 288 in q3,
+        where k=4096 goes 103 -> 128); int8 planes stay as they are.
 
         kv_layout: "slot", "paged" or "auto" (see the module doc).
         num_pages defaults to the slot-equivalent capacity plus the null

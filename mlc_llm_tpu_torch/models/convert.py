@@ -6,7 +6,8 @@ NumPy arrays or quantized-tensor objects (``data``, ``scale``, ``zero``,
 ``spec``, ``shape``) holding NumPy arrays. It imports neither jax nor
 the JAX package: the leaves are read by duck typing.
 
-- u32 words become an int32 view (the same bits).
+- u32 words become an int32 view and u16 words an int16 view (the same
+  bits); int8 planes pass through.
 - bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses: it is viewed as int16, then as ``torch.bfloat16``.
 """
@@ -26,6 +27,8 @@ def tensor_from_numpy(a) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     if a.dtype == np.uint32:
         return torch.from_numpy(a.view(np.int32).copy())
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy())
     return torch.from_numpy(a.copy())
 
 

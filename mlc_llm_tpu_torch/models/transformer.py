@@ -28,7 +28,14 @@ from ..ops import resolve_device
 from ..ops.attention import attend_cache
 from ..ops.matmul import qmatmul, qmatmul_stacked
 from ..ops.paged_attention import paged_flash_decode
-from ..quant.groupwise import QuantizedTensor, pad_cols, quantize, take_dequantize, torch_dtype
+from ..quant.groupwise import (
+    QuantizedTensor,
+    pad_cols,
+    quantize,
+    take_dequantize,
+    torch_dtype,
+    words_per_group,
+)
 from ..quant.spec import QuantSpec, resolve_spec, spec_for_k
 from .config import ModelConfig
 from .layers import activate, apply_rotary, layer_norm, make_rotary_tables, rms_norm
@@ -350,14 +357,24 @@ def init_random_params(cfg: ModelConfig, quant, seed: int = 0, scale: float = 0.
         return torch.randn((k, n), generator=gen, device=dev) * scale
 
     def fab(k, n, fspec: QuantSpec):
+        # the stored layout of quantize(): i8 planes [G*g, N], or words
+        # [G * words_per_group, N] as int32 (u32) / int16 (u16) bits
+        if fspec.storage == "u4":
+            raise NotImplementedError("u4 plane storage is not ported (ROADMAP.md queue 2)")
         g = fspec.group_size
         ngroups = -(-k // g)
         n_st = pad_cols(n)
-        data = torch.randint(-2**31, 2**31, (ngroups * g // 8, n_st), generator=gen,
-                             device=dev, dtype=torch.int64).to(torch.int32)
+        if fspec.storage == "i8":
+            data = torch.randint(-127, 128, (ngroups * g, n_st), generator=gen, device=dev,
+                                 dtype=torch.int8)
+        else:
+            half = 2**31 if fspec.storage == "u32" else 2**15
+            data = torch.randint(-half, half, (ngroups * words_per_group(fspec), n_st),
+                                 generator=gen, device=dev, dtype=torch.int64)
+            data = data.to(torch.int32 if fspec.storage == "u32" else torch.int16)
         qscale = (torch.randn((ngroups, n_st), generator=gen, device=dev).abs()
                   * scale / max(fspec.max_int, 1)).to(torch_dtype(fspec.dtype))
-        zero = None if fspec.sym else (-qscale * 8).to(qscale.dtype)
+        zero = None if fspec.sym else (-qscale * (1 << (fspec.nbit - 1))).to(qscale.dtype)
         return QuantizedTensor(data=data, scale=qscale, zero=zero, spec=fspec, shape=(k, n))
 
     def mk(k, n, sp=None):

@@ -27,6 +27,10 @@ BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+# every source under csrc/: the kernels of the port's paths
+KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp3", "dequant_gemm_plane",
+           "paged_flash_decode")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

@@ -1,11 +1,36 @@
-"""Fused int4 dequant + matmul for the qsplit layout: two CUDA kernels,
-their plain PyTorch versions and launch counters.
+"""Fused dequant + matmul: four CUDA kernels, their plain PyTorch versions,
+launch counters, and the routing that picks one.
 
-- ``gemv_qs`` (``csrc/dequant_gemv_qs.cu``) replaces the Pallas
-  group-partial GEMV ``_kernel_gp`` / ``_gp_body_qs``
-  (``mlc_llm_tpu/ops/pallas/dequant_matmul.py``): decode, m <= 8.
-- ``gemm_qs`` (``csrc/dequant_gemm_qs.cu``) replaces the Pallas pairs
-  GEMM ``_kernel_pairs_qs``: prefill, 8 < m <= 2048.
+Routing mirrors the JAX dispatch (``mlc_llm_tpu/ops/pallas/
+dequant_matmul.py:1788-1876``, stacked and flat alike), in its order:
+
+1. ``gp3_matmul_supported`` (``:432-440``: int3, u16, group 40, sym,
+   m <= 2, G % 16 == 0) -> ``gemv_gp3`` (``csrc/dequant_gemv_gp3.cu``,
+   replaces ``_dequant_matmul_gp3_2d``, PERF.md row 6);
+2. ``gp_matmul_supported`` (``:1006-1023``: int4, u32, group 32, m <= 8,
+   groups blockable) -> ``gemv_qs`` for qsplit (``csrc/dequant_gemv_qs.cu``,
+   ``_dequant_matmul_gp_2d``, row 1); hsplit/pair bodies are not ported;
+3. a split layout whose group count the TPU kernels cannot block
+   (``:1817``, ``:1863``) -> dense: dequantize, then ``torch.matmul``;
+4. int4 in u32 words -> ``gemm_qs`` for qsplit (``csrc/dequant_gemm_qs.cu``,
+   ``_kernel_pairs_qs``, rows 2-3); hsplit/pair are not ported;
+5. everything else word-packed or i8 -> ``gemm_plane``
+   (``csrc/dequant_gemm_plane.cu``, ``_dequant_matmul_2d``'s generic
+   branch and ``_dequant_matmul_stacked_generic_2d``, rows 4-5); its CUDA
+   kernel takes the sym int3, fp4 and int8 presets, and int4 in u16 words
+   (no preset) runs only on the CPU.
+
+Above m = 2048 rows the weight is dequantized once and multiplied
+(``mlc_llm_tpu/ops/matmul.py`` ``prefill_kernel_max_m``). For the presets:
+
+==========================  =========  ==========  ============  ========
+format                      m <= 2     2 < m <= 8  8 < m <= 2048  m > 2048
+==========================  =========  ==========  ============  ========
+q4bf16 (qsplit, G % 32 0)   gemv_qs    gemv_qs     gemm_qs       dense
+q3bf16_s16 (G % 16 == 0)    gemv_gp3   gemm_plane  gemm_plane    dense
+q3bf16, fp4bf16, q8bf16     gemm_plane gemm_plane  gemm_plane    dense
+q4bf16_hs, q4bf16_pair      not ported (ROADMAP queue 1, item 6)  dense
+==========================  =========  ==========  ============  ========
 
 Each wrapper picks its path from the tensors' device: CPU tensors run
 the plain version (``*_plain``), CUDA tensors launch the kernel or
@@ -22,18 +47,59 @@ from typing import Optional
 
 import torch
 
-from ..quant.groupwise import QuantizedTensor, _unpack_words
-from ..quant.spec import QUANT_PRESETS
+from ..quant.groupwise import (
+    QuantizedTensor,
+    _f4_to_float,
+    _unpack_words,
+    dequantize,
+    words_per_group,
+)
+from ..quant.spec import QUANT_PRESETS, QuantSpec
 from . import check_launch, load_kernel
 
 GEMV_MAX_M = 8       # gp_matmul_supported: m <= 8
+GP3_MAX_M = 2        # gp3_matmul_supported: m <= 2
 GEMM_MAX_M = 2048    # matmul.py prefill_kernel_max_m()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _GEMV_ARGS = {"mlc_gemv_qs_splits": [_I], "mlc_gemv_qs": [_P] * 6 + [_I] * 5 + [_P]}
 _GEMM_ARGS = {"mlc_gemm_qs": [_P] * 5 + [_I] * 5 + [_P]}
+_GP3_ARGS = {"mlc_gemv_gp3_splits": [_I], "mlc_gemv_gp3": [_P] * 5 + [_I] * 4 + [_P]}
+_PLANE_ARGS = {"mlc_gemm_plane_splits": [_I] * 3,
+               "mlc_gemm_plane": [_I] + [_P] * 5 + [_I] * 6 + [_P]}
 _QSPLIT = QUANT_PRESETS["q4bf16"]
+_Q3S16 = QUANT_PRESETS["q3bf16_s16"]
+# the plane kernel's formats, all sym: (mode, storage, group size) -> its
+# format id (csrc/dequant_gemm_plane.cu, enum Format)
+PLANE_FORMATS = {("int3", "u32", 40): 0, ("int3", "u16", 40): 1, ("fp4", "u32", 32): 2,
+                 ("int8", "i8", 32): 3}
+_WORD_DTYPES = {"u32": torch.int32, "u16": torch.int16, "i8": torch.int8}
+
+
+def route(spec: QuantSpec, n_groups: int, m: int) -> str:
+    """The kernel the JAX dispatch picks for a quantized weight of
+    n_groups groups at m rows (see the module doc):
+    "gemv_gp3", "gemv_qs", "gemm_qs", "gemm_plane", "dense", or
+    "gemv_gp" / "gemm_pairs" for the int4 hsplit and pair bodies, which
+    have no CUDA kernel yet."""
+    if m > GEMM_MAX_M or spec.storage not in ("u32", "u16", "i8"):
+        return "dense"
+    if (spec.mode == "int3" and spec.storage == "u16" and spec.group_size == 40 and spec.sym
+            and m <= GP3_MAX_M and n_groups % 16 == 0):
+        return "gemv_gp3"
+    int4w = spec.mode == "int4" and spec.storage == "u32"
+    # split layouts fetch per-plane scale blocks of G/2 (hsplit) or G/4
+    # (qsplit) rows, which must be 8-row multiples (:1026-1045)
+    blockable = {"qsplit": n_groups % 32 == 0, "hsplit": n_groups % 16 == 0}.get(
+        spec.layout, True)
+    if int4w and spec.group_size == 32 and m <= GEMV_MAX_M and blockable and n_groups % 8 == 0:
+        return "gemv_qs" if spec.layout == "qsplit" else "gemv_gp"
+    if not blockable:
+        return "dense"
+    if int4w:
+        return "gemm_qs" if spec.layout == "qsplit" and spec.group_size == 32 else "gemm_pairs"
+    return "gemm_plane"
 
 
 def _codes16(words: torch.Tensor) -> torch.Tensor:
@@ -79,32 +145,92 @@ def gemm_qs_plain(x, words, scale, zero, out_dtype):
     return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
+def gemv_gp3_plain(x, words, scale, out_dtype):
+    """Plain version of the int3/u16 GEMV (_gp3_body), in its arithmetic
+    order. u16 word r holds k = 5r + i at bits 3i; a group is 8 words
+    (40 k). Per group, f32 partials P = sum x*(8+q); each of the five
+    fields' 8-element sums of x rounded to bf16, then added in f32 (sx);
+    y = sum_g s*(P - (8+max_int)*sx) with f32 scales. x: [m, 40G];
+    words [8G, N] int16; scale [G, N]; returns [m, N] in out_dtype."""
+    m, K = x.shape
+    G, N = scale.shape
+    xg = x.float().reshape(m, G, 40)
+    vals = (_unpack_words(words, _Q3S16).to(torch.float32) + 8.0).reshape(G, 40, N)
+    P = torch.einsum("mgk,gkn->mgn", xg, vals)
+    sx = xg.reshape(m, G, 8, 5).sum(dim=2).to(torch.bfloat16).float().sum(dim=2)
+    y = (scale.float()[None] * (P - float(8 + _Q3S16.max_int) * sx[:, :, None])).sum(dim=1)
+    return y.to(out_dtype)
+
+
+def plane_weight_plain(data, scale, spec: QuantSpec, dtype=torch.bfloat16) -> torch.Tensor:
+    """The plane kernel's weight [K_stored, N]: value(code) * s rounded to
+    `dtype` (the TPU kernel's rounding point, dequant_matmul.py:396).
+    value is the raw code for int3/int4 (the offset is a separate term),
+    ±2^(e-7) or 0 for fp4, and the stored signed byte for i8."""
+    G, N = scale.shape
+    if spec.storage == "i8":
+        vals = data.to(dtype)
+    else:
+        codes = _unpack_words(data, spec)
+        vals = _f4_to_float(codes, dtype) if spec.mode == "fp4" else codes.to(dtype)
+    return (vals.reshape(G, -1, N) * scale.to(dtype)[:, None, :]).reshape(-1, N)
+
+
+def gemm_plane_plain(x, data, scale, zero, spec: QuantSpec, out_dtype):
+    """Plain version of the plane GEMM (_kernel, dequant_matmul.py:362):
+    y = x @ W in f32 with W from plane_weight_plain, plus, for word-packed
+    int formats, the folded offset sum_kw bf16(sum_i x[kw*epw+i]) * off[g]
+    with off = bf16(-max_int*s) (sym) or z (asym). x: [m, K_stored] with
+    K_stored = rows * epw (words) or rows (i8); returns [m, N]."""
+    m = x.shape[0]
+    G = scale.shape[0]
+    cdtype = x.dtype
+    y = torch.matmul(x.float(), plane_weight_plain(data, scale, spec, cdtype).float())
+    if spec.storage != "i8" and spec.mode != "fp4":
+        kw = data.shape[0]
+        xs = x.float().reshape(m, kw, spec.elems_per_word).sum(dim=2).to(cdtype).float()
+        t = xs.reshape(m, G, words_per_group(spec)).sum(dim=2)
+        off = scale.to(cdtype) * -spec.max_int if spec.sym else zero.to(cdtype)
+        y = y + torch.matmul(t, off.float())
+    return y.to(out_dtype)
+
+
 def _layer_view(t: Optional[torch.Tensor], layer: Optional[int]):
     if t is None or layer is None:
         return t
     return t[layer]
 
 
-def _check_cuda_args(name, x, data, scale, zero, layer, out_dtype):
+def _check_cuda_args(name, x, data, scale, zero, layer, out_dtype, *, word_dtype,
+                     k_per_row, group_k, g_mult=1, n_mult=64):
+    """Device, dtype, contiguity, alignment and shape checks before a
+    launch: x [m, K] with K = k_per_row * rows = group_k * G, N % n_mult
+    == 0, G % g_mult == 0, data/scale/zero stacked exactly when layer is
+    given."""
     if x.dtype != torch.bfloat16 or scale.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"{name}: CUDA kernels take bf16 activations and scales, got "
             f"{x.dtype}/{scale.dtype} (f16 and f32 compute: ROADMAP.md queue 1, item 6)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"{name}: out_dtype {out_dtype} not supported")
+    if data.dtype != word_dtype:
+        raise ValueError(f"{name}: weight data must be {word_dtype}, got {data.dtype}")
     for t in (x, data, scale) + (() if zero is None else (zero,)):
         if t.device != x.device:
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned")
+    if x.data_ptr() % 16 or data.data_ptr() % 16:
+        raise ValueError(f"{name}: x and the weight data must be 16-byte aligned")
     K = x.shape[1]
-    kw, N = data.shape[-2:]
-    if K != 8 * kw or K % 128 or N % 64 or scale.shape[-2:] != (K // 32, N):
+    rows, N = data.shape[-2:]
+    G = scale.shape[-2]
+    if (K != k_per_row * rows or K != group_k * G or G % g_mult or N % n_mult
+            or scale.shape[-1] != N or (zero is not None and zero.shape != scale.shape)):
         raise ValueError(
-            f"{name}: bad shapes x {tuple(x.shape)}, words {tuple(data.shape)}, "
-            f"scale {tuple(scale.shape)} (need K = 8*KW, K % 128 == 0, N % 64 == 0)")
+            f"{name}: bad shapes x {tuple(x.shape)}, data {tuple(data.shape)}, "
+            f"scale {tuple(scale.shape)} (need K = {k_per_row}*rows = {group_k}*G, "
+            f"G % {g_mult} == 0, N % {n_mult} == 0)")
     if (data.ndim == 3) != (layer is not None):
         raise ValueError(f"{name}: pass layer exactly when the weights are stacked")
     if data.ndim == 3 and not 0 <= layer < data.shape[0]:
@@ -112,12 +238,19 @@ def _check_cuda_args(name, x, data, scale, zero, layer, out_dtype):
 
 
 def _ptrs(data, scale, zero, layer):
-    """Layer-l base pointers into stacked [L, ...] buffers (no copy)."""
-    lw = 0 if layer is None else layer
-    wp = data.data_ptr() + lw * data.shape[-2] * data.shape[-1] * 4
-    sp = scale.data_ptr() + lw * scale.shape[-2] * scale.shape[-1] * 2
-    zp = None if zero is None else zero.data_ptr() + lw * zero.shape[-2] * zero.shape[-1] * 2
-    return wp, sp, zp
+    """Layer-l base pointers into stacked [L, ...] buffers (no copy): the
+    offset is l times one layer's bytes, from each tensor's own element
+    size (int32/int16/int8 data, bf16 scales)."""
+    def at(t):
+        if t is None:
+            return None
+        return t.data_ptr() + (0 if layer is None else layer * t.stride(0) * t.element_size())
+
+    return at(data), at(scale), at(zero)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
@@ -127,7 +260,8 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     if x.device.type == "cpu":
         return gemv_qs_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                              _layer_view(zero, layer), out_dtype)
-    _check_cuda_args("gemv_qs", x, data, scale, zero, layer, out_dtype)
+    _check_cuda_args("gemv_qs", x, data, scale, zero, layer, out_dtype, word_dtype=torch.int32,
+                     k_per_row=8, group_k=32, g_mult=4)
     m, K = x.shape
     N = data.shape[-1]
     if not 1 <= m <= GEMV_MAX_M:
@@ -139,8 +273,7 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     err = lib.mlc_gemv_qs(
         x.data_ptr(), wp, sp, zp, partial.data_ptr(), out.data_ptr(), m, K, N,
-        int(zero is None), int(out_dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(zero is None), int(out_dtype == torch.float32), _stream(x))
     check_launch(err, "gemv_qs")
     gemv_qs.launches += 1
     return out
@@ -154,7 +287,8 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     if x.device.type == "cpu":
         return gemm_qs_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                              _layer_view(zero, layer), out_dtype)
-    _check_cuda_args("gemm_qs", x, data, scale, zero, layer, out_dtype)
+    _check_cuda_args("gemm_qs", x, data, scale, zero, layer, out_dtype, word_dtype=torch.int32,
+                     k_per_row=8, group_k=32, g_mult=4)
     m, K = x.shape
     N = data.shape[-1]
     lib = load_kernel("dequant_gemm_qs", _GEMM_ARGS)
@@ -162,8 +296,7 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     err = lib.mlc_gemm_qs(
         x.data_ptr(), wp, sp, zp, out.data_ptr(), m, K, N,
-        int(zero is None), int(out_dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(zero is None), int(out_dtype == torch.float32), _stream(x))
     check_launch(err, "gemm_qs")
     gemm_qs.launches += 1
     return out
@@ -172,32 +305,115 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
 gemm_qs.launches = 0
 
 
-def kernel_supported(w: QuantizedTensor) -> bool:
-    """Does the weight's format have a hand-written kernel?"""
-    spec = w.spec
-    return (spec.mode == "int4" and spec.storage == "u32" and spec.group_size == 32
-            and spec.layout == "qsplit")
+def gemv_gp3(x, data, scale, layer=None, out_dtype=torch.bfloat16):
+    """int3/u16 group-partial GEMV (q3*_s16, sym, group 40). x: [m <= 2,
+    40G] bf16; data int16 [8G, N] or [L, 8G, N] (then pass `layer`);
+    scale [G, N] like data, G % 16 == 0. Returns [m, N] in out_dtype."""
+    if x.device.type == "cpu":
+        return gemv_gp3_plain(x, _layer_view(data, layer), _layer_view(scale, layer), out_dtype)
+    _check_cuda_args("gemv_gp3", x, data, scale, None, layer, out_dtype,
+                     word_dtype=torch.int16, k_per_row=5, group_k=40, g_mult=16, n_mult=8)
+    m = x.shape[0]
+    G, N = scale.shape[-2:]
+    if not 1 <= m <= GP3_MAX_M:
+        raise ValueError(f"gemv_gp3: m={m} outside 1..{GP3_MAX_M}")
+    lib = load_kernel("dequant_gemv_gp3", _GP3_ARGS)
+    splits = lib.mlc_gemv_gp3_splits(G)
+    partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    wp, sp, _ = _ptrs(data, scale, None, layer)
+    err = lib.mlc_gemv_gp3(x.data_ptr(), wp, sp, partial.data_ptr(), out.data_ptr(), m, G, N,
+                           int(out_dtype == torch.float32), _stream(x))
+    check_launch(err, "gemv_gp3")
+    gemv_gp3.launches += 1
+    return out
+
+
+gemv_gp3.launches = 0
+
+
+def gemm_plane(x, data, scale, zero, spec: QuantSpec, layer=None, out_dtype=torch.bfloat16):
+    """Plane dequant GEMM for int3 (u32/u16 words), fp4 and int8, at any m
+    up to 2048. x: [m, K_stored] bf16; data [KW, N] words or an int8 plane
+    [K, N] (or [L, ...], then pass `layer`); scale/zero [G, N] like data;
+    zero None unless asym (the plain version's only: the kernel's formats
+    are sym). Returns [m, N]."""
+    if x.device.type == "cpu":
+        return gemm_plane_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
+                                _layer_view(zero, layer), spec, out_dtype)
+    fmt = PLANE_FORMATS.get((spec.mode, spec.storage, spec.group_size))
+    if fmt is None or not spec.sym or zero is not None:
+        raise NotImplementedError(
+            f"gemm_plane: no CUDA kernel for {'sym' if spec.sym else 'asym'} "
+            f"{spec.mode}/{spec.storage}/group {spec.group_size} (sym formats: "
+            f"{sorted(PLANE_FORMATS)})")
+    epw = 1 if spec.storage == "i8" else spec.elems_per_word
+    _check_cuda_args("gemm_plane", x, data, scale, None, layer, out_dtype,
+                     word_dtype=_WORD_DTYPES[spec.storage], k_per_row=epw,
+                     group_k=spec.group_size)
+    m = x.shape[0]
+    G, N = scale.shape[-2:]
+    if not 1 <= m <= GEMM_MAX_M:
+        raise ValueError(f"gemm_plane: m={m} outside 1..{GEMM_MAX_M}")
+    lib = load_kernel("dequant_gemm_plane", _PLANE_ARGS)
+    splits = lib.mlc_gemm_plane_splits(m, G, N)
+    partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    wp, sp, _ = _ptrs(data, scale, None, layer)
+    err = lib.mlc_gemm_plane(
+        fmt, x.data_ptr(), wp, sp, None if partial is None else partial.data_ptr(),
+        out.data_ptr(), m, G, N, splits, spec.max_int, int(out_dtype == torch.float32),
+        _stream(x))
+    check_launch(err, "gemm_plane")
+    gemm_plane.launches += 1
+    return out
+
+
+gemm_plane.launches = 0
+
+
+def dense_matmul(x, w: QuantizedTensor, out_dtype=None, layer=None):
+    """Dequantize (layer `layer` of a stacked w), then multiply in f32:
+    the path without a kernel, as JAX leaves it to XLA."""
+    if layer is not None:
+        w = w.map(lambda t: t[layer])
+    wd = dequantize(w, dtype=x.dtype)
+    return torch.matmul(x.float(), wd.float()).to(out_dtype or x.dtype)
 
 
 def dequant_matmul(x, w: QuantizedTensor, out_dtype=None, layer=None):
-    """x: [..., k] @ dequant(w) -> [..., n] through the qsplit kernels:
-    the GEMV for m <= 8, the GEMM for 8 < m <= 2048. `layer` selects a
-    layer of a stacked w (the stacked kernels' pointer offset)."""
-    if not kernel_supported(w):
+    """x: [..., k] @ dequant(w) -> [..., n] through the kernel that
+    `route` picks (gemv_gp3, gemv_qs, gemm_qs or gemm_plane). `layer`
+    selects a layer of a stacked w (the kernels' pointer offset). int4
+    in the hsplit or pair order raises: those bodies have no kernel yet.
+    A qsplit weight whose groups the TPU kernels cannot block is
+    dequantized and multiplied, as JAX does here (:1863-1870)."""
+    spec = w.spec
+    if spec.mode == "int4" and spec.storage == "u32" and spec.layout != "qsplit":
         raise NotImplementedError(
-            f"no CUDA kernel for {w.spec.layout}/{w.spec.mode} weights yet "
-            "(ROADMAP.md queue 1, items 6-7: hsplit and pair bodies, q3/fp4/q8)")
+            f"no CUDA kernel for {spec.layout}/{spec.mode} weights yet "
+            "(ROADMAP.md queue 1, item 6: the hsplit and pair bodies)")
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     m = x2.shape[0]
     if m > GEMM_MAX_M:
         raise ValueError(f"m={m} exceeds the kernels' {GEMM_MAX_M}; use qmatmul")
-    k_stored = w.data.shape[-2] * 8
+    kind = route(spec, w.n_groups, m)
+    if kind == "dense":
+        return dense_matmul(x, w, out_dtype, layer)
+    rows = w.data.shape[-2]
+    k_stored = rows if spec.storage == "i8" else rows * spec.elems_per_word
     if x2.shape[1] != k_stored:
         # zero activations over the padded groups (their scales are zero)
         x2 = torch.nn.functional.pad(x2, (0, k_stored - x2.shape[1]))
     x2 = x2.contiguous()
-    fn = gemv_qs if m <= GEMV_MAX_M else gemm_qs
-    y = fn(x2, w.data, w.scale, w.zero, layer=layer, out_dtype=out_dtype)
+    if kind == "gemv_gp3":
+        y = gemv_gp3(x2, w.data, w.scale, layer=layer, out_dtype=out_dtype)
+    elif kind == "gemm_plane":
+        y = gemm_plane(x2, w.data, w.scale, w.zero, spec, layer=layer, out_dtype=out_dtype)
+    else:
+        fn = gemv_qs if kind == "gemv_qs" else gemm_qs
+        y = fn(x2, w.data, w.scale, w.zero, layer=layer, out_dtype=out_dtype)
     return y[:, : w.shape[1]].reshape(*lead, w.shape[1])

@@ -1,4 +1,4 @@
-"""Group-wise weight-only quantization core (int4 in u32 words)."""
+"""Group-wise weight-only quantization core (int4, int3, fp4 and int8)."""
 
 from .spec import QuantSpec, QUANT_PRESETS, resolve_spec, spec_for_k
 from .groupwise import (

@@ -1,16 +1,22 @@
-"""Group-wise int4 encode/decode in PyTorch.
+"""Group-wise encode/decode in PyTorch.
 
 The counterpart of ``mlc_llm_tpu/quant/groupwise.py``: the same codes,
-scales and minima, bit for bit, in the same storage layout (packed
-words ``[k_stored // 8, n]``, groups along k, columns lane-padded).
+scales and minima, bit for bit, in the same storage layouts:
 
-Packed u32 words live as ``torch.int32`` holding the same bits: torch's
-``uint32`` lacks most operators. Right shifts on int32 are arithmetic,
-so every shift is followed by a mask.
+- ``u32`` / ``u16`` words ``[k_words // epw, n]``: ``epw`` codes of
+  ``nbit`` bits per word, LSB first, each group padded to a whole number
+  of words (int4: 8 per u32 in the pair, hsplit or qsplit order; int3: 10
+  per u32 or 5 per u16; fp4: 8 per u32);
+- ``i8`` planes ``[k_pad, n]`` holding ``code - max_int`` (int8).
 
-Only int4 in u32 words is ported (pair, hsplit and qsplit orders, asym
-and sym); the int3, fp4, int8 and u4-plane formats wait for their
-kernels (ROADMAP.md, queue 2).
+Groups run along k; columns are lane-padded (``pad_cols``). u32 words
+live as ``torch.int32`` and u16 words as ``torch.int16`` holding the same
+bits: torch's unsigned types lack most operators. Right shifts on signed
+types are arithmetic, so every shift is followed by a mask.
+
+fp4 codes are sign | 3-bit exponent, ``±2^(e-7)`` and 0 when e == 0, with
+the group absmax as the scale. The native u4 plane storage
+(``q4bf16_plane``) is not ported (ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ _DTYPES = {
     "float16": torch.float16,
     "float32": torch.float32,
 }
+_WORD_DTYPES = {"u32": torch.int32, "u16": torch.int16}
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -43,11 +50,19 @@ def pad_cols(n: int) -> int:
     return -(-n // mult) * mult
 
 
+def words_per_group(spec: QuantSpec) -> int:
+    """Stored rows per group: words for u32/u16, elements for i8."""
+    if spec.storage == "i8":
+        return spec.group_size
+    return -(-spec.group_size // spec.elems_per_word)
+
+
 @dataclasses.dataclass
 class QuantizedTensor:
     """A packed group-quantized 2-D weight, flat or layer-stacked.
 
-    data:  int32 words [KW, N] (or [L, KW, N]), 8 codes per word.
+    data:  words [KW, N] (or [L, KW, N]): int32 (u32 bits) or int16 (u16
+           bits); or an int8 plane [K, N] for i8 storage.
     scale: [G, N] (or [L, G, N]) in the compute dtype.
     zero:  group minima like scale (asym), else None.
     shape: the LOGICAL (k, n).
@@ -71,6 +86,11 @@ class QuantizedTensor:
     def n_groups(self) -> int:
         return self.scale.shape[-2]
 
+    def nbytes(self) -> int:
+        """Stored bytes: data, scales and minima."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.data, self.scale, self.zero) if t is not None)
+
     def map(self, fn) -> "QuantizedTensor":
         """Apply fn to every tensor field (device moves, layer slices)."""
         return QuantizedTensor(
@@ -79,11 +99,31 @@ class QuantizedTensor:
             spec=self.spec, shape=self.shape)
 
 
-def _check_int4_u32(spec: QuantSpec) -> None:
-    if not (spec.mode == "int4" and spec.storage == "u32"):
+def _check_ported(spec: QuantSpec) -> None:
+    if spec.storage == "u4":
         raise NotImplementedError(
-            f"{spec.mode}/{spec.storage} quantization is not ported yet "
-            "(ROADMAP.md queue 2: kernels 4-6 for q3, fp4 and q8)")
+            "u4 plane storage (q4bf16_plane) is not ported (ROADMAP.md queue 2)")
+
+
+def _f32_to_f4(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> 4-bit (sign | 3-bit exponent) code, round to nearest: the
+    JAX quantizer's bit recipe (exponent rounded up by the mantissa MSB)."""
+    u = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    m_h = (u >> 22) & 1
+    e_f32 = (u >> 23) & 0xFF
+    s = u >> 31
+    e_f4 = torch.where(e_f32 > 120, torch.clamp(e_f32 - 120 + m_h, max=7),
+                       (e_f32 == 120).to(torch.int64))
+    return (s << 3) | e_f4
+
+
+def _f4_to_float(code: torch.Tensor, dtype) -> torch.Tensor:
+    """4-bit (sign|exp3) code -> float: ±2^(e-7), 0 when e == 0."""
+    code = code.to(torch.int32)
+    e = code & 7
+    mag = torch.where(e == 0, torch.zeros((), dtype=torch.float32),
+                      torch.exp2((e - 7).to(torch.float32)))
+    return torch.where((code >> 3) == 1, -mag, mag).to(dtype)
 
 
 def _interleave(codes: torch.Tensor, layout: str) -> torch.Tensor:
@@ -114,23 +154,30 @@ def _restore(codes: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 def _pack_words(codes: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """[k_pad, n] codes (0..15) -> [k_pad // 8, n] int32 words, LSB first."""
+    """[k_pad, n] codes -> [k_pad // epw, n] words (LSB first) as int32
+    (u32 bits) or int16 (u16 bits)."""
+    epw = spec.elems_per_word
     k_pad, n = codes.shape
     codes = _interleave(codes, spec.layout).to(torch.int64)
-    codes = codes.reshape(k_pad // 8, 8, n)
-    shifts = (torch.arange(8, device=codes.device) * 4)[None, :, None]
+    codes = codes.reshape(k_pad // epw, epw, n)
+    shifts = (torch.arange(epw, device=codes.device) * spec.nbit)[None, :, None]
     # codes occupy disjoint bit ranges, so the sum is a bitwise or
     words = (codes << shifts).sum(dim=1)
-    # the u32 bit pattern as int32 (two's complement)
-    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    half = 2**31 if spec.storage == "u32" else 2**15
+    # the unsigned bit pattern as a signed word (two's complement)
+    words = torch.where(words >= half, words - 2 * half, words)
+    return words.to(_WORD_DTYPES[spec.storage])
 
 
 def _unpack_words(words: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """[rows, n] int32 words -> [rows * 8, n] int32 codes (element order)."""
+    """[rows, n] int32/int16 words -> [rows * epw, n] int32 codes
+    (element order). Fields never straddle the word, so an arithmetic
+    shift followed by the field mask gives the unsigned field."""
+    epw = spec.elems_per_word
     rows, n = words.shape
-    shifts = (torch.arange(8, device=words.device, dtype=torch.int32) * 4)
-    codes = (words[:, None, :] >> shifts[None, :, None]) & 0xF
-    return _restore(codes.reshape(rows * 8, n), spec.layout)
+    shifts = torch.arange(epw, device=words.device, dtype=torch.int32) * spec.nbit
+    codes = (words.to(torch.int32)[:, None, :] >> shifts[None, :, None]) & ((1 << spec.nbit) - 1)
+    return _restore(codes.reshape(rows * epw, n), spec.layout)
 
 
 def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
@@ -140,7 +187,7 @@ def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
     spec = resolve_spec(spec)
     if not spec.is_quantized:
         raise ValueError("cannot quantize with mode='none'")
-    _check_int4_u32(spec)
+    _check_ported(spec)
     if w.ndim != 2:
         raise ValueError(f"quantize expects a 2-D [k, n] weight, got shape {tuple(w.shape)}")
     k, n = w.shape
@@ -161,19 +208,32 @@ def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
     wg = w.reshape(n_groups, g, n)
     if spec.sym:
         absmax = torch.clamp(wg.abs().amax(dim=1), min=1e-4)
-        scale_st = (absmax / spec.max_int).to(dtype)
-        q = torch.round(wg / scale_st.float()[:, None, :]) + spec.max_int
-        q = torch.clamp(q, 0, 2 * spec.max_int)
+        scale_st = (absmax if spec.mode == "fp4" else absmax / spec.max_int).to(dtype)
+        scaled = wg / scale_st.float()[:, None, :]
+        if spec.mode == "fp4":
+            codes = _f32_to_f4(scaled)
+        else:
+            codes = torch.clamp(torch.round(scaled) + spec.max_int, 0, 2 * spec.max_int)
         zero_st = None
     else:
+        levels = (1 << spec.nbit) - 1
         gmin = wg.amin(dim=1)
         gmax = wg.amax(dim=1)
-        scale_st = ((gmax - gmin) / 15).to(dtype)
+        scale_st = ((gmax - gmin) / levels).to(dtype)
         zero_st = gmin.to(dtype)
         safe = torch.clamp(scale_st.float(), min=1e-10)
-        q = torch.round((wg - zero_st.float()[:, None, :]) / safe[:, None, :])
-        q = torch.clamp(q, 0, 15)
-    data = _pack_words(q.to(torch.int32).reshape(k_pad, n), spec)
+        codes = torch.round((wg - zero_st.float()[:, None, :]) / safe[:, None, :])
+        codes = torch.clamp(codes, 0, levels)
+    codes = codes.to(torch.int32).reshape(k_pad, n)
+    if spec.storage == "i8":
+        data = (codes - spec.max_int).to(torch.int8)
+    else:
+        # pad k to a whole number of words per group
+        slots = words_per_group(spec) * spec.elems_per_word
+        if slots != g:
+            codes = torch.nn.functional.pad(
+                codes.reshape(n_groups, g, n), (0, 0, 0, slots - g)).reshape(-1, n)
+        data = _pack_words(codes, spec)
     n_pad = pad_cols(n)
     if n_pad != n:
         cols = (0, n_pad - n)
@@ -190,13 +250,13 @@ def pad_quantized_groups(qt: QuantizedTensor, mult: int = 32) -> QuantizedTensor
 
     Logical shape is unchanged; padded groups have zero scale and zero
     minimum, and the activations are zero there, so every path stays
-    exact. Split layouts map elements by TOTAL k, so they are padded at
-    the code level and repacked, one layer at a time (flat [KW, N] or
+    exact. Word storage only (u32/u16), as in JAX; i8 planes stay as
+    they are. Split layouts map elements by TOTAL k, so they are padded
+    at the code level and repacked, one layer at a time (flat [KW, N] or
     stacked [L, KW, N])."""
     spec = qt.spec
     if not spec.is_quantized or spec.storage not in ("u32", "u16"):
         return qt
-    _check_int4_u32(spec)
     dg = (-qt.n_groups) % mult
     if dg == 0:
         return qt
@@ -217,24 +277,37 @@ def pad_quantized_groups(qt: QuantizedTensor, mult: int = 32) -> QuantizedTensor
         data = (torch.stack([repack(d) for d in qt.data])
                 if qt.data.ndim == 3 else repack(qt.data))
     else:
-        data = padrows(qt.data, dg * spec.group_size // 8)
+        data = padrows(qt.data, dg * words_per_group(spec))
     return QuantizedTensor(data=data, scale=padrows(qt.scale, dg),
                            zero=padrows(qt.zero, dg), spec=spec, shape=qt.shape)
 
 
-def dequantize(qt: QuantizedTensor, dtype=None) -> torch.Tensor:
-    """Decode a flat tensor to a dense [k, n] array: ``q*s + z`` (asym)
-    or ``(q - max_int)*s`` (sym), each op rounded in the output dtype."""
+def _codes(qt: QuantizedTensor) -> torch.Tensor:
+    """Storage -> per-element integer codes [k_stored, n] (int32)."""
     spec = qt.spec
-    _check_int4_u32(spec)
+    _check_ported(spec)
+    if spec.storage == "i8":
+        return qt.data.to(torch.int32) + spec.max_int
+    return _unpack_words(qt.data, spec)
+
+
+def dequantize(qt: QuantizedTensor, dtype=None) -> torch.Tensor:
+    """Decode a flat tensor to a dense [k, n] array: ``q*s + z`` (asym),
+    ``(q - max_int)*s`` (sym int) or ``f4(q)*s`` (fp4), each op rounded
+    in the output dtype."""
+    spec = qt.spec
     out_dtype = torch_dtype(dtype or spec.dtype)
     k, n = qt.shape
     g = spec.group_size
-    codes = _unpack_words(qt.data, spec)
-    G, n_stored = qt.n_groups, codes.shape[1]
-    codes = codes.reshape(G, g, n_stored)
+    G = qt.n_groups
+    codes = _codes(qt)  # [k_stored, n_stored] (columns may be lane-padded)
+    n_stored = codes.shape[1]
+    # words are packed per group: the first g of each group's slots are real
+    codes = codes.reshape(G, -1, n_stored)[:, :g]
     scale = qt.scale.to(out_dtype)[:, None, :]
-    if spec.sym:
+    if spec.mode == "fp4":
+        w = _f4_to_float(codes, out_dtype) * scale
+    elif spec.sym:
         w = (codes - spec.max_int).to(out_dtype) * scale
     else:
         w = codes.to(out_dtype) * scale + qt.zero.to(out_dtype)[:, None, :]

@@ -2,14 +2,16 @@
 
     python scripts/torch_decode_profile.py [--layers 32] [--tokens 16]
         [--batch 1] [--prompt-len 64] [--kv-layout slot|paged] [--kv-dtype bf16|int8]
+        [--quantization q4bf16|q3bf16_s16|q3bf16|fp4bf16|q8bf16]
 
-Builds Vicuna-7B q4bf16 on random weights (full width; --layers cuts the
-depth), prefills --batch prompts of --prompt-len tokens, then runs greedy
-decode under torch.profiler and prints: host wall ms per decode step
-(profiler off), device kernel ms per step (the sum of CUDA kernel self
-times, the prefill's own profile subtracted), the device idle share,
-kernel launches per step, and the kernels ranked by device time. A step
-yields --batch tokens. Needs a CUDA device.
+Builds Vicuna-7B on random weights (full width; --layers cuts the depth)
+in the --quantization preset (default q4bf16), prefills --batch prompts
+of --prompt-len tokens, then runs greedy decode under torch.profiler and
+prints: host wall ms per decode step (profiler off), device kernel ms per
+step (the sum of CUDA kernel self times, the prefill's own profile
+subtracted), the device idle share, kernel launches per step, the
+kernels ranked by device time, and the decode step's own split by
+kernel. A step yields --batch tokens. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,12 +42,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--kv-layout", default="slot", choices=("slot", "paged"))
     ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"))
+    ap.add_argument("--quantization", default="q4bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     cfg = get_config("vicuna-v1-7b").replace(num_layers=args.layers)
-    engine = InferenceEngine(cfg, init_random_params(cfg, "q4bf16", seed=0, device="cuda"),
-                             max_batch=args.batch,
+    params = init_random_params(cfg, args.quantization, seed=0, device="cuda")
+    engine = InferenceEngine(cfg, params, max_batch=args.batch,
                              max_seq_len=max(1536, args.prompt_len + args.tokens + 1),
                              kv_layout=args.kv_layout,
                              cache_dtype=torch.int8 if args.kv_dtype == "int8" else torch.bfloat16,
@@ -81,7 +84,8 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    print(f"batch {args.batch}, {args.kv_layout} {args.kv_dtype} KV, prompt {args.prompt_len}")
+    print(f"{args.quantization}, batch {args.batch}, {args.kv_layout} {args.kv_dtype} KV, "
+          f"prompt {args.prompt_len}")
     print(f"decode without the profiler: {plain_wall:.3f} ms/step "
           f"({1e3 * args.batch / plain_wall:.2f} tok/s)")
     print(f"decode device kernel time: {dec_ms:.3f} ms/step, {dec_launches:.1f} "
@@ -91,6 +95,13 @@ def main(argv=None):
     print("kernels by device time, prefill + decode window (ms total, count):")
     for e in sorted(both, key=_device_us, reverse=True)[:15]:
         print(f"  {_device_us(e) / 1e3:9.3f}  {e.count:6d}  {e.key[:90]}")
+    # the decode window alone: the prefill's profile subtracted per kernel
+    pre_by = {e.key: (_device_us(e), e.count) for e in pre}
+    per_step = sorted(((_device_us(e) - pre_by.get(e.key, (0, 0))[0]) / 1e3 / steps,
+                       (e.count - pre_by.get(e.key, (0, 0))[1]) / steps, e.key) for e in both)
+    print("decode kernels by device time (ms/step, launches/step):")
+    for ms, n, key in per_step[::-1][:10]:
+        print(f"  {ms:9.4f}  {n:7.1f}  {key[:90]}")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
-from mlc_llm_tpu_torch.quant import QUANT_PRESETS, quantize
+from mlc_llm_tpu_torch.quant import QUANT_PRESETS, pad_quantized_groups, quantize
 
 TOL = dict(atol=1e-2, rtol=1e-2)
 
@@ -100,3 +100,67 @@ def test_cuda_paged_flash_decode_matches_plain(int8, rep, hb, ps, lengths):
                                        num_pages_window=maxp, head_dim=D)
     # the same roundings, summed in another order: one bf16 ulp of the output
     torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _stacked(preset, k, n, layers=2):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qts = [pad_quantized_groups(quantize(torch.randn((k, n), generator=g, device="cuda") * 0.02,
+                                         preset)) for _ in range(layers)]
+    z = qts[0].zero
+    return qts, (torch.stack([q.data for q in qts]), torch.stack([q.scale for q in qts]),
+                 None if z is None else torch.stack([q.zero for q in qts]))
+
+
+def _x_for(qt, m):
+    spec = qt.spec
+    rows = qt.data.shape[-2]
+    K = rows if spec.storage == "i8" else rows * spec.elems_per_word
+    return (torch.randn((m, K), device="cuda") * 0.5).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 384)])  # 288 groups; a ragged 256-column edge
+def test_cuda_gemv_gp3_matches_plain(m, k, n):
+    _need_gpu()
+    qts, (data, scale, _) = _stacked("q3bf16_s16", k, n)
+    x = _x_for(qts[1], m)
+    before = dm.gemv_gp3.launches
+    got = dm.gemv_gp3(x, data, scale, layer=1, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert dm.gemv_gp3.launches == before + 1
+    want = dm.gemv_gp3_plain(x, qts[1].data, qts[1].scale, torch.float32)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 200])
+@pytest.mark.parametrize("preset", ["q3bf16_s16", "q3bf16", "fp4bf16", "q8bf16"])
+def test_cuda_gemm_plane_matches_plain(preset, m):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qts, (data, scale, zero) = _stacked(preset, 4096, 4096)
+    x = _x_for(qts[1], m)
+    before = dm.gemm_plane.launches
+    got = dm.gemm_plane(x, data, scale, zero, qts[1].spec, layer=1, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert dm.gemm_plane.launches == before + 1
+    want = dm.gemm_plane_plain(x, qts[1].data, qts[1].scale, qts[1].zero, qts[1].spec,
+                               torch.bfloat16)
+    # identical bf16 weights; the f32 sums run in another order
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,k", [("q3bf16", 200), ("q3bf16_s16", 120), ("q8bf16", 96)])
+def test_cuda_gemm_plane_ragged_groups(preset, k):
+    # group counts that are not a multiple of the kernel's 4-group K step
+    # (5, 3 and 3 groups, unpadded)
+    _need_gpu()
+    spec = QUANT_PRESETS[preset]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qt = quantize(torch.randn((k, 128), generator=g, device="cuda") * 0.02, spec)
+    x = _x_for(qt, 3)
+    got = dm.gemm_plane(x, qt.data, qt.scale, qt.zero, spec, out_dtype=torch.float32)
+    want = dm.gemm_plane_plain(x, qt.data, qt.scale, qt.zero, spec, torch.float32)
+    torch.testing.assert_close(got, want, **TOL)

@@ -1,4 +1,5 @@
-"""The port's int4 quantizer against the JAX quantizer.
+"""The port's int4 quantizer against the JAX quantizer (the other formats:
+tests/test_torch_lowbit_quant.py).
 
 Same fp32 weights in, the packed words, scales and minima must be
 bit-identical (u32 words compared as int32 bits), in all three word
@@ -105,5 +106,7 @@ def test_take_dequantize_matches():
 
 
 def test_unported_format_raises():
+    # int3, fp4 and int8 are ported (tests/test_torch_lowbit_quant.py);
+    # the native u4 plane storage is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize(torch.zeros(80, 128), "q3bf16")
+        quantize(torch.zeros(64, 128), "q4bf16_plane")
