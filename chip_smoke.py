@@ -4,22 +4,28 @@
 
 Phases (any failed check exits non-zero before the last line):
 
-1. card identity (nvidia-smi name and power limit), then the five kernels
-   are built from csrc/ with nvcc, one process per source, all at once
-   (build seconds printed);
+1. card identity (nvidia-smi name and power limit), then the seven kernel
+   sources are built from csrc/ with nvcc, one process per source, all at
+   once (build seconds printed);
 2. kernel phase: each hand-written kernel against its plain PyTorch
-   version on the card, at the Vicuna-7B shapes of the main paths, with
-   kernel, plain, bound and library times: q4bf16 (qsplit GEMV at m=1 and
-   m=8, GEMM at m=128 and m=2048 and on the flat lm head at m=128);
-   q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and 2048);
-   the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1 and m=128;
-   paged flash-decode at batch 8 over mixed lengths, bf16 and int8 KV;
-3. parity phase: a 2-layer Vicuna-7B at full width, the same params
-   through forward on the card (kernels) and on the CPU (plain versions),
-   logits compared for a 64-token prefill and 4 decode steps, in q4bf16 and
-   in q3bf16_s16; then on the card (q4bf16), 8 slots of mixed prompt
-   lengths, the paged cache against the slot cache (bf16) and int8 paged KV
-   against bf16 paged KV, for a prefill and 4 decode steps;
+   version on the card, at the shapes of the main paths, with kernel,
+   plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
+   GEMV at m=1 and m=8, GEMM at m=128 and m=2048 and on the flat lm head at
+   m=128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
+   2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1 and
+   m=128; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128); at
+   the GPT-NeoX 3B shapes q4f32 (pair, f32) and q4f16_hs (hsplit, f16, the
+   lm head in f32): GEMV at m=1 and 8 and GEMM at m=128 on all five shapes
+   and at m=2048 on w_in; the qsplit GEMV and GEMM in f16 and f32 at w_in
+   and the qsplit f32 GEMV on the lm head; paged flash-decode at batch 8
+   over mixed lengths, bf16 and int8 KV;
+3. parity phase: 2-layer models at full width, the same params through
+   forward on the card (kernels) and on the CPU (plain versions), logits
+   compared for a 64-token prefill and 4 decode steps: Vicuna-7B in q4bf16
+   and q3bf16_s16, RedPajama-INCITE-Chat-3B-v1 in q4f32, dolly-v2-3b in
+   q4f16_hs and in q4bf16; then on the card (Vicuna q4bf16), 8 slots of
+   mixed prompt lengths, the paged cache against the slot cache (bf16) and
+   int8 paged KV against bf16 paged KV, for a prefill and 4 decode steps;
 4. chat phase: full-depth Vicuna-7B q4bf16 on random weights through
    InferenceEngine and ChatSession (slot cache, batch 1), 3 greedy turns
    of 32 new tokens, with the launch counters held to the counts the path
@@ -37,7 +43,13 @@ Phases (any failed check exits non-zero before the last line):
    GEMM, launch counts held to the path's;
 7. q3 scheduler run: 8 requests in process, int8 KV under
    kv_layout="auto" (paged), b8 decode through the plane GEMM and kernel 7;
-8. one JSON line of kernels, the card line, and the final ok line.
+8. GPT-NeoX chat phases: the q3 params are freed; full-depth
+   RedPajama-INCITE-Chat-3B-v1 in q4f32, then full-depth dolly-v2-3b in
+   q4f16_hs (random weights quantized on the card), bf16 slot KV, batch 1,
+   3 greedy turns of 32 new tokens with the dolly template: every decode
+   matmul and the f32 lm head on the pair/hsplit GEMV, every prefill layer
+   matmul on the pair/hsplit GEMM, launch counts held to the path's;
+9. one JSON line of kernels, the card line, and the final ok line.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; launches made to compare a kernel with its plain version do
@@ -46,6 +58,7 @@ not count. Needs a CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -72,26 +85,48 @@ from mlc_llm_tpu_torch.ops import KERNELS, build_kernels
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
 from mlc_llm_tpu_torch.parallel.wire import RemoteScheduler, SchedulerServer
-from mlc_llm_tpu_torch.quant import QuantizedTensor, pad_quantized_groups, quantize
-from mlc_llm_tpu_torch.quant.groupwise import dequantize
+from mlc_llm_tpu_torch.quant import (
+    QUANT_PRESETS,
+    QuantizedTensor,
+    pad_quantized_groups,
+    quantize,
+    resolve_spec,
+)
+from mlc_llm_tpu_torch.quant.groupwise import dequantize, torch_dtype
 from mlc_llm_tpu_torch.tokenizer import ByteTokenizer
 
-# H100 SXM data-sheet peaks (dense): HBM3 bytes/s and bf16 tensor-core flop/s
+# H100 SXM data-sheet peaks (dense): HBM3 bytes/s, and the operation rate
+# each kernel computes at: bf16/f16 tensor cores, f32 FMAs on the CUDA
+# cores (the f32 GEMVs), and 3xTF32 (three TF32 products per f32 product:
+# the f32 GEMMs, int4_common.cuh)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-KERNEL_TOL = 1e-2      # atol and rtol, kernel vs its plain version
+F32_FMA_FLOPS = 67e12
+F32_3XTF32_FLOPS = 495e12 / 3
+KERNEL_TOL = 1e-2      # atol and rtol, kernel vs its plain version (bf16, f16)
+# f32 compute: the kernel and its plain version round nothing but their
+# f32 sums, which run in another order (3xTF32 keeps f32's accuracy)
+F32_KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)
 # card (kernels) vs CPU (plain versions) logits, as a share of the largest
 # |logit|. Activations are bf16 between ops; a bf16 rounding that goes the
 # other way after an f32 sum in another order (0.4%) is amplified by the
 # random full-width layers (gain 0.02*sqrt(4096) = 1.3 per matmul). On an
 # H100 one decode step differed by 4.2% of max |logit| card vs CPU in
-# this phase; a wrong layout, group or scale differs by ~100%.
+# this phase; a wrong layout, group or scale differs by ~100%. f16
+# activations round at 1/2048, within the same share.
 LOGIT_RTOL = 1e-1
+# f32 activations (q4f32): only the bf16 KV cache rounds (an f32 sum in
+# another order can tip one of its roundings). On an H100 the largest
+# share was 1.4e-4 (the 64-token prefill); 2e-3 is fifty times tighter
+# than the bf16 share
+F32_LOGIT_RTOL = 2e-3
 # int8 against bf16 KV, same share: an absmax/127 code steps by ~1/40 of a
 # row's spread where bf16 rounds each value by 1/256 of itself, so int8 KV
 # moves the logits several times as far as the bf16 roundings above
 INT8_LOGIT_RTOL = 2e-1
 VICUNA = get_config("vicuna-v1-7b")
+REDPAJAMA = get_config("RedPajama-INCITE-Chat-3B-v1")
+DOLLY = get_config("dolly-v2-3b")
 SHAPES = [  # (name, k, n) of the main path's quantized matmuls
     ("wqkv", 4096, 12288),
     ("wo", 4096, 4096),
@@ -99,11 +134,26 @@ SHAPES = [  # (name, k, n) of the main path's quantized matmuls
     ("w_out", 11008, 4096),
     ("lm_head", 4096, 32000),
 ]
+# the GPT-NeoX 3B width (both 3B models; RedPajama's vocabulary, dolly's
+# 50280 is stored as the same 51200 columns); k = 2560 is stored as 96 groups
+SHAPES_3B = [
+    ("wqkv", 2560, 7680),
+    ("wo", 2560, 2560),
+    ("w_in", 2560, 10240),
+    ("w_out", 10240, 2560),
+    ("lm_head", 2560, 50432),
+]
 SOURCES = {
     "gemv_qs": ("mlc_llm_tpu_torch/csrc/dequant_gemv_qs.cu",
                 "mlc_llm_tpu/ops/pallas/dequant_matmul.py:1430"),
     "gemm_qs": ("mlc_llm_tpu_torch/csrc/dequant_gemm_qs.cu",
                 "mlc_llm_tpu/ops/pallas/dequant_matmul.py:1670"),
+    # the pair and hsplit bodies of rows 1-3 (_gp_body :1068, _gp_body_hs
+    # :1117; _kernel_pairs_stacked :1624, _kernel_pairs_hs :257)
+    "gemv_gp": ("mlc_llm_tpu_torch/csrc/dequant_gemv_gp.cu",
+                "mlc_llm_tpu/ops/pallas/dequant_matmul.py:1430"),
+    "gemm_pairs": ("mlc_llm_tpu_torch/csrc/dequant_gemm_pairs.cu",
+                   "mlc_llm_tpu/ops/pallas/dequant_matmul.py:1670"),
     "gemv_gp3": ("mlc_llm_tpu_torch/csrc/dequant_gemv_gp3.cu",
                  "mlc_llm_tpu/ops/pallas/dequant_matmul.py:592"),
     # rows 5 (stacked, :725) and 4 (the flat generic branch, :791)
@@ -112,17 +162,35 @@ SOURCES = {
     "paged_flash_decode": ("mlc_llm_tpu_torch/csrc/paged_flash_decode.cu",
                            "mlc_llm_tpu/ops/pallas/paged_attention.py:145"),
 }
-# (kernel, preset) -> the m of each main-path shape; the lm head is flat
-# (f32 out), every other weight stacked [2, ...] and read at layer 1
+QSPLIT_F32 = dataclasses.replace(QUANT_PRESETS["q4f32"], layout="qsplit")
+# (label, spec, shapes, lm head in f32, [(kernel, {shape: ms})]): the m of
+# each main-path shape; the lm head is flat (f32 out; in f32 compute where
+# the model's fp32_lm_head asks for it), every other weight stacked [2, ...]
+# and read at layer 1 (out in the compute dtype)
 MATMUL_CASES = [
-    ("gemv_qs", "q4bf16", {"*": (1, 8)}),
-    ("gemm_qs", "q4bf16", {"*": (128, 2048), "lm_head": (128,)}),
-    ("gemv_gp3", "q3bf16_s16", {"*": (1, 2)}),
-    ("gemm_plane", "q3bf16_s16", {"*": (8, 128, 2048)}),
+    ("q4bf16", "q4bf16", SHAPES, False,
+     [("gemv_qs", {"*": (1, 8)}), ("gemm_qs", {"*": (128, 2048), "lm_head": (128,)})]),
+    ("q3bf16_s16", "q3bf16_s16", SHAPES, False,
+     [("gemv_gp3", {"*": (1, 2)}), ("gemm_plane", {"*": (8, 128, 2048)})]),
     # the other plane formats once each, at their decode and prefill widths
-    ("gemm_plane", "q3bf16", {"w_in": (1, 128)}),
-    ("gemm_plane", "fp4bf16", {"w_in": (1, 128)}),
-    ("gemm_plane", "q8bf16", {"w_in": (1, 128)}),
+    ("q3bf16", "q3bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128)})]),
+    ("fp4bf16", "fp4bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128)})]),
+    ("q8bf16", "q8bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128)})]),
+    # the pair and hsplit bodies in bf16, beside the qsplit rows
+    ("q4bf16_pair", "q4bf16_pair", SHAPES, False,
+     [("gemv_gp", {"w_in": (1,)}), ("gemm_pairs", {"w_in": (128,)})]),
+    ("q4bf16_hs", "q4bf16_hs", SHAPES, False,
+     [("gemv_gp", {"w_in": (1,)}), ("gemm_pairs", {"w_in": (128,)})]),
+    # the two 3B chats' presets
+    ("q4f32", "q4f32", SHAPES_3B, True,
+     [("gemv_gp", {"*": (1, 8)}), ("gemm_pairs", {"*": (128,), "w_in": (128, 2048)})]),
+    ("q4f16_hs", "q4f16_hs", SHAPES_3B, True,
+     [("gemv_gp", {"*": (1, 8)}), ("gemm_pairs", {"*": (128,), "w_in": (128, 2048)})]),
+    # qsplit in f16 (dolly q4f16) and f32 (the f32 head of a q4bf16/q4f16 NeoX)
+    ("q4f16", "q4f16", SHAPES_3B, True,
+     [("gemv_qs", {"w_in": (1,), "lm_head": (1,)}), ("gemm_qs", {"w_in": (128,)})]),
+    ("q4f32 qsplit", QSPLIT_F32, SHAPES_3B, True,
+     [("gemv_qs", {"w_in": (1,)}), ("gemm_qs", {"w_in": (128,)})]),
 ]
 # the serve phase's paged pool and the kernel phase's paged shapes
 PAGE_SIZE, SERVE_BATCH, SERVE_SEQ = 128, 8, 2048
@@ -136,8 +204,9 @@ def fail(msg: str):
     sys.exit(1)
 
 
-COUNTED = {"gemv_qs": dm.gemv_qs, "gemm_qs": dm.gemm_qs, "gemv_gp3": dm.gemv_gp3,
-           "gemm_plane": dm.gemm_plane, "paged_flash_decode": pa.paged_flash_decode}
+COUNTED = {"gemv_qs": dm.gemv_qs, "gemm_qs": dm.gemm_qs, "gemv_gp": dm.gemv_gp,
+           "gemm_pairs": dm.gemm_pairs, "gemv_gp3": dm.gemv_gp3, "gemm_plane": dm.gemm_plane,
+           "paged_flash_decode": pa.paged_flash_decode}
 
 
 def reset_counters():
@@ -169,15 +238,23 @@ def time_ms(fn, flush, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
-def bound(m: int, k: int, n: int, weight_bytes: int, out_bytes: int):
+def bound(m: int, k: int, n: int, weight_bytes: int, x_bytes: int, out_bytes: int,
+          flops: float = BF16_FLOPS):
     """Least time (ms) for y[m,n] = x[m,k] @ dequant(W): every input read
-    once (x bf16; the weight's stored bytes: words or int8 plane, bf16
-    scales, and minima when asym), the output written once, against the
-    bf16 tensor-core rate for 2*m*k*n operations."""
-    nbytes = m * k * 2 + weight_bytes + m * n * out_bytes
+    once (x in its dtype; the weight's stored bytes: words or int8 plane,
+    scales, and minima when asym), the output written once, against
+    `flops`, the rate of the kernel's operations, for 2*m*k*n of them."""
+    nbytes = m * k * x_bytes + weight_bytes + m * n * out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * m * k * n / BF16_FLOPS * 1e3
+    t_ops = 2 * m * k * n / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def op_rate(kname: str, dtype) -> float:
+    """The operation rate a kernel computes at (see the constants)."""
+    if dtype != torch.float32:
+        return BF16_FLOPS
+    return F32_FMA_FLOPS if kname.startswith("gemv") else F32_3XTF32_FLOPS
 
 
 def paged_bound(lengths, ps: int, hkv: int, hq: int, d: int, int8: bool, window: int):
@@ -213,6 +290,8 @@ def call_kernel(kname, x, w, layer, out_dtype):
         return fn(x, w.data, w.scale, layer=layer, out_dtype=out_dtype)
     if kname == "gemm_plane":
         return fn(x, w.data, w.scale, w.zero, w.spec, layer=layer, out_dtype=out_dtype)
+    if kname in ("gemv_gp", "gemm_pairs"):
+        return fn(x, w.data, w.scale, w.zero, w.spec.layout, layer=layer, out_dtype=out_dtype)
     return fn(x, w.data, w.scale, w.zero, layer=layer, out_dtype=out_dtype)
 
 
@@ -223,6 +302,8 @@ def call_plain(kname, x, w, out_dtype):
         return fn(x, w.data, w.scale, out_dtype)
     if kname == "gemm_plane":
         return fn(x, w.data, w.scale, w.zero, w.spec, out_dtype)
+    if kname in ("gemv_gp", "gemm_pairs"):
+        return fn(x, w.data, w.scale, w.zero, w.spec.layout, out_dtype)
     return fn(x, w.data, w.scale, w.zero, out_dtype)
 
 
@@ -233,34 +314,45 @@ def stored_k(w):
 
 def matmul_rows(gen, flush):
     rows = []
-    for preset in dict.fromkeys(p for _, p, _ in MATMUL_CASES):
-        for name, k, n in SHAPES:
-            cases = [(kname, ms_by_shape.get(name, ms_by_shape.get("*")))
-                     for kname, p, ms_by_shape in MATMUL_CASES if p == preset]
-            cases = [(kname, m) for kname, ms in cases if ms for m in ms]
-            if cases:
-                rows += shape_rows(gen, flush, preset, name, k, n, cases)
+    for label, spec, shapes, head_f32, cases in MATMUL_CASES:
+        spec = resolve_spec(spec)
+        for name, k, n in shapes:
+            todo = [(kname, m) for kname, ms_by_shape in cases
+                    for m in ms_by_shape.get(name, ms_by_shape.get("*", ()))]
+            if not todo:
+                continue
+            sp = spec
+            if name == "lm_head" and head_f32:
+                sp = dataclasses.replace(spec, dtype="float32")
+                label_h = f"{label} (f32 head)" if spec.dtype != "float32" else label
+            else:
+                label_h = label
+            rows += shape_rows(gen, flush, label_h, sp, name, k, n, todo)
     return rows
 
 
-def shape_rows(gen, flush, preset, name, k, n, cases):
-    """Every (kernel, m) case of one preset at one shape, on one weight."""
+def shape_rows(gen, flush, label, spec, name, k, n, cases):
+    """Every (kernel, m) case of one spec at one shape, on one weight."""
     rows = []
     flat = name == "lm_head"
     qts = [pad_quantized_groups(quantize(
-        torch.randn((k, n), generator=gen, device="cuda") * 0.02, preset))
+        torch.randn((k, n), generator=gen, device="cuda") * 0.02, spec))
         for _ in range(1 if flat else 2)]
     # layer weights stacked [2, KW, N], read at layer 1; the lm head flat
     one = qts[-1]
     w, layer = (one, None) if flat else (stack(qts), 1)
     K, N = stored_k(one), one.data.shape[1]
-    # the library yardstick multiplies by the whole stored [K, N] weight
+    cdtype = torch_dtype(spec.dtype)
+    # the library yardstick multiplies by the whole stored [K, N] weight,
+    # dequantized once in the compute dtype
     dense = dequantize(QuantizedTensor(one.data, one.scale, one.zero, spec=one.spec,
-                                       shape=(K, N)), torch.bfloat16)
-    out_dtype = torch.float32 if flat else torch.bfloat16
+                                       shape=(K, N)), cdtype)
+    out_dtype = torch.float32 if flat else cdtype
+    tol = F32_KERNEL_TOL if cdtype == torch.float32 else dict(atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    esize = torch.empty((), dtype=cdtype).element_size()
     for kname, m in cases:
-        x = torch.zeros((m, K), dtype=torch.bfloat16, device="cuda")
-        x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.zeros((m, K), dtype=cdtype, device="cuda")
+        x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(cdtype)
 
         def run_kernel():
             return call_kernel(kname, x, w, layer, out_dtype)
@@ -274,19 +366,21 @@ def shape_rows(gen, flush, preset, name, k, n, cases):
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        ok = torch.allclose(got.float(), want.float(), **tol)
         reps = 20 if m <= 128 else 5
-        b_ms, b_by = bound(m, K, N, one.nbytes(), 4 if flat else 2)
-        row = dict(kernel=kname, quant=preset, shape=name, m=m, k=K, n=N, max_abs_err=err,
+        b_ms, b_by = bound(m, K, N, one.nbytes(), esize, 4 if flat else esize,
+                           op_rate(kname, cdtype))
+        row = dict(kernel=kname, quant=label, dtype=str(cdtype).replace("torch.", ""),
+                   shape=name, m=m, k=K, n=N, max_abs_err=err,
                    ms=time_ms(run_kernel, flush, reps),
                    plain_ms=time_ms(run_plain, flush, min(reps, 5)),
                    library_ms=time_ms(run_library, flush, reps),
                    bound_ms=b_ms, bound_by=b_by)
-        print(f"  {kname} {preset} {name} m={m} K={K} N={N}: max_abs_err={err:.3g} "
+        print(f"  {kname} {label} {name} m={m} K={K} N={N}: max_abs_err={err:.3g} "
               f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
         if not ok:
-            fail(f"{kname} {preset} {name} m={m} disagrees with its plain version (max {err})")
+            fail(f"{kname} {label} {name} m={m} disagrees with its plain version (max {err})")
         rows.append(row)
     del w, dense
     return rows
@@ -384,7 +478,7 @@ def pad_params(params):
                     else x, params)
 
 
-def card_vs_cpu(cfg, params):
+def card_vs_cpu(cfg, params, rtol=LOGIT_RTOL):
     cpu = tree_map(lambda x: x.map(lambda t: t.cpu()) if isinstance(x, QuantizedTensor)
                    else x.cpu(), params)
     toks = torch.randint(3, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(1))
@@ -401,8 +495,8 @@ def card_vs_cpu(cfg, params):
         scale = logits["cpu"].abs().max().item()
         print(f"  card vs CPU, {'prefill 64' if step == 0 else f'decode {step}'}: "
               f"max |logit diff| = {err:.4g}, max |logit| = {scale:.4g}, ratio {err / scale:.4g}")
-        if err > LOGIT_RTOL * scale:
-            fail(f"card logits differ from the CPU's by {err} > {LOGIT_RTOL} * {scale}")
+        if err > rtol * scale:
+            fail(f"card logits differ from the CPU's by {err} > {rtol} * {scale}")
         toks = logits["cpu"].argmax(-1, keepdim=True)
         # each decode step starts both sides from the card's cache, so a
         # step is held on its own error, not on the prefill's amplified
@@ -464,6 +558,16 @@ def parity_phase():
             paged_vs_slot(cfg, params)
         del params
         torch.cuda.empty_cache()
+    # GPT-NeoX at the 3B width: pair f32 layers and head; hsplit f16 layers
+    # and f32 head; qsplit bf16 layers and the qsplit f32 head
+    for model, quant in ((REDPAJAMA, "q4f32"), (DOLLY, "q4f16_hs"), (DOLLY, "q4bf16")):
+        rtol = F32_LOGIT_RTOL if quant == "q4f32" else LOGIT_RTOL
+        print(f"== parity phase: 2-layer {model.name}, {quant} (share {rtol})")
+        cfg = model.replace(num_layers=2)
+        params = pad_params(init_random_params(cfg, quant, seed=1, device="cuda"))
+        card_vs_cpu(cfg, params, rtol)
+        del params
+        torch.cuda.empty_cache()
 
 
 # the kernel of each quantized matmul on the main paths, by preset: the
@@ -471,14 +575,17 @@ def parity_phase():
 # decode, and the lm head of a prefill, which runs at its last position
 # only), and every matmul of a b8 decode step (m = 8)
 PATH_KERNELS = {"q4bf16": {"prefill": "gemm_qs", "m1": "gemv_qs", "m8": "gemv_qs"},
-                "q3bf16_s16": {"prefill": "gemm_plane", "m1": "gemv_gp3", "m8": "gemm_plane"}}
+                "q3bf16_s16": {"prefill": "gemm_plane", "m1": "gemv_gp3", "m8": "gemm_plane"},
+                "q4f32": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"},
+                "q4f16_hs": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"}}
 
 
-def expected_launches(quant, *, b1_steps=0, prefills=0, b8_forwards=0):
+def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0,
+                      b8_forwards=0):
     """Launch counts a path implies: per prefill 4L layer matmuls and the
     lm head at m=1; per b1 decode step 4L + 1 matmuls at m=1; per b8
     decode forward 4L + 1 matmuls at m=8 and L paged decodes."""
-    k, L = PATH_KERNELS[quant], VICUNA.num_layers
+    k, L = PATH_KERNELS[quant], layers
     want = dict.fromkeys(COUNTED, 0)
     want[k["prefill"]] += 4 * L * prefills
     want[k["m1"]] += (4 * L + 1) * b1_steps + prefills
@@ -494,22 +601,23 @@ def param_bytes(params) -> int:
     return sum(sizes)
 
 
-def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16):
+def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA):
     kv = "int8" if cache_dtype == torch.int8 else "bf16"
-    print(f"== chat phase: vicuna-v1-7b {quant}, 32 layers, {kv} slot cache, batch 1")
-    engine = InferenceEngine(VICUNA, params, max_batch=1, cache_dtype=cache_dtype,
-                             max_seq_len=min(VICUNA.max_seq_len, 768 * 2), device="cuda")
+    print(f"== chat phase: {cfg.name} {quant}, {cfg.num_layers} layers, {kv} slot cache, "
+          f"batch 1, {cfg.conv_template} template")
+    engine = InferenceEngine(cfg, params, max_batch=1, cache_dtype=cache_dtype,
+                             max_seq_len=min(cfg.max_seq_len, 768 * 2), device="cuda")
     if engine.kv_layout != "slot" or engine.cache.k.dtype != cache_dtype:
         fail(f"chat engine runs {engine.kv_layout} {engine.cache.k.dtype} KV")
     nbytes = param_bytes(engine.params)
     print(f"  params (groups padded to multiples of 32): {nbytes} bytes, "
           f"{nbytes / 2**30:.3f} GiB")
-    lg = engine.prefill([[VICUNA.bos_token_id] + list(b"Hello")])
-    if lg.shape != (1, VICUNA.vocab_size) or not torch.isfinite(lg).all():
+    lg = engine.prefill([[cfg.bos_token_id] + list(b"Hello")])
+    if lg.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all():
         fail("full-depth prefill logits not finite or of the wrong shape")
     engine.reset()
     engine.stats.reset()
-    session = ChatSession(engine, ByteTokenizer(), VICUNA,
+    session = ChatSession(engine, ByteTokenizer(), cfg,
                           ChatConfig(temperature=0.0, max_gen_len=32, max_window_size=768))
     prompts = ["Hello! Who are you?", "Name three colors.", "Thanks, bye."]
     reset_counters()
@@ -521,11 +629,12 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16):
         print(f"  USER: {prompt!r} -> {len(reply)} chars")
     launches = read_counters()
     steps = engine.stats.decode_tokens
-    stats = dict(quant=quant, kv=kv, param_bytes=nbytes, prefill_ms=ttft,
+    stats = dict(model=cfg.name, quant=quant, kv=kv, param_bytes=nbytes, prefill_ms=ttft,
                  decode_tok_s=engine.stats.decode_tps, decode_steps=steps)
     print(f"  prefill ms per turn (TTFT less sampling): {[round(t, 2) for t in ttft]}; "
           f"decode {engine.stats.decode_tps:.2f} tok/s over {steps} steps")
-    want = expected_launches(quant, b1_steps=steps, prefills=len(prompts))
+    want = expected_launches(quant, layers=cfg.num_layers, b1_steps=steps,
+                             prefills=len(prompts))
     print(f"  launches: {launches} (want {want})")
     if steps == 0 or launches != want:
         fail("launch counts do not match the chat path")
@@ -688,15 +797,32 @@ def main():
     torch.cuda.empty_cache()
     paths["q3_serve"], q3_serve_stats = int8_auto_phase(params, "q3bf16_s16")
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    neox_stats = {}
+    for path, cfg, quant in (("rp_chat", REDPAJAMA, "q4f32"), ("dolly_chat", DOLLY, "q4f16_hs")):
+        t0 = time.perf_counter()
+        params = init_random_params(cfg, quant, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"full-depth {cfg.name} {quant} params in {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        paths[path], neox_stats[path] = chat_phase(params, quant, cfg=cfg)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # per kernel: its main-path shape (GEMVs: w_in at decode m=1; GEMMs: w_in
     # at prefill m=128; paged: bf16 KV at b8); every shape is in "shapes".
     # launches: the count on the kernel's own slice's path (the q4 serve
-    # phase for rows 1-3 and 7, the q3 chat phase for rows 4-6), and each
-    # path's count in launches_by_path
+    # phase for rows 1-3 and 7, the q3 chat phase for rows 4-6, the
+    # RedPajama q4f32 chat for the pair/hsplit bodies), and each path's
+    # count in launches_by_path
     kernels = []
     tops = {"gemv_qs": ("q4bf16", "w_in", 1, "serve"),
             "gemm_qs": ("q4bf16", "w_in", 128, "serve"),
+            "gemv_gp": ("q4f32", "w_in", 1, "rp_chat"),
+            "gemm_pairs": ("q4f32", "w_in", 128, "rp_chat"),
             "gemv_gp3": ("q3bf16_s16", "w_in", 1, "q3_chat"),
             "gemm_plane": ("q3bf16_s16", "w_in", 128, "q3_chat"),
             "paged_flash_decode": (None, "vicuna b8 bf16 KV", SERVE_BATCH, "serve")}
@@ -712,13 +838,14 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
-            shapes=[{k: r.get(k) for k in ("quant", "shape", "m", "k", "n", "max_abs_err", "ms",
-                                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            shapes=[{k: r.get(k) for k in ("quant", "dtype", "shape", "m", "k", "n",
+                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
                     for r in mine]))
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels):
         fail("a kernel time is not finite or a kernel never ran on its path")
     print(json.dumps({"chat": chat_stats, "serve": serve_stats, "q3_chat": q3_chat_stats,
-                      "q3_serve": q3_serve_stats}))
+                      "q3_serve": q3_serve_stats, **neox_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,9 @@
 // _dequant_matmul_gp_2d -> _kernel_gp with _gp_body_qs (the decode path,
 // m <= 8). Same math, same rounding points:
 //   per group g:  P = sum_k x[k] * (16 + q[k])   (f32; products exact)
-//                 sx = sum_k x[k]                 (f32 sum, rounded to bf16
-//                                                  as the TPU kernel's bf16 sum)
+//                 sx = sum_k x[k]                 (f32 sum, rounded to the
+//                                                  compute type as the TPU
+//                                                  kernel's sum in that type)
 //   y += s * (P - 16*sx) + z * sx                 (asym, f32 scales)
 //   y += s * (P - (16 + max_int)*sx)              (sym)
 //
@@ -26,22 +27,27 @@
 //     second small kernel sums them in a fixed order (deterministic);
 //   * the block's slice of x is staged once in shared memory as f32, and the
 //     per-group sum of x is one warp shuffle reduction (lane = element).
+//
+// Compute type T (x, s, z) is bf16, f16 or f32 (the q4bf16, q4f16 and
+// qsplit f32 weights); sx is rounded to T (not at all in f32) and the
+// output is T or f32. The bf16 instantiation is the kernel measured before
+// the other types were added.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int4_common.cuh"
 
 namespace {
+
+using int4k::Num;
+using int4k::rnd;
 
 constexpr int kWarps = 8;      // chunks per block, one per warp
 constexpr int kCols = 64;      // columns per block, two per lane
 constexpr int kRows = 16;      // word rows per chunk
 
-template <int M>
+template <typename T, int M>
 __global__ void __launch_bounds__(kWarps * 32)
-gemv_qs_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ w,
-               const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ z,
-               float* __restrict__ partial, int K, int N, int sym) {
+gemv_qs_kernel(const T* __restrict__ x, const int32_t* __restrict__ w, const T* __restrict__ s,
+               const T* __restrict__ z, float* __restrict__ partial, int K, int N, int sym) {
   // x slice [M][4 fields][kWarps chunks][32]; reused for the warp reduction
   __shared__ float smem[M * 4 * kWarps * 32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -54,7 +60,7 @@ gemv_qs_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ 
     const int e = i % 32, cl = (i / 32) % kWarps;
     const int f = (i / (32 * kWarps)) % 4, m = i / (32 * kWarps * 4);
     const int c = c0 + cl;
-    smem[i] = c < C ? __bfloat162float(x[(size_t)m * K + f * KQ + 32 * c + e]) : 0.f;
+    smem[i] = c < C ? Num<T>::to_f(x[(size_t)m * K + f * KQ + 32 * c + e]) : 0.f;
   }
   __syncthreads();
 
@@ -73,15 +79,13 @@ gemv_qs_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ 
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
       const int g = f * C + c;
-      const __nv_bfloat162 s2 =
-          *reinterpret_cast<const __nv_bfloat162*>(s + (size_t)g * N + col);
-      const float s0 = __low2float(s2), s1 = __high2float(s2);
+      const float2 s2 = Num<T>::load2(s + (size_t)g * N + col);
+      const float s0 = s2.x, s1 = s2.y;
       float z0 = 0.f, z1 = 0.f;
       if (!sym) {
-        const __nv_bfloat162 z2 =
-            *reinterpret_cast<const __nv_bfloat162*>(z + (size_t)g * N + col);
-        z0 = __low2float(z2);
-        z1 = __high2float(z2);
+        const float2 z2 = Num<T>::load2(z + (size_t)g * N + col);
+        z0 = z2.x;
+        z1 = z2.y;
       }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
@@ -89,7 +93,7 @@ gemv_qs_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ 
         float sx = xs[lane];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) sx += __shfl_xor_sync(0xffffffffu, sx, o);
-        sx = __bfloat162float(__float2bfloat16(sx));
+        sx = rnd<T>(sx);
         float p0 = 0.f, p1 = 0.f;
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
@@ -127,35 +131,31 @@ gemv_qs_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ 
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// out[i] = sum over the S split-K slices, in slice order.
-template <typename T>
-__global__ void reduce_kernel(const float* __restrict__ partial, T* __restrict__ out,
-                              int S, int MN) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float t = 0.f;
-  for (int sl = 0; sl < S; ++sl) t += partial[(size_t)sl * MN + i];
-  out[i] = from_float<T>(t);
-}
-
-template <int M>
+template <typename T, int M>
 void launch(const void* x, const void* w, const void* s, const void* z, void* partial,
             int K, int N, int sym, cudaStream_t st) {
   const int C = K / 128;
   dim3 grid(N / kCols, (C + kWarps - 1) / kWarps);
-  gemv_qs_kernel<M><<<grid, kWarps * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(w),
-      static_cast<const __nv_bfloat16*>(s), static_cast<const __nv_bfloat16*>(z),
-      static_cast<float*>(partial), K, N, sym);
+  gemv_qs_kernel<T, M><<<grid, kWarps * 32, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const int32_t*>(w), static_cast<const T*>(s),
+      static_cast<const T*>(z), static_cast<float*>(partial), K, N, sym);
+}
+
+template <typename T>
+int launch_m(const void* x, const void* w, const void* s, const void* z, void* partial,
+             int M, int K, int N, int sym, cudaStream_t st) {
+  switch (M) {
+    case 1: launch<T, 1>(x, w, s, z, partial, K, N, sym, st); break;
+    case 2: launch<T, 2>(x, w, s, z, partial, K, N, sym, st); break;
+    case 3: launch<T, 3>(x, w, s, z, partial, K, N, sym, st); break;
+    case 4: launch<T, 4>(x, w, s, z, partial, K, N, sym, st); break;
+    case 5: launch<T, 5>(x, w, s, z, partial, K, N, sym, st); break;
+    case 6: launch<T, 6>(x, w, s, z, partial, K, N, sym, st); break;
+    case 7: launch<T, 7>(x, w, s, z, partial, K, N, sym, st); break;
+    case 8: launch<T, 8>(x, w, s, z, partial, K, N, sym, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -163,32 +163,32 @@ void launch(const void* x, const void* w, const void* s, const void* z, void* pa
 // Number of split-K slices: the caller sizes the f32 scratch [S, M, N].
 extern "C" int mlc_gemv_qs_splits(int K) { return (K / 128 + kWarps - 1) / kWarps; }
 
-// x [M, K] bf16; w int32 words [K/8, N] (a layer's block); s, z [K/32, N]
-// bf16 (z unused when sym); partial f32 [splits, M, N]; out [M, N] in bf16
-// (out_f32 = 0) or f32. Needs 1 <= M <= 8, K % 128 == 0, N % 64 == 0.
+// dtype: int4k::DType of x, s and z. x [M, K]; w int32 words [K/8, N] (a
+// layer's block); s, z [K/32, N] (z unused when sym); partial f32
+// [splits, M, N]; out [M, N] in the compute type (out_f32 = 0) or f32.
+// Needs 1 <= M <= 8, K % 128 == 0, N % 64 == 0.
 // Returns cudaGetLastError() after the launches.
-extern "C" int mlc_gemv_qs(const void* x, const void* w, const void* s, const void* z,
-                           void* partial, void* out, int M, int K, int N, int sym,
-                           int out_f32, void* stream) {
+extern "C" int mlc_gemv_qs(int dtype, const void* x, const void* w, const void* s,
+                           const void* z, void* partial, void* out, int M, int K, int N,
+                           int sym, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 1: launch<1>(x, w, s, z, partial, K, N, sym, st); break;
-    case 2: launch<2>(x, w, s, z, partial, K, N, sym, st); break;
-    case 3: launch<3>(x, w, s, z, partial, K, N, sym, st); break;
-    case 4: launch<4>(x, w, s, z, partial, K, N, sym, st); break;
-    case 5: launch<5>(x, w, s, z, partial, K, N, sym, st); break;
-    case 6: launch<6>(x, w, s, z, partial, K, N, sym, st); break;
-    case 7: launch<7>(x, w, s, z, partial, K, N, sym, st); break;
-    case 8: launch<8>(x, w, s, z, partial, K, N, sym, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const float* part = static_cast<const float*>(partial);
   const int MN = M * N, S = mlc_gemv_qs_splits(K);
-  const int threads = 256, blocks = (MN + threads - 1) / threads;
-  if (out_f32)
-    reduce_kernel<float><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(partial), static_cast<float*>(out), S, MN);
-  else
-    reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out), S, MN);
-  return static_cast<int>(cudaGetLastError());
+  int err;
+  switch (dtype) {
+    case int4k::kBF16:
+      err = launch_m<__nv_bfloat16>(x, w, s, z, partial, M, K, N, sym, st);
+      if (!err) int4k::launch_reduce<__nv_bfloat16>(part, out, S, MN, out_f32, st);
+      break;
+    case int4k::kF16:
+      err = launch_m<__half>(x, w, s, z, partial, M, K, N, sym, st);
+      if (!err) int4k::launch_reduce<__half>(part, out, S, MN, out_f32, st);
+      break;
+    case int4k::kF32:
+      err = launch_m<float>(x, w, s, z, partial, M, K, N, sym, st);
+      if (!err) int4k::launch_reduce<float>(part, out, S, MN, out_f32, st);
+      break;
+    default: err = static_cast<int>(cudaErrorInvalidValue);
+  }
+  return err ? err : static_cast<int>(cudaGetLastError());
 }

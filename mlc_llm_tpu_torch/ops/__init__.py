@@ -5,10 +5,11 @@ There is no kernel mode. A kernel wrapper picks its path from the
 device of the tensors it is given: on CPU tensors it runs its plain
 PyTorch version, on CUDA tensors it launches the kernel or raises.
 
-Kernels live in ``csrc/<name>.cu`` with a plain C interface. Each is
-compiled at first use by ``nvcc`` into ``csrc/build/<name>.so`` (rebuilt
-when the source is newer) and loaded with ``ctypes``. A failed build
-raises; nothing falls back.
+Kernels live in ``csrc/<name>.cu`` with a plain C interface (the int4
+kernels share ``csrc/int4_common.cuh``). Each is compiled at first use
+by ``nvcc`` into ``csrc/build/<name>.so`` (rebuilt when the source or a
+header is newer) and loaded with ``ctypes``. A failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # every source under csrc/: the kernels of the port's paths
-KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp3", "dequant_gemm_plane",
-           "paged_flash_decode")
+KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp", "dequant_gemm_pairs",
+           "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -66,9 +67,10 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
-    src = os.path.join(CSRC, f"{name}.cu")
+    srcs = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     out = _lib_path(name)
-    return not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src)
+    return not os.path.exists(out) or os.path.getmtime(out) < max(map(os.path.getmtime, srcs))
 
 
 def build_kernels(names: Iterable[str], extra_flags=()) -> None:

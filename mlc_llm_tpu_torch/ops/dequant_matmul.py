@@ -1,5 +1,5 @@
-"""Fused dequant + matmul: four CUDA kernels, their plain PyTorch versions,
-launch counters, and the routing that picks one.
+"""Fused dequant + matmul: six CUDA kernel wrappers, their plain PyTorch
+versions, launch counters, and the routing that picks one.
 
 Routing mirrors the JAX dispatch (``mlc_llm_tpu/ops/pallas/
 dequant_matmul.py:1788-1876``, stacked and flat alike), in its order:
@@ -9,11 +9,15 @@ dequant_matmul.py:1788-1876``, stacked and flat alike), in its order:
    replaces ``_dequant_matmul_gp3_2d``, PERF.md row 6);
 2. ``gp_matmul_supported`` (``:1006-1023``: int4, u32, group 32, m <= 8,
    groups blockable) -> ``gemv_qs`` for qsplit (``csrc/dequant_gemv_qs.cu``,
-   ``_dequant_matmul_gp_2d``, row 1); hsplit/pair bodies are not ported;
+   ``_dequant_matmul_gp_2d`` with ``_gp_body_qs``, row 1), ``gemv_gp`` for
+   the pair and hsplit orders (``csrc/dequant_gemv_gp.cu``, ``_gp_body``
+   and ``_gp_body_hs``, row 1);
 3. a split layout whose group count the TPU kernels cannot block
    (``:1817``, ``:1863``) -> dense: dequantize, then ``torch.matmul``;
 4. int4 in u32 words -> ``gemm_qs`` for qsplit (``csrc/dequant_gemm_qs.cu``,
-   ``_kernel_pairs_qs``, rows 2-3); hsplit/pair are not ported;
+   ``_kernel_pairs_qs``, rows 2-3), ``gemm_pairs`` for pair and hsplit
+   (``csrc/dequant_gemm_pairs.cu``, ``_kernel_pairs``,
+   ``_kernel_pairs_stacked`` and ``_kernel_pairs_hs``, rows 2-3);
 5. everything else word-packed or i8 -> ``gemm_plane``
    (``csrc/dequant_gemm_plane.cu``, ``_dequant_matmul_2d``'s generic
    branch and ``_dequant_matmul_stacked_generic_2d``, rows 4-5); its CUDA
@@ -23,14 +27,19 @@ dequant_matmul.py:1788-1876``, stacked and flat alike), in its order:
 Above m = 2048 rows the weight is dequantized once and multiplied
 (``mlc_llm_tpu/ops/matmul.py`` ``prefill_kernel_max_m``). For the presets:
 
-==========================  =========  ==========  ============  ========
-format                      m <= 2     2 < m <= 8  8 < m <= 2048  m > 2048
-==========================  =========  ==========  ============  ========
-q4bf16 (qsplit, G % 32 0)   gemv_qs    gemv_qs     gemm_qs       dense
-q3bf16_s16 (G % 16 == 0)    gemv_gp3   gemm_plane  gemm_plane    dense
-q3bf16, fp4bf16, q8bf16     gemm_plane gemm_plane  gemm_plane    dense
-q4bf16_hs, q4bf16_pair      not ported (ROADMAP queue 1, item 6)  dense
-==========================  =========  ==========  ============  ========
+==============================  =========  ==========  ============  ========
+format                          m <= 2     2 < m <= 8  8 < m <= 2048  m > 2048
+==============================  =========  ==========  ============  ========
+q4bf16, q4f16 (qsplit)          gemv_qs    gemv_qs     gemm_qs       dense
+q4*_pair, q4*_sym, q4f32        gemv_gp    gemv_gp     gemm_pairs    dense
+q4*_hs (hsplit, G % 16 == 0)    gemv_gp    gemv_gp     gemm_pairs    dense
+q3bf16_s16 (G % 16 == 0)        gemv_gp3   gemm_plane  gemm_plane    dense
+q3bf16, fp4bf16, q8bf16         gemm_plane gemm_plane  gemm_plane    dense
+==============================  =========  ==========  ============  ========
+
+The four int4 kernels compute in the spec's dtype, bf16, f16 or f32 (x
+and the scales in that dtype, the output in it or in f32); no int4 order
+raises. The int3, fp4 and int8 kernels take bf16.
 
 Each wrapper picks its path from the tensors' device: CPU tensors run
 the plain version (``*_plain``), CUDA tensors launch the kernel or
@@ -43,6 +52,7 @@ Stacked weights stay one ``[L, KW, N]`` tensor: the kernels read layer
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -63,13 +73,25 @@ GEMM_MAX_M = 2048    # matmul.py prefill_kernel_max_m()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_GEMV_ARGS = {"mlc_gemv_qs_splits": [_I], "mlc_gemv_qs": [_P] * 6 + [_I] * 5 + [_P]}
-_GEMM_ARGS = {"mlc_gemm_qs": [_P] * 5 + [_I] * 5 + [_P]}
+_GEMV_ARGS = {"mlc_gemv_qs_splits": [_I],
+              "mlc_gemv_qs": [_I] + [_P] * 6 + [_I] * 5 + [_P]}
+_GEMM_ARGS = {"mlc_gemm_qs": [_I] + [_P] * 5 + [_I] * 5 + [_P]}
+_GP_ARGS = {"mlc_gemv_gp_splits": [_I],
+            "mlc_gemv_gp": [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P]}
+_PAIRS_ARGS = {"mlc_gemm_pairs_splits": [_I] * 4,
+               "mlc_gemm_pairs": [_I] * 2 + [_P] * 6 + [_I] * 6 + [_P]}
 _GP3_ARGS = {"mlc_gemv_gp3_splits": [_I], "mlc_gemv_gp3": [_P] * 5 + [_I] * 4 + [_P]}
 _PLANE_ARGS = {"mlc_gemm_plane_splits": [_I] * 3,
                "mlc_gemm_plane": [_I] + [_P] * 5 + [_I] * 6 + [_P]}
 _QSPLIT = QUANT_PRESETS["q4bf16"]
 _Q3S16 = QUANT_PRESETS["q3bf16_s16"]
+# int4/u32 words in each bit order (the unpacker reads only the order)
+_INT4 = {lay: dataclasses.replace(_QSPLIT, layout=lay) for lay in ("pair", "hsplit", "qsplit")}
+INT4_MAX = _QSPLIT.max_int
+# the int4 kernels' compute dtypes -> their ids in csrc (enum DType) and
+# the pair/hsplit kernels' layout ids (enum Layout)
+DTYPE_IDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+LAYOUT_IDS = {"pair": 0, "hsplit": 1}
 # the plane kernel's formats, all sym: (mode, storage, group size) -> its
 # format id (csrc/dequant_gemm_plane.cu, enum Format)
 PLANE_FORMATS = {("int3", "u32", 40): 0, ("int3", "u16", 40): 1, ("fp4", "u32", 32): 2,
@@ -80,9 +102,8 @@ _WORD_DTYPES = {"u32": torch.int32, "u16": torch.int16, "i8": torch.int8}
 def route(spec: QuantSpec, n_groups: int, m: int) -> str:
     """The kernel the JAX dispatch picks for a quantized weight of
     n_groups groups at m rows (see the module doc):
-    "gemv_gp3", "gemv_qs", "gemm_qs", "gemm_plane", "dense", or
-    "gemv_gp" / "gemm_pairs" for the int4 hsplit and pair bodies, which
-    have no CUDA kernel yet."""
+    "gemv_gp3", "gemv_qs", "gemv_gp", "gemm_qs", "gemm_pairs",
+    "gemm_plane" or "dense"."""
     if m > GEMM_MAX_M or spec.storage not in ("u32", "u16", "i8"):
         return "dense"
     if (spec.mode == "int3" and spec.storage == "u16" and spec.group_size == 40 and spec.sym
@@ -108,41 +129,94 @@ def _codes16(words: torch.Tensor) -> torch.Tensor:
     return _unpack_words(words, _QSPLIT).to(torch.float32) + 16.0
 
 
+def _gp_sum(P, sx, scale, zero, offset: float):
+    """y = sum_g s*(P - offset*sx) + z*sx (asym) or s*(P - (offset +
+    max_int)*sx) (sym), in f32 from f32 partials [m, G, N] and x sums
+    [m, G, 1]: the GEMV bodies' closing step."""
+    s = scale.float()[None]
+    if zero is None:
+        return (s * (P - (offset + INT4_MAX) * sx)).sum(dim=1)
+    return (s * (P - offset * sx) + zero.float()[None] * sx).sum(dim=1)
+
+
 def gemv_qs_plain(x, words, scale, zero, out_dtype):
-    """Plain version of the GEMV, in the TPU kernel's arithmetic order:
-    f32 group partials P = sum x*(16+q), the group sum of x rounded to
-    bf16, then f32 scales: y = sum_g s*(P - 16*sx) + z*sx (asym) or
-    s*(P - (16+max_int)*sx) (sym). x: [m, K]; words [K/8, N];
-    scale/zero [K/32, N]; returns [m, N] in out_dtype."""
+    """Plain version of the qsplit GEMV, in the TPU kernel's arithmetic
+    order: f32 group partials P = sum x*(16+q), the group sum of x rounded
+    to the compute dtype (x's: bf16, f16 or f32), then f32 scales: y =
+    sum_g s*(P - 16*sx) + z*sx (asym) or s*(P - (16+max_int)*sx) (sym).
+    x: [m, K]; words [K/8, N]; scale/zero [K/32, N]; returns [m, N] in
+    out_dtype."""
     m, K = x.shape
     G, N = scale.shape
     xg = x.float().reshape(m, G, 32)
     vals = _codes16(words).reshape(G, 32, N)
     P = torch.einsum("mgk,gkn->mgn", xg, vals)
-    sx = xg.sum(dim=2).to(torch.bfloat16).float()[:, :, None]
-    s = scale.float()[None]
-    if zero is None:
-        y = (s * (P - 23.0 * sx)).sum(dim=1)  # 16 + max_int
-    else:
-        y = (s * (P - 16.0 * sx) + zero.float()[None] * sx).sum(dim=1)
-    return y.to(out_dtype)
+    sx = xg.sum(dim=2).to(x.dtype).float()[:, :, None]
+    return _gp_sum(P, sx, scale, zero, 16.0).to(out_dtype)
 
 
-def gemm_weight_plain(words, scale, zero) -> torch.Tensor:
-    """The GEMM's bf16 weight: w = (16+q)*s + (z - 16*s), each op
-    rounded to bf16 as in the TPU kernel (sym: (16+q)*s + s*-23)."""
+def gemv_gp_plain(x, words, scale, zero, layout: str, out_dtype):
+    """Plain version of the pair and hsplit GEMVs (_gp_body, _gp_body_hs),
+    in their arithmetic order: f32 group partials P = sum x*q over the raw
+    codes, then y = sum_g s*P + z*sx (asym) or s*(P - max_int*sx) (sym)
+    with f32 scales. sx is the group's sum of x in the compute dtype (x's):
+    pair sums the 16 even and the 16 odd elements apart, rounds each, and
+    adds them in that dtype (a band row is one parity of one group);
+    hsplit rounds the 32-element sum once (a band row is one group). x:
+    [m, K]; words [K/8, N]; scale/zero [K/32, N]; returns [m, N]."""
+    m, K = x.shape
     G, N = scale.shape
-    vals = _codes16(words).to(torch.bfloat16).reshape(G, 32, N)
-    se = scale[:, None, :]
-    off = se * -23 if zero is None else zero[:, None, :] - se * 16
+    cd = x.dtype
+    xg = x.float().reshape(m, G, 32)
+    codes = _unpack_words(words, _INT4[layout]).float().reshape(G, 32, N)
+    P = torch.einsum("mgk,gkn->mgn", xg, codes)
+    if layout == "pair":
+        par = xg.reshape(m, G, 16, 2).sum(dim=2).to(cd)
+        sx = (par[..., 0] + par[..., 1]).float()
+    else:
+        sx = xg.sum(dim=2).to(cd).float()
+    return _gp_sum(P, sx[:, :, None], scale, zero, 0.0).to(out_dtype)
+
+
+def gemm_weight_plain(words, scale, zero, dtype=torch.bfloat16) -> torch.Tensor:
+    """The qsplit GEMM's weight in the compute dtype: w = (16+q)*s +
+    (z - 16*s), each op rounded to `dtype` as in the TPU kernel (sym:
+    (16+q)*s + s*-23)."""
+    G, N = scale.shape
+    vals = _codes16(words).to(dtype).reshape(G, 32, N)
+    se = scale.to(dtype)[:, None, :]
+    off = se * -(16 + INT4_MAX) if zero is None else zero.to(dtype)[:, None, :] - se * 16
     return (vals * se + off).reshape(G * 32, N)
 
 
 def gemm_qs_plain(x, words, scale, zero, out_dtype):
-    """Plain version of the GEMM: bf16 dequant, then an f32-accumulated
-    matmul. x: [m, K]; returns [m, N] in out_dtype."""
-    w = gemm_weight_plain(words, scale, zero)
+    """Plain version of the qsplit GEMM: dequant in x's dtype, then an
+    f32-accumulated matmul. x: [m, K]; returns [m, N] in out_dtype."""
+    w = gemm_weight_plain(words, scale, zero, x.dtype)
     return torch.matmul(x.float(), w.float()).to(out_dtype)
+
+
+def gemm_pairs_plain(x, words, scale, zero, layout: str, out_dtype):
+    """Plain version of the pair and hsplit GEMMs, each op rounded to the
+    compute dtype (x's) where the TPU kernel rounds:
+    - pair (_kernel_pairs, _kernel_pairs_stacked): w = q*s, plus one
+      offset dot of (x_even + x_odd) against off = z, or s*-max_int (sym);
+    - hsplit (_kernel_pairs_hs): w = q*s + off, two roundings.
+    Products and sums in f32. x: [m, K]; returns [m, N] in out_dtype."""
+    m, K = x.shape
+    G, N = scale.shape
+    cd = x.dtype
+    codes = _unpack_words(words, _INT4[layout]).to(cd).reshape(G, 32, N)
+    se = scale.to(cd)[:, None, :]
+    off = se * -INT4_MAX if zero is None else zero.to(cd)[:, None, :]
+    if layout == "pair":
+        y = torch.matmul(x.float(), (codes * se).reshape(K, N).float())
+        xp = x.reshape(m, K // 2, 2)
+        t = (xp[..., 0] + xp[..., 1]).float().reshape(m, G, 16).sum(dim=2)
+        y = y + torch.matmul(t, off[:, 0].float())
+    else:
+        y = torch.matmul(x.float(), (codes * se + off).reshape(K, N).float())
+    return y.to(out_dtype)
 
 
 def gemv_gp3_plain(x, words, scale, out_dtype):
@@ -202,17 +276,20 @@ def _layer_view(t: Optional[torch.Tensor], layer: Optional[int]):
 
 
 def _check_cuda_args(name, x, data, scale, zero, layer, out_dtype, *, word_dtype,
-                     k_per_row, group_k, g_mult=1, n_mult=64):
+                     k_per_row, group_k, g_mult=1, n_mult=64, dtypes=(torch.bfloat16,)):
     """Device, dtype, contiguity, alignment and shape checks before a
     launch: x [m, K] with K = k_per_row * rows = group_k * G, N % n_mult
     == 0, G % g_mult == 0, data/scale/zero stacked exactly when layer is
-    given."""
-    if x.dtype != torch.bfloat16 or scale.dtype != torch.bfloat16:
+    given; x, scale and zero in one of `dtypes` (the kernel's compute
+    dtypes), the output in x's dtype or f32."""
+    if x.dtype not in dtypes or scale.dtype != x.dtype or (
+            zero is not None and zero.dtype != x.dtype):
         raise NotImplementedError(
-            f"{name}: CUDA kernels take bf16 activations and scales, got "
-            f"{x.dtype}/{scale.dtype} (f16 and f32 compute: ROADMAP.md queue 1, item 6)")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"{name}: out_dtype {out_dtype} not supported")
+            f"{name}: CUDA kernel computes in {[str(d) for d in dtypes]} with x, scales "
+            f"and minima in one dtype, got {x.dtype}/{scale.dtype}/"
+            f"{None if zero is None else zero.dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise NotImplementedError(f"{name}: out_dtype {out_dtype} not supported for {x.dtype} x")
     if data.dtype != word_dtype:
         raise ValueError(f"{name}: weight data must be {word_dtype}, got {data.dtype}")
     for t in (x, data, scale) + (() if zero is None else (zero,)):
@@ -237,10 +314,19 @@ def _check_cuda_args(name, x, data, scale, zero, layer, out_dtype, *, word_dtype
         raise IndexError(f"{name}: layer {layer} out of range")
 
 
+def _check_int4(name, x, data, scale, zero, layer, out_dtype, layout=None):
+    """_check_cuda_args for the int4/u32 kernels (any compute dtype, G %
+    4 == 0: a 128-element K step is whole groups in every order)."""
+    if layout is not None and layout not in LAYOUT_IDS:
+        raise NotImplementedError(f"{name}: no CUDA kernel for the {layout!r} order")
+    _check_cuda_args(name, x, data, scale, zero, layer, out_dtype, word_dtype=torch.int32,
+                     k_per_row=8, group_k=32, g_mult=4, dtypes=tuple(DTYPE_IDS))
+
+
 def _ptrs(data, scale, zero, layer):
     """Layer-l base pointers into stacked [L, ...] buffers (no copy): the
     offset is l times one layer's bytes, from each tensor's own element
-    size (int32/int16/int8 data, bf16 scales)."""
+    size (int32/int16/int8 data; bf16, f16 or f32 scales)."""
     def at(t):
         if t is None:
             return None
@@ -254,14 +340,14 @@ def _stream(x):
 
 
 def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
-    """Group-partial dequant GEMV. x: [m <= 8, K_stored] bf16; data int32
-    [KW, N] or [L, KW, N] (then pass `layer`); scale/zero like data with
-    G = K/32 rows; zero None for sym. Returns [m, N] in out_dtype."""
+    """Group-partial dequant GEMV, qsplit order. x: [m <= 8, K_stored] in
+    bf16, f16 or f32; data int32 [KW, N] or [L, KW, N] (then pass
+    `layer`); scale/zero like data with G = K/32 rows, in x's dtype; zero
+    None for sym. Returns [m, N] in out_dtype (x's or f32)."""
     if x.device.type == "cpu":
         return gemv_qs_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                              _layer_view(zero, layer), out_dtype)
-    _check_cuda_args("gemv_qs", x, data, scale, zero, layer, out_dtype, word_dtype=torch.int32,
-                     k_per_row=8, group_k=32, g_mult=4)
+    _check_int4("gemv_qs", x, data, scale, zero, layer, out_dtype)
     m, K = x.shape
     N = data.shape[-1]
     if not 1 <= m <= GEMV_MAX_M:
@@ -272,8 +358,8 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     err = lib.mlc_gemv_qs(
-        x.data_ptr(), wp, sp, zp, partial.data_ptr(), out.data_ptr(), m, K, N,
-        int(zero is None), int(out_dtype == torch.float32), _stream(x))
+        DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, partial.data_ptr(), out.data_ptr(),
+        m, K, N, int(zero is None), int(out_dtype == torch.float32), _stream(x))
     check_launch(err, "gemv_qs")
     gemv_qs.launches += 1
     return out
@@ -282,20 +368,48 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
 gemv_qs.launches = 0
 
 
+def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloat16):
+    """Group-partial dequant GEMV for the pair and hsplit orders; the
+    arguments of gemv_qs, plus the weight's `layout`."""
+    if x.device.type == "cpu":
+        return gemv_gp_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
+                             _layer_view(zero, layer), layout, out_dtype)
+    _check_int4("gemv_gp", x, data, scale, zero, layer, out_dtype, layout)
+    m, K = x.shape
+    N = data.shape[-1]
+    if not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"gemv_gp: m={m} outside 1..{GEMV_MAX_M}")
+    lib = load_kernel("dequant_gemv_gp", _GP_ARGS)
+    splits = lib.mlc_gemv_gp_splits(K)
+    partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    wp, sp, zp = _ptrs(data, scale, zero, layer)
+    err = lib.mlc_gemv_gp(
+        LAYOUT_IDS[layout], DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, partial.data_ptr(),
+        out.data_ptr(), m, K, N, int(zero is None), int(out_dtype == torch.float32),
+        _stream(x))
+    check_launch(err, "gemv_gp")
+    gemv_gp.launches += 1
+    return out
+
+
+gemv_gp.launches = 0
+
+
 def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
-    """Tiled dequant GEMM; same arguments as gemv_qs, m up to 2048."""
+    """Tiled dequant GEMM, qsplit order; same arguments as gemv_qs, m up
+    to 2048."""
     if x.device.type == "cpu":
         return gemm_qs_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                              _layer_view(zero, layer), out_dtype)
-    _check_cuda_args("gemm_qs", x, data, scale, zero, layer, out_dtype, word_dtype=torch.int32,
-                     k_per_row=8, group_k=32, g_mult=4)
+    _check_int4("gemm_qs", x, data, scale, zero, layer, out_dtype)
     m, K = x.shape
     N = data.shape[-1]
     lib = load_kernel("dequant_gemm_qs", _GEMM_ARGS)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     err = lib.mlc_gemm_qs(
-        x.data_ptr(), wp, sp, zp, out.data_ptr(), m, K, N,
+        DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, out.data_ptr(), m, K, N,
         int(zero is None), int(out_dtype == torch.float32), _stream(x))
     check_launch(err, "gemm_qs")
     gemm_qs.launches += 1
@@ -303,6 +417,36 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
 
 
 gemm_qs.launches = 0
+
+
+def gemm_pairs(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloat16):
+    """Tiled dequant GEMM for the pair and hsplit orders; the arguments of
+    gemv_gp, m up to 2048."""
+    if x.device.type == "cpu":
+        return gemm_pairs_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
+                                _layer_view(zero, layer), layout, out_dtype)
+    _check_int4("gemm_pairs", x, data, scale, zero, layer, out_dtype, layout)
+    m, K = x.shape
+    N = data.shape[-1]
+    if not 1 <= m <= GEMM_MAX_M:
+        raise ValueError(f"gemm_pairs: m={m} outside 1..{GEMM_MAX_M}")
+    lib = load_kernel("dequant_gemm_pairs", _PAIRS_ARGS)
+    dt = DTYPE_IDS[x.dtype]
+    splits = lib.mlc_gemm_pairs_splits(m, K, N, dt)
+    partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    wp, sp, zp = _ptrs(data, scale, zero, layer)
+    err = lib.mlc_gemm_pairs(
+        LAYOUT_IDS[layout], dt, x.data_ptr(), wp, sp, zp,
+        None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, splits,
+        int(zero is None), int(out_dtype == torch.float32), _stream(x))
+    check_launch(err, "gemm_pairs")
+    gemm_pairs.launches += 1
+    return out
+
+
+gemm_pairs.launches = 0
 
 
 def gemv_gp3(x, data, scale, layer=None, out_dtype=torch.bfloat16):
@@ -384,23 +528,17 @@ def dense_matmul(x, w: QuantizedTensor, out_dtype=None, layer=None):
 
 def dequant_matmul(x, w: QuantizedTensor, out_dtype=None, layer=None):
     """x: [..., k] @ dequant(w) -> [..., n] through the kernel that
-    `route` picks (gemv_gp3, gemv_qs, gemm_qs or gemm_plane). `layer`
-    selects a layer of a stacked w (the kernels' pointer offset). int4
-    in the hsplit or pair order raises: those bodies have no kernel yet.
-    A qsplit weight whose groups the TPU kernels cannot block is
-    dequantized and multiplied, as JAX does here (:1863-1870)."""
+    `route` picks (gemv_gp3, gemv_qs, gemv_gp, gemm_qs, gemm_pairs or
+    gemm_plane). `layer` selects a layer of a stacked w (the kernels'
+    pointer offset). A split-order weight whose groups the TPU kernels
+    cannot block is dequantized and multiplied, as JAX does here
+    (:1863-1870), and so is any weight above m = 2048 rows, as JAX's
+    qmatmul does (``mlc_llm_tpu/ops/matmul.py`` prefill_kernel_max_m)."""
     spec = w.spec
-    if spec.mode == "int4" and spec.storage == "u32" and spec.layout != "qsplit":
-        raise NotImplementedError(
-            f"no CUDA kernel for {spec.layout}/{spec.mode} weights yet "
-            "(ROADMAP.md queue 1, item 6: the hsplit and pair bodies)")
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    m = x2.shape[0]
-    if m > GEMM_MAX_M:
-        raise ValueError(f"m={m} exceeds the kernels' {GEMM_MAX_M}; use qmatmul")
-    kind = route(spec, w.n_groups, m)
+    kind = route(spec, w.n_groups, x2.shape[0])
     if kind == "dense":
         return dense_matmul(x, w, out_dtype, layer)
     rows = w.data.shape[-2]
@@ -413,6 +551,9 @@ def dequant_matmul(x, w: QuantizedTensor, out_dtype=None, layer=None):
         y = gemv_gp3(x2, w.data, w.scale, layer=layer, out_dtype=out_dtype)
     elif kind == "gemm_plane":
         y = gemm_plane(x2, w.data, w.scale, w.zero, spec, layer=layer, out_dtype=out_dtype)
+    elif kind in ("gemv_gp", "gemm_pairs"):
+        fn = gemv_gp if kind == "gemv_gp" else gemm_pairs
+        y = fn(x2, w.data, w.scale, w.zero, spec.layout, layer=layer, out_dtype=out_dtype)
     else:
         fn = gemv_qs if kind == "gemv_qs" else gemm_qs
         y = fn(x2, w.data, w.scale, w.zero, layer=layer, out_dtype=out_dtype)

@@ -180,6 +180,10 @@ def _unpack_words(words: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     return _restore(codes.reshape(rows * epw, n), spec.layout)
 
 
+def _recip(c: int) -> torch.Tensor:
+    return torch.tensor(1.0 / c, dtype=torch.float32)
+
+
 def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
     """Quantize a [k, n] weight (groups along k); same math as the JAX
     quantizer: f32 statistics, scales/minima stored in the compute dtype,
@@ -206,9 +210,11 @@ def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
     if k_pad != k:
         w = torch.nn.functional.pad(w, (0, 0, 0, k_pad - k))
     wg = w.reshape(n_groups, g, n)
+    # the JAX quantizer is jitted, and XLA divides by a constant as a
+    # multiply by its f32 reciprocal: the f32 scales match it bit for bit
     if spec.sym:
         absmax = torch.clamp(wg.abs().amax(dim=1), min=1e-4)
-        scale_st = (absmax if spec.mode == "fp4" else absmax / spec.max_int).to(dtype)
+        scale_st = (absmax if spec.mode == "fp4" else absmax * _recip(spec.max_int)).to(dtype)
         scaled = wg / scale_st.float()[:, None, :]
         if spec.mode == "fp4":
             codes = _f32_to_f4(scaled)
@@ -219,7 +225,7 @@ def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
         levels = (1 << spec.nbit) - 1
         gmin = wg.amin(dim=1)
         gmax = wg.amax(dim=1)
-        scale_st = ((gmax - gmin) / levels).to(dtype)
+        scale_st = ((gmax - gmin) * _recip(levels)).to(dtype)
         zero_st = gmin.to(dtype)
         safe = torch.clamp(scale_st.float(), min=1e-10)
         codes = torch.round((wg - zero_st.float()[:, None, :]) / safe[:, None, :])

@@ -1,11 +1,12 @@
 """Where a decode step of the PyTorch port spends its time, on one GPU.
 
-    python scripts/torch_decode_profile.py [--layers 32] [--tokens 16]
-        [--batch 1] [--prompt-len 64] [--kv-layout slot|paged] [--kv-dtype bf16|int8]
-        [--quantization q4bf16|q3bf16_s16|q3bf16|fp4bf16|q8bf16]
+    python scripts/torch_decode_profile.py [--model vicuna-v1-7b] [--layers 32]
+        [--tokens 16] [--batch 1] [--prompt-len 64] [--kv-layout slot|paged]
+        [--kv-dtype bf16|int8] [--quantization q4bf16|q3bf16_s16|q4f32|q4f16_hs|...]
 
-Builds Vicuna-7B on random weights (full width; --layers cuts the depth)
-in the --quantization preset (default q4bf16), prefills --batch prompts
+Builds --model (default Vicuna-7B; e.g. RedPajama-INCITE-Chat-3B-v1 with
+q4f32, dolly-v2-3b with q4f16_hs) on random weights (full width; --layers
+cuts the depth) in the --quantization preset (default q4bf16), prefills --batch prompts
 of --prompt-len tokens, then runs greedy decode under torch.profiler and
 prints: host wall ms per decode step (profiler off), device kernel ms per
 step (the sum of CUDA kernel self times, the prefill's own profile
@@ -36,6 +37,7 @@ def _device_us(evt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="vicuna-v1-7b")
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=1)
@@ -46,14 +48,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    cfg = get_config("vicuna-v1-7b").replace(num_layers=args.layers)
+    cfg = get_config(args.model).replace(num_layers=args.layers)
     params = init_random_params(cfg, args.quantization, seed=0, device="cuda")
     engine = InferenceEngine(cfg, params, max_batch=args.batch,
                              max_seq_len=max(1536, args.prompt_len + args.tokens + 1),
                              kv_layout=args.kv_layout,
                              cache_dtype=torch.int8 if args.kv_dtype == "int8" else torch.bfloat16,
                              device="cuda")
-    prompt = [[1] + [3 + (b + i) % 30000 for i in range(args.prompt_len - 1)]
+    prompt = [[cfg.bos_token_id] + [3 + (b + i) % 30000 for i in range(args.prompt_len - 1)]
               for b in range(args.batch)]
     gen = GenerationConfig(max_new_tokens=args.tokens, temperature=0.0, stop_tokens=())
     cfg_stops = engine.cfg.stop_tokens
@@ -84,7 +86,7 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    print(f"{args.quantization}, batch {args.batch}, {args.kv_layout} {args.kv_dtype} KV, "
+    print(f"{args.model} {args.quantization}, batch {args.batch}, {args.kv_layout} {args.kv_dtype} KV, "
           f"prompt {args.prompt_len}")
     print(f"decode without the profiler: {plain_wall:.3f} ms/step "
           f"({1e3 * args.batch / plain_wall:.2f} tok/s)")

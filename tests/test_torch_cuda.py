@@ -103,6 +103,7 @@ def test_cuda_paged_flash_decode_matches_plain(int8, rep, hb, ps, lengths):
 
 
 def _stacked(preset, k, n, layers=2):
+    # preset: a preset name or a QuantSpec
     g = torch.Generator(device="cuda").manual_seed(0)
     qts = [pad_quantized_groups(quantize(torch.randn((k, n), generator=g, device="cuda") * 0.02,
                                          preset)) for _ in range(layers)]
@@ -164,3 +165,68 @@ def test_cuda_gemm_plane_ragged_groups(preset, k):
     got = dm.gemm_plane(x, qt.data, qt.scale, qt.zero, spec, out_dtype=torch.float32)
     want = dm.gemm_plane_plain(x, qt.data, qt.scale, qt.zero, spec, torch.float32)
     torch.testing.assert_close(got, want, **TOL)
+
+
+# int4 in every order and compute dtype: (preset, layout); the hsplit f32
+# weight is the q4f16_hs model's lm head
+INT4_CASES = [("q4bf16_pair", "pair"), ("q4bf16_sym", "pair"), ("q4f16_pair", "pair"),
+              ("q4f32", "pair"), ("q4bf16_hs", "hsplit"), ("q4f16_hs", "hsplit"),
+              ("q4f32", "hsplit"), ("q4f16", "qsplit"), ("q4f32", "qsplit")]
+# f32: nothing rounds but the f32 sums (3xTF32 in the GEMMs keeps f32's
+# accuracy); bf16/f16: a rounded group sum or weight may fall the other way
+F32_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def _int4_stacked(preset, layout, k=2560, n=2560):
+    # the 3B width: k = 2560 is 80 groups, padded to 96 as the engine pads
+    spec = dataclasses.replace(QUANT_PRESETS[preset], layout=layout)
+    qts, stacked = _stacked(spec, k, n)
+    x = _x_for(qts[1], 1).to(getattr(torch, spec.dtype))
+    return qts[1], stacked, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("preset,layout", INT4_CASES)
+def test_cuda_int4_gemv_matches_plain(preset, layout, m):
+    _need_gpu()
+    one, (data, scale, zero), x = _int4_stacked(preset, layout)
+    x = x[:1].repeat(m, 1) * torch.arange(1, m + 1, device="cuda", dtype=x.dtype)[:, None]
+    fn, plain = ((dm.gemv_qs, dm.gemv_qs_plain) if layout == "qsplit"
+                 else (dm.gemv_gp, dm.gemv_gp_plain))
+    extra = () if layout == "qsplit" else (layout,)
+    before = fn.launches
+    got = fn(x, data, scale, zero, *extra, layer=1, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(x, one.data, one.scale, one.zero, *extra, torch.float32)
+    torch.testing.assert_close(got, want, **(F32_TOL if x.dtype == torch.float32 else TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 200])
+@pytest.mark.parametrize("preset,layout", INT4_CASES)
+def test_cuda_int4_gemm_matches_plain(preset, layout, m):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), x = _int4_stacked(preset, layout)
+    x = x[:1].repeat(m, 1) + torch.randn((m, x.shape[1]), device="cuda").to(x.dtype) * 0.5
+    fn, plain = ((dm.gemm_qs, dm.gemm_qs_plain) if layout == "qsplit"
+                 else (dm.gemm_pairs, dm.gemm_pairs_plain))
+    extra = () if layout == "qsplit" else (layout,)
+    before = fn.launches
+    got = fn(x, data, scale, zero, *extra, layer=1, out_dtype=x.dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(x, one.data, one.scale, one.zero, *extra, x.dtype)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32_TOL if x.dtype == torch.float32 else TOL))
+
+
+@pytest.mark.cuda
+def test_cuda_int4_mixed_dtypes_raise():
+    # f32 x on bf16 scales has no kernel: it raises, nothing converts
+    _need_gpu()
+    one, (data, scale, zero), x = _int4_stacked("q4bf16_pair", "pair")
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        dm.gemv_gp(x.float(), data, scale, zero, "pair", layer=1)

@@ -101,16 +101,24 @@ def test_unpadded_k_is_zero_padded():
     torch.testing.assert_close(dm.dequant_matmul(x, qt, out_dtype=torch.float32), want, **TOL)
 
 
-def test_formats_without_a_kernel_raise_not_fall_back():
-    # hsplit on the kernel entry raises whatever the device; on CPU the
-    # matmul router takes the dequantize path explicitly
-    w = (np.random.default_rng(0).standard_normal((64, 128)) * 0.05).astype(np.float32)
-    hs = quantize(torch.from_numpy(w), "q4bf16_hs")
-    x = torch.ones((1, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dm.dequant_matmul(x, hs)
-    want = torch.matmul(x.float(), dequantize(hs, torch.bfloat16).float()).to(torch.bfloat16)
-    assert torch.equal(qmatmul(x, hs), want)
+def test_formats_without_a_kernel_raise_not_fall_back(monkeypatch):
+    # every int4 order has a kernel now: an hsplit weight (16 groups, the
+    # hsplit GEMV's blockable count) takes gemv_gp's plain version on the
+    # CPU and equals the JAX kernel; nothing falls back to dequantizing
+    rng = np.random.default_rng(0)
+    jq = jquantize((rng.standard_normal((512, 128)) * 0.05).astype(np.float32), "q4bf16_hs")
+    hs = params_from_jax(jax.tree.map(np.asarray, jq))
+    assert dm.route(hs.spec, hs.n_groups, 1) == "gemv_gp"
+
+    def no_dense(*a, **k):
+        raise AssertionError("fell back to dense_matmul")
+
+    monkeypatch.setattr(dm, "dense_matmul", no_dense)
+    xj = jnp.asarray(rng.standard_normal((1, 512)) * 0.1, jnp.bfloat16)
+    want = jdm(xj, jq, out_dtype=jnp.float32)
+    got = qmatmul(tensor_from_numpy(np.asarray(xj)), hs, out_dtype=torch.float32)
+    assert dm.gemv_gp.launches == 0
+    _close(got, want)
 
 
 def test_cuda_request_without_gpu_raises():

@@ -33,8 +33,10 @@ from mlc_llm_tpu_torch.quant import (
 torch.set_num_threads(2)
 
 # the default qsplit order, the two older orders, sym (pair order, the
-# preset's own), and sym in the qsplit order the GEMV kernel covers
-PRESETS = ["q4bf16", "q4bf16_hs", "q4bf16_pair", "q4bf16_sym", "q4bf16_sym_qs"]
+# preset's own), sym in the qsplit order the GEMV kernel covers, and the
+# f32 and f16 compute presets (f32 and f16 scales and minima)
+PRESETS = ["q4bf16", "q4bf16_hs", "q4bf16_pair", "q4bf16_sym", "q4bf16_sym_qs",
+           "q4f32", "q4f16", "q4f16_hs", "q4f16_pair"]
 
 
 def _spec(name):
