@@ -6,7 +6,8 @@ Phases (any failed check exits non-zero before the last line):
 
 1. card identity (nvidia-smi name and power limit), then the seven kernel
    sources are built from csrc/ with nvcc, one process per source, all at
-   once (build seconds printed);
+   once (build seconds printed, and ptxas's registers, shared memory and
+   spills of the two wgmma GEMMs, gemm_qs and gemm_plane);
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
    plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
@@ -18,7 +19,8 @@ Phases (any failed check exits non-zero before the last line):
    lm head in f32): GEMV at m=1 and 8 and GEMM at m=128 on all five shapes
    and at m=2048 on w_in; the qsplit GEMV and GEMM in f16 and f32 at w_in
    and the qsplit f32 GEMV on the lm head; paged flash-decode at batch 8
-   over mixed lengths, bf16 and int8 KV;
+   over mixed lengths, bf16 and int8 KV; each row prints its TFLOP/s and
+   its time over the library call's;
 3. parity phase: 2-layer models at full width, the same params through
    forward on the card (kernels) and on the CPU (plain versions), logits
    compared for a 64-token prefill and 4 decode steps: Vicuna-7B in q4bf16
@@ -199,6 +201,18 @@ PAGED_WINDOW = 16  # pages: SERVE_SEQ / PAGE_SIZE
 PAGED_HEAD_BLOCK = 8
 
 
+# the wgmma redesigns (csrc/dequant_wgmma.cuh): the build reports their
+# registers, shared memory and spills
+WGMMA_SOURCES = ("dequant_gemm_qs", "dequant_gemm_plane")
+
+
+def ptxas_summary(log: str):
+    """nvcc -Xptxas -v's report cut to each kernel entry's name, spill
+    bytes, registers and shared memory, and ptxas's performance notes."""
+    keep = ("Compiling entry", "spill", "Used", "Performance", "warning")
+    return [f"    {line.strip()}" for line in log.splitlines() if any(k in line for k in keep)]
+
+
 def fail(msg: str):
     print(f"FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -376,9 +390,12 @@ def shape_rows(gen, flush, label, spec, name, k, n, cases):
                    plain_ms=time_ms(run_plain, flush, min(reps, 5)),
                    library_ms=time_ms(run_library, flush, reps),
                    bound_ms=b_ms, bound_by=b_by)
+        row["tflops"] = 2 * m * K * N / (row["ms"] * 1e-3) / 1e12
+        row["vs_library"] = row["ms"] / row["library_ms"]
         print(f"  {kname} {label} {name} m={m} K={K} N={N}: max_abs_err={err:.3g} "
               f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
+              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"{row['tflops']:.1f} TFLOP/s, {row['vs_library']:.2f}x library")
         if not ok:
             fail(f"{kname} {label} {name} m={m} disagrees with its plain version (max {err})")
         rows.append(row)
@@ -768,8 +785,12 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     t0 = time.perf_counter()
-    build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"))
+    logs = build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for name in WGMMA_SOURCES:
+        if name in logs:
+            print(f"  ptxas, {name}.cu:")
+            print("\n".join(ptxas_summary(logs[name])))
 
     rows = kernel_phase()
     parity_phase()
@@ -840,7 +861,8 @@ def main():
             bound_by=top["bound_by"], library_ms=top["library_ms"],
             shapes=[{k: r.get(k) for k in ("quant", "dtype", "shape", "m", "k", "n",
                                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}
+                                           "bound_by", "library_ms", "tflops",
+                                           "vs_library")}
                     for r in mine]))
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels):
         fail("a kernel time is not finite or a kernel never ran on its path")

@@ -1,5 +1,5 @@
-// Tiled dequant GEMM for the sym low-bit formats: int3 in u32 words (10
-// codes a word) and in u16 words (5), fp4 in u32 words (8), and int8 planes.
+// Dequant GEMM for the sym low-bit formats: int3 in u32 words (10 codes a
+// word) and in u16 words (5), fp4 in u32 words (8), and int8 planes.
 //
 // Replaces the Pallas kernels mlc_llm_tpu/ops/pallas/dequant_matmul.py
 // _kernel (the generic branch of _dequant_matmul_2d, flat weights) and
@@ -8,44 +8,36 @@
 // Same math, same rounding points:
 //   word kw holds k = kw * epw + i at bits i * nbit; each weight is rebuilt
 //   in bf16 as bf16(value(code) * s) (dequant_matmul.py:396), where value is
-//   the raw code for int3, +-2^(e-7) (0 when e == 0, sign ignored) for
-//   fp4, and the stored signed byte for int8; then acc += x @ w in f32;
-//   int3 adds the folded offset term (none for fp4 and int8):
+//   the raw code for int3, +-2^(e-7) (0 when e == 0) for fp4, and the
+//   stored signed byte for int8; then acc += x @ w in f32; int3 adds the
+//   folded offset term (none for fp4 and int8):
 //     sum_kw bf16(sum_i x[kw * epw + i]) * off[g(kw)],  off = bf16(-max_int * s).
-//   The offset is constant within a group, so the kernel adds, per group,
-//   T[m, g] = sum over the group's words of bf16(word sum of x) times off in
-//   f32 on the CUDA cores beside the tensor-core product, not as a second
-//   GEMM.
-//
-// x is read in place: element k of a row is x[m, k] (the TPU's plane
-// transpose x_t is its own plumbing).
 //
 // Bound on the H100: bytes at decode widths (m <= ~185 at 3.6 bits a weight
-// against the ~295 flops/byte ridge), the bf16 tensor-core rate above. This
-// first version is simple, not fast:
-//   * a 64 x 64 output tile per 128-thread block, four warps of 32 x 32 on
-//     nvcuda::wmma bf16 16x16x16 products with f32 accumulators;
-//   * the K loop walks 4 groups at a time (160 k for int3, 128 otherwise):
-//     the x tile is copied to shared memory with 16-byte loads, the words
-//     with 16-byte loads (4 u32, 8 u16 or 16 int8 columns a thread) and
-//     dequantized into a bf16 tile;
-//   * the ragged m edge and a group count that is not a multiple of 4 are
-//     masked (zero rows in, no stores out);
-//   * when the m x n tiles give fewer than two blocks per SM (decode widths:
-//     m = 1..64 at wo gives 64 blocks), K is split over blockIdx.z into f32
-//     parts that a second kernel adds in part order (deterministic).
-// Small m keeps this tensor-core path (no CUDA-core branch): the dequantize
-// work per weight is the same either way, and at m <= 2 the slice's q3
-// format takes the gp3 GEMV. wgmma, TMA and a pipelined ring are later work.
+// against the ~295 flops/byte ridge), the bf16 tensor-core rate above.
+//
+// The Hopper mainloop of dequant_wgmma.cuh (wgmma, the weight as the
+// register A operand, a TMA ring). x arrives in the TPU wrapper's
+// plane-transposed order x_t[f, m, kw] = x[m, kw * epw + f] (+ for int3 one
+// more plane, the bf16 word sums of x), made by plane_x_kernel, a prologue
+// launched by the same entry (int8 reads x itself as its one plane). A
+// stage is one chunk of 16 consecutive words (int8: four chunks of 16
+// rows): a k16 step is field f of the chunk's words, so the chunk's words
+// feed epw steps. A thread (channels ch, ch+8; k group c) reads words 2c,
+// 2c+1 and 2c+8, 2c+9 of its two channels; each pair lies in one group
+// (4 words for int3/u32 and fp4, 8 for u16, 32 rows for int8), so one
+// scale pair multiplies it (one __hmul2_rn: the body's one rounding).
+// int3's offset is one more k16 step on the tensor cores: A holds off
+// (constant over a group's words), B the word-sum plane. Group counts that
+// are no multiple of a chunk read zeros past the stored words, scales and
+// x (TMA fills out of bounds with zeros; the x_t planes are zero-padded).
+// The m tile, the split-K parts and the stages per part come from the
+// Python wrapper (ops/dequant_matmul.py gemm_tiles).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "dequant_wgmma.cuh"
+#include "int4_common.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 enum Format { kI3W32 = 0, kI3W16 = 1, kF4W32 = 2, kI8 = 3 };
 
@@ -54,266 +46,202 @@ struct Fmt;
 template <>
 struct Fmt<kI3W32> {
   using Word = uint32_t;
-  static constexpr int kEpw = 10, kBits = 3, kWpg = 4;
-  static constexpr bool kFp4 = false, kOffset = true;
+  static constexpr int kEpw = 10, kWpg = 4, kChunks = 1;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT32;
 };
 template <>
 struct Fmt<kI3W16> {
   using Word = uint16_t;
-  static constexpr int kEpw = 5, kBits = 3, kWpg = 8;
-  static constexpr bool kFp4 = false, kOffset = true;
+  static constexpr int kEpw = 5, kWpg = 8, kChunks = 1;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT16;
 };
 template <>
 struct Fmt<kF4W32> {
   using Word = uint32_t;
-  static constexpr int kEpw = 8, kBits = 4, kWpg = 4;
-  static constexpr bool kFp4 = true, kOffset = false;
+  static constexpr int kEpw = 8, kWpg = 4, kChunks = 1;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT32;
 };
 template <>
 struct Fmt<kI8> {  // one signed code a byte: no fields, no offset term
   using Word = int8_t;
-  static constexpr int kEpw = 1, kWpg = 32;
-  static constexpr bool kOffset = false;
+  static constexpr int kEpw = 1, kWpg = 32, kChunks = 4;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 };
 
-constexpr int BM = 64, BN = 64, kThreads = 128;
-constexpr int kTileGroups = 4;  // groups per K step
-constexpr int LDB = BN + 8, LDC = BN + 4;
-constexpr int kTargetBlocks = 264;  // two blocks per SM before K is split
-
-__device__ __forceinline__ float rbf(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// the unscaled value of field f of a word (see the header)
 template <int F>
-__device__ __forceinline__ float field_value(typename Fmt<F>::Word w, int f) {
-  using T = Fmt<F>;
+constexpr bool kOffset = F == kI3W32 || F == kI3W16;
+
+// the bf16x2 bits of the unscaled values of field f of two words (low
+// half: word lo), exact
+template <int F>
+__device__ __forceinline__ uint32_t value_pair(typename Fmt<F>::Word lo,
+                                               typename Fmt<F>::Word hi, int f) {
   if constexpr (F == kI8) {
-    return static_cast<float>(w);
+    return wg::bits(__floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi)));
+  } else if constexpr (F == kF4W32) {
+    const uint32_t cl = (static_cast<uint32_t>(lo) >> (4 * f)) & 15u;
+    const uint32_t ch = (static_cast<uint32_t>(hi) >> (4 * f)) & 15u;
+    // +-2^(e-7): exponent field e + 120, sign bit 15; 0 when e == 0
+    const uint32_t bl = (cl & 7u) ? (((cl & 7u) + 120u) << 7) | ((cl & 8u) << 12) : 0u;
+    const uint32_t bh = (ch & 7u) ? (((ch & 7u) + 120u) << 7) | ((ch & 8u) << 12) : 0u;
+    return bl | (bh << 16);
   } else {
-    const uint32_t code = (static_cast<uint32_t>(w) >> (f * T::kBits)) & ((1u << T::kBits) - 1);
-    if constexpr (T::kFp4) {
-      const uint32_t e = code & 7u;
-      return e == 0 ? 0.f : __uint_as_float(((code >> 3) << 31) | ((e + 120u) << 23));
-    } else {
-      return static_cast<float>(code);
-    }
+    // int3: 128 + code exactly (bf16 128.0 is 0x4300, its ulp 1), less 128
+    const uint32_t t = ((static_cast<uint32_t>(lo) >> (3 * f)) & 7u) |
+                       (((static_cast<uint32_t>(hi) >> (3 * f)) & 7u) << 16) | 0x43004300u;
+    return wg::bits(__hsub2(wg::from_bits<__nv_bfloat162>(t), __float2bfloat162_rn(128.f)));
   }
 }
 
 template <int F>
-__global__ void __launch_bounds__(kThreads)
-gemm_plane_kernel(const __nv_bfloat16* __restrict__ x, const typename Fmt<F>::Word* __restrict__ w,
-                  const __nv_bfloat16* __restrict__ s, float* __restrict__ partial,
-                  void* __restrict__ out, int M, int G, int N, int tiles_per_split,
-                  int max_int, int out_f32) {
-  using T = Fmt<F>;
-  using Word = typename T::Word;
-  constexpr int GK = T::kEpw * T::kWpg;         // k per group: 40 or 32
-  constexpr int BK = kTileGroups * GK;          // k per step: 160 or 128
-  constexpr int WR = kTileGroups * T::kWpg;     // word rows per step
-  constexpr int LDA = BK + 8;
-  constexpr int CPV = 16 / sizeof(Word);        // columns per 16-byte load
-  constexpr int kBytes = (BM * LDA + BK * LDB) * 2 + 3 * kTileGroups * BN * 4;
-  static_assert(BM * LDA * 2 >= BM * LDC * 4, "the epilogue tile reuses the x tile");
-  __shared__ __align__(128) unsigned char smem[kBytes];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);           // [BM][LDA]
-  __nv_bfloat16* Bs = As + BM * LDA;                                    // [BK][LDB]
-  float* sS = reinterpret_cast<float*>(Bs + BK * LDB);                  // [4][BN] scales
-  float* sOff = sS + kTileGroups * BN;                                  // [4][BN] offsets
-  float* sT = sOff + kTileGroups * BN;                                  // [BM][4] group x sums
-  float* Cs = reinterpret_cast<float*>(smem);                           // [BM][LDC], epilogue
+struct PlanePolicy {
+  using T = __nv_bfloat16;
+  using Word = typename Fmt<F>::Word;
+  static constexpr int kEpw = Fmt<F>::kEpw, kWpg = Fmt<F>::kWpg, kChunks = Fmt<F>::kChunks;
+  static constexpr int kPlanes = kEpw + (kOffset<F> ? 1 : 0);  // x_t planes
+  static constexpr int kSteps = kChunks * kPlanes;
+  static constexpr int kMaxMT = 128;  // int3/u32's 11 planes of [256][16] leave < 3 stages
+  static constexpr int kRows = 16 * kChunks;                    // word rows a stage
+  static constexpr int kSRows = kRows / kWpg > 0 ? kRows / kWpg : 1;
+  static constexpr int kWBytes = kRows * wg::kBN * sizeof(Word);
+  static constexpr int kSBytes = kSRows * wg::kBN * 2;
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int K = G * GK;
-  const int tiles = (G + kTileGroups - 1) / kTileGroups;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int t_end = min(tiles, t_begin + tiles_per_split);
-  // this thread's outputs of the 64 x 64 tile for the offset term and the
-  // epilogue: column tid % 64, rows tid / 64 + 2j
-  const int on = tid % BN, orow = tid / BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // maps: x_t [planes][M][KWp] (box [planes][MT][16], 32-byte swizzle);
+  // words [KW][N] (box [kRows][128]); scales [G][N] (box [kSRows][128])
+  static __device__ __forceinline__ void load(const wg::Maps& mp, uint8_t* x, uint8_t* w,
+                                              uint8_t* s, uint64_t* bar, int t, int m0, int n0,
+                                              int MT, const wg::Params& p) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  float offacc[BM / 2];
-#pragma unroll
-  for (int j = 0; j < BM / 2; ++j) offacc[j] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK, g0 = t * kTileGroups;
-    // x tile: As[r][kk] = x[m0 + r][k0 + kk], 8 bf16 per 16-byte load
-    for (int i = tid; i < BM * (BK / 8); i += kThreads) {
-      const int r = i / (BK / 8), v = (i % (BK / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && k0 + v < K)
-        val = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + v));
-      *reinterpret_cast<uint4*>(As + r * LDA + v) = val;
-    }
-    // the step's scales (and offsets) as f32
-    for (int i = tid; i < kTileGroups * BN; i += kThreads) {
-      const int gi = i / BN, c = i % BN, g = g0 + gi;
-      const float sv = g < G ? __bfloat162float(s[(size_t)g * N + n0 + c]) : 0.f;
-      sS[i] = sv;
-      sOff[i] = rbf(sv * static_cast<float>(-max_int));
-    }
-    __syncthreads();
-
-    // weight tile: word row wr of the step -> Bs rows wr * epw + f
-    for (int i = tid; i < WR * (BN / CPV); i += kThreads) {
-      const int wr = i / (BN / CPV), c0 = (i % (BN / CPV)) * CPV;
-      const int gi = wr / T::kWpg;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (g0 + gi < G)
-        raw = __ldg(reinterpret_cast<const uint4*>(
-            w + (size_t)(g0 * T::kWpg + wr) * N + n0 + c0));
-      const Word* words = reinterpret_cast<const Word*>(&raw);
-#pragma unroll
-      for (int f = 0; f < T::kEpw; ++f) {
-        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Bs + (wr * T::kEpw + f) * LDB + c0);
-#pragma unroll
-        for (int j = 0; j < CPV; j += 2) {
-          const float v0 = field_value<F>(words[j], f) * sS[gi * BN + c0 + j];
-          const float v1 = field_value<F>(words[j + 1], f) * sS[gi * BN + c0 + j + 1];
-          dst[j / 2] = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-    if (T::kOffset) {
-      // sT[r][gi] = sum over the group's words of bf16(sum of its epw x)
-      for (int i = tid; i < BM * kTileGroups; i += kThreads) {
-        const int r = i / kTileGroups, gi = i % kTileGroups;
-        const __nv_bfloat16* xr = As + r * LDA + gi * GK;
-        float tsum = 0.f;
-#pragma unroll
-        for (int wd = 0; wd < T::kWpg; ++wd) {
-          float ws = 0.f;
-#pragma unroll
-          for (int e = 0; e < T::kEpw; ++e) ws += __bfloat162float(xr[wd * T::kEpw + e]);
-          tsum += rbf(ws);
-        }
-        sT[i] = tsum;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDA + kk * 16, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (kk * 16) * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    if (T::kOffset) {
-#pragma unroll
-      for (int j = 0; j < BM / 2; ++j) {
-        const float* tr = sT + (orow + 2 * j) * kTileGroups;
-#pragma unroll
-        for (int gi = 0; gi < kTileGroups; ++gi) offacc[j] = fmaf(tr[gi], sOff[gi * BN + on], offacc[j]);
-      }
-    }
-    __syncthreads();
+    for (int j = 0; j < kChunks; ++j)
+      wg::tma_load_3d(x + j * kPlanes * MT * wg::kTileRow, &mp.x, bar, 16 * (kChunks * t + j),
+                      m0, 0);
+    wg::tma_load_2d(w, &mp.w, bar, n0, kRows * t);
+    wg::tma_load_2d(s, &mp.s, bar, n0, kRows * t / kWpg);
   }
 
+  static __device__ __forceinline__ void dequant(uint32_t (&a)[kSteps][4], const uint8_t* wt,
+                                                 const uint8_t* st, int ch, int c,
+                                                 const wg::Params& p) {
+    const Word* W = reinterpret_cast<const Word*>(wt);
+    const __nv_bfloat16* S = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat162 neg_max = __float2bfloat162_rn(static_cast<float>(-p.max_int));
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < kChunks; ++j) {
+      // a[.][0]: (ch, words 2c, 2c+1), [1]: (ch+8, the same), [2]: (ch,
+      // words 2c+8, 2c+9), [3]: (ch+8, the same)
+      Word lo[4], hi[4];
+      __nv_bfloat162 sc[4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
+      for (int r = 0; r < 4; ++r) {
+        const int row = 16 * j + 2 * c + 8 * (r / 2), col = ch + 8 * (r % 2);
+        lo[r] = W[row * wg::kBN + col];
+        hi[r] = W[(row + 1) * wg::kBN + col];
+        sc[r] = __bfloat162bfloat162(S[(row / kWpg) * wg::kBN + col]);
+      }
 #pragma unroll
-  for (int j = 0; j < BM / 2; ++j) {
-    const int r = orow + 2 * j;
-    if (m0 + r >= M) continue;
-    const float v = Cs[r * LDC + on] + offacc[j];
-    const size_t o = (size_t)(m0 + r) * N + n0 + on;
-    if (partial != nullptr)
-      partial[(size_t)blockIdx.z * M * N + o] = v;
-    else if (out_f32)
-      static_cast<float*>(out)[o] = v;
-    else
-      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(v);
+      for (int f = 0; f < kEpw; ++f)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          a[j * kPlanes + f][r] = wg::bits(
+              __hmul2_rn(wg::from_bits<__nv_bfloat162>(value_pair<F>(lo[r], hi[r], f)), sc[r]));
+      if constexpr (kOffset<F>) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[j * kPlanes + kEpw][r] = wg::bits(__hmul2_rn(sc[r], neg_max));
+      }
+    }
   }
-}
+};
 
-// out[i] = sum over the S split-K parts, in part order.
-__global__ void reduce_kernel(const float* __restrict__ partial, void* __restrict__ out, int S,
-                              int MN, int out_f32) {
+// x [M][KW * epw] -> x_t [planes][M][KWp]: plane f < epw holds
+// x[m, kw * epw + f], int3's plane epw the bf16 word sum (f32, in field
+// order); zero for KW <= kw < KWp
+template <int F>
+__global__ void plane_x_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ xt,
+                               int M, int KW, int KWp) {
+  constexpr int E = Fmt<F>::kEpw;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float t = 0.f;
-  for (int sl = 0; sl < S; ++sl) t += partial[(size_t)sl * MN + i];
-  if (out_f32)
-    static_cast<float*>(out)[i] = t;
-  else
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(t);
-}
-
-int tiles_per_split(int G, int splits) {
-  const int tiles = (G + kTileGroups - 1) / kTileGroups;
-  return (tiles + splits - 1) / splits;
+  if (i >= M * KWp) return;
+  const int m = i / KWp, kw = i % KWp;
+  float sum = 0.f;
+#pragma unroll
+  for (int f = 0; f < E; ++f) {
+    const __nv_bfloat16 v =
+        kw < KW ? x[static_cast<size_t>(m) * KW * E + kw * E + f] : __float2bfloat16(0.f);
+    xt[(static_cast<size_t>(f) * M + m) * KWp + kw] = v;
+    sum += __bfloat162float(v);
+  }
+  if constexpr (kOffset<F>) xt[(static_cast<size_t>(E) * M + m) * KWp + kw] = __float2bfloat16(sum);
 }
 
 template <int F>
-void launch(const void* x, const void* w, const void* s, float* partial, void* out, int M,
-            int G, int N, int splits, int max_int, int out_f32, cudaStream_t st) {
-  dim3 grid(N / BN, (M + BM - 1) / BM, splits);
-  gemm_plane_kernel<F><<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const typename Fmt<F>::Word*>(w),
-      static_cast<const __nv_bfloat16*>(s), partial, out, M, G, N, tiles_per_split(G, splits),
-      max_int, out_f32);
+cudaError_t launch(const void* x, void* xt, const void* w, const void* s, float* partial,
+                   void* out, int M, int G, int N, int mt, int splits, int per, int max_int,
+                   int out_f32, cudaStream_t st) {
+  using P = PlanePolicy<F>;
+  const int rows = F == kI8 ? 32 * G : G * Fmt<F>::kWpg;  // stored word rows (int8: K)
+  const int steps = (rows + P::kRows - 1) / P::kRows;
+  if ((splits - 1) * per >= steps || splits * per < steps) return cudaErrorInvalidValue;
+  wg::Maps maps;
+  bool ok;
+  if constexpr (F == kI8) {
+    ok = wg::map_3d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, rows, M, 1, rows * 2ull,
+                    static_cast<size_t>(M) * rows * 2, 16, mt, 1, CU_TENSOR_MAP_SWIZZLE_32B);
+  } else {
+    const int kwp = (rows + 7) / 8 * 8;  // 16-byte rows of x_t
+    const int threads = 256;
+    plane_x_kernel<F><<<(M * kwp + threads - 1) / threads, threads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(xt), M, rows, kwp);
+    ok = wg::map_3d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xt, kwp, M, P::kPlanes,
+                    kwp * 2ull, static_cast<size_t>(M) * kwp * 2, 16, mt, P::kPlanes,
+                    CU_TENSOR_MAP_SWIZZLE_32B);
+  }
+  ok = ok &&
+       wg::map_2d(&maps.w, Fmt<F>::kType, w, N, rows, static_cast<size_t>(N) * sizeof(typename Fmt<F>::Word),
+                  wg::kBN, P::kRows) &&
+       wg::map_2d(&maps.s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s, N, G, N * 2ull, wg::kBN, P::kSRows);
+  if (!ok) return cudaErrorInvalidValue;
+  maps.z = maps.s;
+  wg::Params p{M, N, rows, steps, per, 1, max_int, out_f32, partial, out};
+  cudaError_t err = wg::launch_mt<P>(mt, maps, p, splits, st);
+  if (err == cudaSuccess && partial != nullptr)
+    int4k::launch_reduce<__nv_bfloat16>(partial, out, splits, M * N, out_f32, st);
+  return err;
 }
 
 }  // namespace
 
-// Number of split-K parts for an M x N output over G groups: 1 when the
-// output tiles alone give two blocks per SM. The caller sizes the f32
-// scratch [S, M, N] when S > 1.
-extern "C" int mlc_gemm_plane_splits(int M, int G, int N) {
-  const int blocks = (N / BN) * ((M + BM - 1) / BM);
-  const int tiles = (G + kTileGroups - 1) / kTileGroups;
-  if (blocks >= kTargetBlocks || tiles <= 1) return 1;
-  int splits = (kTargetBlocks + blocks - 1) / blocks;
-  if (splits > tiles) splits = tiles;
-  const int per = (tiles + splits - 1) / splits;
-  return (tiles + per - 1) / per;  // no empty part
-}
-
 // fmt: enum Format. x [M, K] bf16 with K = G * (k per group), 16-byte
-// aligned rows; w words [G * words per group, N] (int8: [K, N]), a layer's
-// block; s [G, N] bf16; partial f32 [splits, M, N] when splits > 1, else
-// null; out [M, N] in bf16 (out_f32 = 0) or f32. Needs N % 64 == 0.
-// Returns cudaGetLastError() after the launches.
-extern "C" int mlc_gemm_plane(int fmt, const void* x, const void* w, const void* s,
-                              void* partial, void* out, int M, int G, int N, int splits,
-                              int max_int, int out_f32, void* stream) {
+// aligned; xt bf16 scratch [planes, M, KWp] (planes = epw, + 1 for int3;
+// KWp = the word rows rounded up to 8; null for int8); w words [G * words
+// per group, N] (int8: [K, N]), a layer's block; s [G, N] bf16; out [M, N]
+// in bf16 (out_f32 = 0) or f32. The m tile mt in {16, 64, 128}, `splits`
+// split-K parts of `per` stages (16 word rows a stage; int8: 64 rows),
+// partial f32 [splits, M, N] when splits > 1, else null. Needs N % 128 ==
+// 0 and 16-byte aligned bases. Returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue for a refused tensor map or plan).
+extern "C" int mlc_gemm_plane(int fmt, const void* x, void* xt, const void* w, const void* s,
+                              void* partial, void* out, int M, int G, int N, int mt, int splits,
+                              int per, int max_int, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  if (splits > 1 && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || per < 1 || (splits > 1 && part == nullptr) ||
+      (fmt != kI8 && xt == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
   switch (fmt) {
-    case kI3W32: launch<kI3W32>(x, w, s, part, out, M, G, N, splits, max_int, out_f32, st); break;
-    case kI3W16: launch<kI3W16>(x, w, s, part, out, M, G, N, splits, max_int, out_f32, st); break;
-    case kF4W32: launch<kF4W32>(x, w, s, part, out, M, G, N, splits, max_int, out_f32, st); break;
-    case kI8: launch<kI8>(x, w, s, part, out, M, G, N, splits, max_int, out_f32, st); break;
+    case kI3W32:
+      err = launch<kI3W32>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
+      break;
+    case kI3W16:
+      err = launch<kI3W16>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
+      break;
+    case kF4W32:
+      err = launch<kF4W32>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
+      break;
+    case kI8:
+      err = launch<kI8>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (part != nullptr) {
-    const int MN = M * N, threads = 256;
-    reduce_kernel<<<(MN + threads - 1) / threads, threads, 0, st>>>(part, out, splits, MN, out_f32);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -6,7 +6,8 @@ device of the tensors it is given: on CPU tensors it runs its plain
 PyTorch version, on CUDA tensors it launches the kernel or raises.
 
 Kernels live in ``csrc/<name>.cu`` with a plain C interface (the int4
-kernels share ``csrc/int4_common.cuh``). Each is compiled at first use
+kernels share ``csrc/int4_common.cuh``; the wgmma GEMMs ``gemm_qs`` and
+``gemm_plane`` share the Hopper mainloop ``csrc/dequant_wgmma.cuh``). Each is compiled at first use
 by ``nvcc`` into ``csrc/build/<name>.so`` (rebuilt when the source or a
 header is newer) and loaded with ``ctypes``. A failed build raises;
 nothing falls back.
@@ -73,12 +74,15 @@ def _stale(name: str) -> bool:
     return not os.path.exists(out) or os.path.getmtime(out) < max(map(os.path.getmtime, srcs))
 
 
-def build_kernels(names: Iterable[str], extra_flags=()) -> None:
+def build_kernels(names: Iterable[str], extra_flags=()) -> Dict[str, str]:
     """Compile the named sources that are missing or stale, one nvcc
-    process per source, all started together. Raises on any failure."""
+    process per source, all started together. Returns nvcc's output of
+    each source it built (warnings; ptxas's report under -Xptxas -v).
+    Raises on any failure."""
     todo = [n for n in names if _stale(n)]
+    logs: Dict[str, str] = {}
     if not todo:
-        return
+        return logs
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -96,11 +100,11 @@ def build_kernels(names: Iterable[str], extra_flags=()) -> None:
             os.unlink(tmp)
             errors.append(f"nvcc failed for {name}.cu:\n{out}")
         else:
-            if out.strip():
-                print(f"[nvcc {name}.cu]\n{out.strip()}")
+            logs[name] = out
             os.replace(tmp, _lib_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def load_kernel(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:

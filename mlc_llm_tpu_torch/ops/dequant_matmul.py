@@ -75,14 +75,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _GEMV_ARGS = {"mlc_gemv_qs_splits": [_I],
               "mlc_gemv_qs": [_I] + [_P] * 6 + [_I] * 5 + [_P]}
-_GEMM_ARGS = {"mlc_gemm_qs": [_I] + [_P] * 5 + [_I] * 5 + [_P]}
+_GEMM_ARGS = {"mlc_gemm_qs": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
 _GP_ARGS = {"mlc_gemv_gp_splits": [_I],
             "mlc_gemv_gp": [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P]}
 _PAIRS_ARGS = {"mlc_gemm_pairs_splits": [_I] * 4,
                "mlc_gemm_pairs": [_I] * 2 + [_P] * 6 + [_I] * 6 + [_P]}
 _GP3_ARGS = {"mlc_gemv_gp3_splits": [_I], "mlc_gemv_gp3": [_P] * 5 + [_I] * 4 + [_P]}
-_PLANE_ARGS = {"mlc_gemm_plane_splits": [_I] * 3,
-               "mlc_gemm_plane": [_I] + [_P] * 5 + [_I] * 6 + [_P]}
+_PLANE_ARGS = {"mlc_gemm_plane": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
 _QSPLIT = QUANT_PRESETS["q4bf16"]
 _Q3S16 = QUANT_PRESETS["q3bf16_s16"]
 # int4/u32 words in each bit order (the unpacker reads only the order)
@@ -97,6 +96,45 @@ LAYOUT_IDS = {"pair": 0, "hsplit": 1}
 PLANE_FORMATS = {("int3", "u32", 40): 0, ("int3", "u16", 40): 1, ("fp4", "u32", 32): 2,
                  ("int8", "i8", 32): 3}
 _WORD_DTYPES = {"u32": torch.int32, "u16": torch.int16, "i8": torch.int8}
+
+# The wgmma GEMMs (gemm_qs in bf16/f16, gemm_plane; csrc/dequant_wgmma.cuh):
+# a block computes 128 output channels by an m tile of MT tokens, one
+# block an SM; K runs in stages of the ring, split over blockIdx.z into
+# f32 parts where the tiles alone leave SMs idle.
+TILE_N = 128
+H100_SMS = 132
+MAX_SPLITS = 16
+QS_WIDTHS = (16, 64, 128, 256)  # gemm_qs's compiled m tiles
+PLANE_WIDTHS = (16, 64, 128)    # gemm_plane's (int3/u32's 11 x planes fill the ring at 128)
+QS_STAGE_K = 64                 # k of a gemm_qs stage: 8 word rows, 16 k of each quarter
+# word rows of a gemm_plane stage, by format id: one 16-word chunk; int8 four
+PLANE_STAGE_ROWS = {0: 16, 1: 16, 2: 16, 3: 64}
+
+
+def gemm_tiles(m: int, n: int, steps: int, widths, sms: int = H100_SMS):
+    """The wgmma GEMMs' launch plan for an [m, n] output over `steps` K
+    stages: (m tile, split-K parts, stages per part). The m tile is the
+    narrowest compiled width that holds m (the widest above it). K is
+    split when the tiles alone give fewer blocks than SMs, at least until
+    they fill one wave, and at decode widths (m within the narrowest tile,
+    where an f32 part is small) also to even out the last wave; among
+    those split counts the plan minimises the stages one SM walks,
+    ceil(blocks * parts / sms) waves of `per` stages each, and prefers
+    fewer parts (each part writes an f32 [m, n]). Part p covers stages
+    [p * per, min(steps, (p + 1) * per)): none is empty."""
+    mt = next((w for w in widths if w >= m), widths[-1])
+    blocks = (n // TILE_N) * -(-m // mt)
+    if blocks >= sms and m > widths[0]:
+        return mt, 1, steps
+    lo = min(-(-sms // blocks), steps, MAX_SPLITS)
+    best = None
+    for s in range(lo, min(steps, MAX_SPLITS) + 1):
+        per = -(-steps // s)
+        parts = -(-steps // per)
+        cost = -(-blocks * parts // sms) * per
+        if best is None or cost < best[0]:
+            best = (cost, parts, per)
+    return mt, best[1], best[2]
 
 
 def route(spec: QuantSpec, n_groups: int, m: int) -> str:
@@ -335,6 +373,14 @@ def _ptrs(data, scale, zero, layer):
     return at(data), at(scale), at(zero)
 
 
+def _check_tma(name, *ptrs):
+    """TMA reads a tensor from a 16-byte aligned base (the layer's, for
+    stacked weights): raise on one it would refuse."""
+    if any(p is not None and p % 16 for p in ptrs):
+        raise ValueError(f"{name}: every base pointer (x, and the layer's words, scales and "
+                         "minima) must be 16-byte aligned for TMA")
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -405,12 +451,24 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     _check_int4("gemm_qs", x, data, scale, zero, layer, out_dtype)
     m, K = x.shape
     N = data.shape[-1]
-    lib = load_kernel("dequant_gemm_qs", _GEMM_ARGS)
-    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    if not 1 <= m <= GEMM_MAX_M:
+        raise ValueError(f"gemm_qs: m={m} outside 1..{GEMM_MAX_M}")
     wp, sp, zp = _ptrs(data, scale, zero, layer)
+    if x.dtype == torch.float32:  # the first design's 3xTF32 body: no plan
+        mt, splits, per = 0, 1, 0
+    else:
+        if N % TILE_N:
+            raise ValueError(f"gemm_qs: N={N} is not a multiple of {TILE_N}")
+        _check_tma("gemm_qs", x.data_ptr(), wp, sp, zp)
+        mt, splits, per = gemm_tiles(m, N, K // QS_STAGE_K, QS_WIDTHS)
+    lib = load_kernel("dequant_gemm_qs", _GEMM_ARGS)
+    partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     err = lib.mlc_gemm_qs(
-        DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, out.data_ptr(), m, K, N,
-        int(zero is None), int(out_dtype == torch.float32), _stream(x))
+        DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp,
+        None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N,
+        int(zero is None), int(out_dtype == torch.float32), mt, splits, per, _stream(x))
     check_launch(err, "gemm_qs")
     gemm_qs.launches += 1
     return out
@@ -494,21 +552,28 @@ def gemm_plane(x, data, scale, zero, spec: QuantSpec, layer=None, out_dtype=torc
     epw = 1 if spec.storage == "i8" else spec.elems_per_word
     _check_cuda_args("gemm_plane", x, data, scale, None, layer, out_dtype,
                      word_dtype=_WORD_DTYPES[spec.storage], k_per_row=epw,
-                     group_k=spec.group_size)
+                     group_k=spec.group_size, n_mult=TILE_N)
     m = x.shape[0]
     G, N = scale.shape[-2:]
+    rows = data.shape[-2]
     if not 1 <= m <= GEMM_MAX_M:
         raise ValueError(f"gemm_plane: m={m} outside 1..{GEMM_MAX_M}")
+    wp, sp, _ = _ptrs(data, scale, None, layer)
+    _check_tma("gemm_plane", x.data_ptr(), wp, sp)
+    mt, splits, per = gemm_tiles(m, N, -(-rows // PLANE_STAGE_ROWS[fmt]), PLANE_WIDTHS)
     lib = load_kernel("dequant_gemm_plane", _PLANE_ARGS)
-    splits = lib.mlc_gemm_plane_splits(m, G, N)
+    # x in the plane-transposed order (+ int3's word-sum plane), rows of
+    # the word count rounded up to 8 (16 bytes): the prologue's output
+    planes = 0 if spec.storage == "i8" else epw + int(spec.mode == "int3")
+    xt = (torch.empty((planes, m, -(-rows // 8) * 8), dtype=torch.bfloat16, device=x.device)
+          if planes else None)
     partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
-    wp, sp, _ = _ptrs(data, scale, None, layer)
     err = lib.mlc_gemm_plane(
-        fmt, x.data_ptr(), wp, sp, None if partial is None else partial.data_ptr(),
-        out.data_ptr(), m, G, N, splits, spec.max_int, int(out_dtype == torch.float32),
-        _stream(x))
+        fmt, x.data_ptr(), None if xt is None else xt.data_ptr(), wp, sp,
+        None if partial is None else partial.data_ptr(), out.data_ptr(), m, G, N, mt, splits,
+        per, spec.max_int, int(out_dtype == torch.float32), _stream(x))
     check_launch(err, "gemm_plane")
     gemm_plane.launches += 1
     return out

@@ -1,0 +1,114 @@
+"""Time the prefill GEMMs of one tree of the port on the GPU, beside the
+library call, to compare two trees in one run on one card.
+
+    python scripts/torch_gemm_ab.py [--tree DIR] [--label NAME]
+
+Imports `mlc_llm_tpu_torch` from DIR (default: this checkout), builds its
+kernels, and times `gemm_qs` on q4bf16 at m = 128 and 2048 and
+`gemm_plane` on q3bf16_s16 at m = 8, 128 and 2048, at the Vicuna-7B
+shapes (layer weights stacked [2, ...] and read at layer 1; the lm head
+flat with f32 out, at m = 8 and 128 only). Each kernel result is held
+against its plain version (1e-2) before it is timed. Times are CUDA-event
+means with the 50 MB L2 flushed before each launch, as chip_smoke.py
+times them; the library call is torch.matmul on the weight dequantized
+once. Prints one JSON line per row, then the card's name and power limit.
+To compare a parent tree, unpack it with `git archive` into a directory
+that .gitignore lists and run the two in turns (parent, change, change,
+parent) in one command.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = [("wqkv", 4096, 12288), ("wo", 4096, 4096), ("w_in", 4096, 22016),
+          ("w_out", 11008, 4096), ("lm_head", 4096, 32000)]
+CASES = [("q4bf16", "gemm_qs", (128, 2048)), ("q3bf16_s16", "gemm_plane", (8, 128, 2048))]
+
+
+def time_ms(torch, fn, flush, reps):
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for start, end in ev:
+        flush.sum()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import torch
+
+    from mlc_llm_tpu_torch.ops import dequant_matmul as dm
+    from mlc_llm_tpu_torch.quant import QuantizedTensor, pad_quantized_groups, quantize
+    from mlc_llm_tpu_torch.quant.groupwise import dequantize
+
+    if not torch.cuda.is_available():
+        sys.exit("needs an NVIDIA GPU")
+    if not os.path.abspath(dm.__file__).startswith(os.path.abspath(args.tree)):
+        sys.exit(f"imported {dm.__file__}, not the tree {args.tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
+    for quant, kname, ms in CASES:
+        fn, plain = getattr(dm, kname), getattr(dm, kname + "_plain")
+        for name, k, n in SHAPES:
+            flat = name == "lm_head"
+            qts = [pad_quantized_groups(quantize(
+                torch.randn((k, n), generator=gen, device="cuda") * 0.02, quant))
+                for _ in range(1 if flat else 2)]
+            one = qts[-1]
+            spec = one.spec
+            data = one.data if flat else torch.stack([q.data for q in qts])
+            scale = one.scale if flat else torch.stack([q.scale for q in qts])
+            zero = None if one.zero is None else (
+                one.zero if flat else torch.stack([q.zero for q in qts]))
+            layer = None if flat else 1
+            K = one.data.shape[0] * spec.elems_per_word
+            N = one.data.shape[1]
+            dense = dequantize(QuantizedTensor(one.data, one.scale, one.zero, spec=spec,
+                                               shape=(K, N)), torch.bfloat16)
+            out_dtype = torch.float32 if flat else torch.bfloat16
+            extra = (spec,) if kname == "gemm_plane" else ()
+            for m in ms:
+                if flat and m > 128:
+                    continue
+                x = torch.zeros((m, K), dtype=torch.bfloat16, device="cuda")
+                x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+
+                def run():
+                    return fn(x, data, scale, zero, *extra, layer=layer, out_dtype=out_dtype)
+
+                got = run()
+                want = plain(x, one.data, one.scale, one.zero, *extra, out_dtype)
+                ok = torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+                reps = 20 if m <= 128 else 5
+                t = time_ms(torch, run, flush, reps)
+                lib = time_ms(torch, lambda: torch.matmul(x, dense), flush, reps)
+                print(json.dumps(dict(tree=args.label, kernel=kname, quant=quant, shape=name,
+                                      m=m, k=K, n=N, ms=t, library_ms=lib, ratio=t / lib,
+                                      tflops=2 * m * K * N / (t * 1e-3) / 1e12, ok=ok)),
+                      flush=True)
+            del data, scale, zero, dense, qts
+            torch.cuda.empty_cache()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

@@ -230,3 +230,108 @@ def test_cuda_int4_mixed_dtypes_raise():
     one, (data, scale, zero), x = _int4_stacked("q4bf16_pair", "pair")
     with pytest.raises(NotImplementedError, match="one dtype"):
         dm.gemv_gp(x.float(), data, scale, zero, "pair", layer=1)
+
+
+# The wgmma GEMMs (csrc/dequant_wgmma.cuh) at chip_smoke.py's KERNEL_TOL
+# (TOL): ragged m over every compiled m tile, stacked (layer 1 of 2) and
+# flat, split K on and off.
+RAGGED_M = [9, 17, 100, 129, 1000, 2047]
+# (preset, stacked, out in f32): qsplit sym and asym, bf16 and f16
+QS_CASES = [("q4bf16", True, False), ("q4bf16_sym", False, True), ("q4f16", True, True),
+            ("q4f16", False, False)]
+
+
+def _weights(preset, k, n, stacked):
+    qts, stacked_t = _stacked(preset, k, n, layers=2 if stacked else 1)
+    if stacked:
+        return qts[1], stacked_t, 1
+    one = qts[0]
+    return one, (one.data, one.scale, one.zero), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", RAGGED_M)
+@pytest.mark.parametrize("preset,stacked,out_f32", QS_CASES)
+def test_cuda_wgmma_gemm_qs_matches_plain(preset, stacked, out_f32, m):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = dataclasses.replace(QUANT_PRESETS[preset], layout="qsplit")
+    one, (data, scale, zero), layer = _weights(spec, 4096, 1024, stacked)
+    cd = getattr(torch, spec.dtype)
+    x = _x_for(one, m).to(cd)
+    out_dtype = torch.float32 if out_f32 else cd
+    before = dm.gemm_qs.launches
+    got = dm.gemm_qs(x, data, scale, zero, layer=layer, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert dm.gemm_qs.launches == before + 1
+    want = dm.gemm_qs_plain(x, one.data, one.scale, one.zero, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(9, 4096, 4096), (128, 11008, 4096), (2047, 4096, 22016),
+                                   (200, 2560, 2560)])
+def test_cuda_wgmma_gemm_qs_split_k(m, k, n):
+    # split K on (m = 9, 128 at N = 4096; the 3B width) and off (m = 2047 at
+    # w_in); k = 2560 is 80 groups, stored as 96
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer = _weights("q4bf16", k, n, True)
+    x = _x_for(one, m)
+    K, N = x.shape[1], data.shape[-1]
+    splits = dm.gemm_tiles(m, N, K // dm.QS_STAGE_K, dm.QS_WIDTHS)[1]
+    assert (splits > 1) == (m < 2047)
+    got = dm.gemm_qs(x, data, scale, zero, layer=layer)
+    want = dm.gemm_qs_plain(x, one.data, one.scale, one.zero, torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", RAGGED_M)
+@pytest.mark.parametrize("preset", ["q3bf16_s16", "q3bf16", "fp4bf16", "q8bf16"])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "flat"])
+def test_cuda_wgmma_gemm_plane_matches_plain(preset, stacked, m):
+    # k = 4096 is 103 int3 groups, padded to 128 as the engine pads
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer = _weights(preset, 4096, 1024, stacked)
+    x = _x_for(one, m)
+    out_dtype = torch.bfloat16 if stacked else torch.float32
+    before = dm.gemm_plane.launches
+    got = dm.gemm_plane(x, data, scale, zero, one.spec, layer=layer, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert dm.gemm_plane.launches == before + 1
+    want = dm.gemm_plane_plain(x, one.data, one.scale, one.zero, one.spec, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(8, 4096), (8, 22016), (2047, 4096)])
+def test_cuda_wgmma_gemm_plane_split_k(m, n):
+    # split K on at the b8 decode (wo, and w_in's uneven last wave), off at m = 2047
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer = _weights("q3bf16_s16", 4096, n, True)
+    x = _x_for(one, m)
+    rows, N = data.shape[-2:]
+    steps = -(-rows // dm.PLANE_STAGE_ROWS[1])
+    assert (dm.gemm_tiles(m, N, steps, dm.PLANE_WIDTHS)[1] > 1) == (m == 8)
+    got = dm.gemm_plane(x, data, scale, zero, one.spec, layer=layer)
+    want = dm.gemm_plane_plain(x, one.data, one.scale, one.zero, one.spec, torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gemm_qs", "gemm_plane"])
+def test_cuda_wgmma_misaligned_x_raises(kernel):
+    # TMA reads from 16-byte aligned bases: x one element off raises
+    _need_gpu()
+    preset = "q4bf16" if kernel == "gemm_qs" else "q3bf16_s16"
+    one, (data, scale, zero), layer = _weights(preset, 4096, 1024, False)
+    K = _x_for(one, 1).shape[1]
+    x = torch.zeros(16 * K + 1, dtype=torch.bfloat16, device="cuda")[1:].view(16, K)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "gemm_qs":
+            dm.gemm_qs(x, data, scale, zero)
+        else:
+            dm.gemm_plane(x, data, scale, zero, one.spec)
