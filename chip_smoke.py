@@ -6,12 +6,13 @@ Phases (any failed check exits non-zero before the last line):
 
 1. card identity (nvidia-smi name and power limit), then the seven kernel
    sources are built from csrc/ with nvcc, one process per source, all at
-   once (build seconds printed, and ptxas's registers, shared memory and
-   spills of the two wgmma GEMMs, gemm_qs and gemm_plane);
+   once (build seconds printed, and ptxas's registers, shared memory,
+   spills and performance notes of the four sources on the wgmma
+   mainloop: gemm_qs, gemm_plane, gemm_pairs and gemv_qs);
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
    plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
-   GEMV at m=1 and m=8, GEMM at m=128 and m=2048 and on the flat lm head at
+   GEMV at m=1, 3 and 8, GEMM at m=128 and m=2048 and on the flat lm head at
    m=128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
    2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1 and
    m=128; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128); at
@@ -171,7 +172,7 @@ QSPLIT_F32 = dataclasses.replace(QUANT_PRESETS["q4f32"], layout="qsplit")
 # and read at layer 1 (out in the compute dtype)
 MATMUL_CASES = [
     ("q4bf16", "q4bf16", SHAPES, False,
-     [("gemv_qs", {"*": (1, 8)}), ("gemm_qs", {"*": (128, 2048), "lm_head": (128,)})]),
+     [("gemv_qs", {"*": (1, 3, 8)}), ("gemm_qs", {"*": (128, 2048), "lm_head": (128,)})]),
     ("q3bf16_s16", "q3bf16_s16", SHAPES, False,
      [("gemv_gp3", {"*": (1, 2)}), ("gemm_plane", {"*": (8, 128, 2048)})]),
     # the other plane formats once each, at their decode and prefill widths
@@ -201,9 +202,11 @@ PAGED_WINDOW = 16  # pages: SERVE_SEQ / PAGE_SIZE
 PAGED_HEAD_BLOCK = 8
 
 
-# the wgmma redesigns (csrc/dequant_wgmma.cuh): the build reports their
-# registers, shared memory and spills
-WGMMA_SOURCES = ("dequant_gemm_qs", "dequant_gemm_plane")
+# the sources on the wgmma mainloop (csrc/dequant_wgmma.cuh): the build
+# reports their registers, shared memory, spills and ptxas's notes (C7512:
+# serialized wgmma)
+WGMMA_SOURCES = ("dequant_gemm_qs", "dequant_gemm_plane", "dequant_gemm_pairs",
+                 "dequant_gemv_qs")
 
 
 def ptxas_summary(log: str):

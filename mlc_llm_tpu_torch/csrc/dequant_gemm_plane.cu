@@ -100,6 +100,7 @@ struct PlanePolicy {
   static constexpr int kEpw = Fmt<F>::kEpw, kWpg = Fmt<F>::kWpg, kChunks = Fmt<F>::kChunks;
   static constexpr int kPlanes = kEpw + (kOffset<F> ? 1 : 0);  // x_t planes
   static constexpr int kSteps = kChunks * kPlanes;
+  static constexpr int kTiles = kSteps, kARegs = 4, kParts = 0;
   static constexpr int kMaxMT = 128;  // int3/u32's 11 planes of [256][16] leave < 3 stages
   static constexpr int kRows = 16 * kChunks;                    // word rows a stage
   static constexpr int kSRows = kRows / kWpg > 0 ? kRows / kWpg : 1;

@@ -49,43 +49,12 @@ constexpr int kSymOffset = -23;  // sym: -(16 + max_int), max_int = 7
 
 // ---- bf16 and f16: the wgmma mainloop ----
 
-// field f of a qsplit word as the T x 2 bits of 16 + q (low half: k, high
-// half: k + 1), exact
-template <typename T>
-__device__ __forceinline__ uint32_t field16(uint32_t w, int f) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const uint32_t t = f == 0 ? (w << 3) : (w >> (4 * f - 3));
-    return (t & 0x00780078u) | 0x41804180u;
-  } else {
-    const uint32_t t = f == 0 ? (w << 6) : f == 1 ? (w << 2) : (w >> (4 * f - 6));
-    return (t & 0x03C003C0u) | 0x4C004C00u;
-  }
-}
-
-template <typename T>
-struct Vec2;
-template <>
-struct Vec2<__nv_bfloat16> {
-  using V = __nv_bfloat162;
-  static __device__ __forceinline__ V dup(float v) { return __float2bfloat162_rn(v); }
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ float rnd(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-};
-template <>
-struct Vec2<__half> {
-  using V = __half2;
-  static __device__ __forceinline__ V dup(float v) { return __float2half2_rn(v); }
-  static __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-  static __device__ __forceinline__ float rnd(float v) { return __half2float(__float2half_rn(v)); }
-};
-
 template <typename TT>
 struct QsPolicy {
   using T = TT;
-  using V = typename Vec2<T>::V;
+  using V = typename wg::Vec2<T>::V;
   static constexpr int kSteps = 4;                            // one k16 step per quarter
+  static constexpr int kTiles = kSteps, kARegs = 4, kParts = 0;
   static constexpr int kMaxMT = 256;
   static constexpr int kRows = 8;                             // word rows a stage
   static constexpr int kWBytes = kRows * wg::kBN * 4;         // [8][128] u32
@@ -120,14 +89,14 @@ struct QsPolicy {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = f * wg::kBN + ch + 8 * h;
-        const float sf = Vec2<T>::to_f(S[i]);
-        sc[h] = Vec2<T>::dup(sf);
-        off[h] = Vec2<T>::dup(p.sym ? sf * static_cast<float>(kSymOffset)
-                                    : Vec2<T>::to_f(Z[i]) - Vec2<T>::rnd(sf * 16.f));
+        const float sf = wg::Vec2<T>::to_f(S[i]);
+        sc[h] = wg::Vec2<T>::dup(sf);
+        off[h] = wg::Vec2<T>::dup(p.sym ? sf * static_cast<float>(kSymOffset)
+                                    : wg::Vec2<T>::to_f(Z[i]) - wg::Vec2<T>::rnd(sf * 16.f));
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const V v = wg::from_bits<V>(field16<T>(w[r], f));
+        const V v = wg::from_bits<V>(wg::field16<T>(w[r], f));
         a[f][r] = wg::bits(__hadd2_rn(__hmul2_rn(v, sc[r % 2]), off[r % 2]));
       }
     }

@@ -1,10 +1,10 @@
 // Shared by the int4 dequant kernels (dequant_gemv_qs.cu, dequant_gemv_gp.cu,
-// dequant_gemm_qs.cu, dequant_gemm_pairs.cu): the three compute types and
-// the tensor-core step of a 64 x 64 output tile.
+// dequant_gemm_qs.cu, dequant_gemm_pairs.cu) and dequant_gemm_plane.cu: the
+// three compute types, the split-K reduction, and the f32 tensor-core step
+// of a 64 x 64 output tile of gemm_qs's f32 body.
 //
-// Compute type T (x, scales and minima; the output is T or f32):
-//   bf16 and f16 run nvcuda::wmma 16x16x16 with f32 accumulators;
-//   f32 runs 3xTF32 wmma m16n16k8: each operand v is split into
+// Compute type T (x, scales and minima; the output is T or f32). The f32
+// step runs 3xTF32 wmma m16n16k8: each operand v is split into
 //   hi = tf32(v) and lo = tf32(v - hi), and acc += lo*hi' + hi*lo' + hi*hi'
 //   (the lo*lo term is below f32's last bit). That keeps f32 accuracy
 //   (plain TF32 rounds x and w to 10 mantissa bits, ~1e-3 relative, and
@@ -64,33 +64,11 @@ __device__ __forceinline__ float rnd(float v) {
   return Num<T>::to_f(Num<T>::from_f(v));
 }
 
-// The tensor-core step of a 64 x 64 output tile over four warps (2 x 2 of
-// 32 x 32): As [64][lda] (k contiguous) and Bs [BK][ldb] (n contiguous) in
-// shared memory, T elements. BK is the K depth a shared-memory step holds:
-// 128 for the 2-byte types, 64 for f32 (the same 35 KB of static shared memory).
+// The f32 tensor-core step of a 64 x 64 output tile over four warps (2 x 2
+// of 32 x 32): As [64][lda] (k contiguous) and Bs [BK][ldb] (n contiguous)
+// in shared memory; BK = 64 is the K depth a shared-memory step holds.
 template <typename T>
-struct Tile {
-  static constexpr int BK = 128, PAD = 8;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  static __device__ __forceinline__ void step(Acc (&acc)[2][2], const T* As, int lda,
-                                              const T* Bs, int ldb, int wm, int wn) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * lda + kk * 16, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (kk * 16) * ldb + wn * 32 + j * 16, ldb);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-};
+struct Tile;
 
 template <>
 struct Tile<float> {
@@ -170,15 +148,6 @@ void launch_reduce(const float* partial, void* out, int S, int MN, int out_f32,
     reduce_kernel<float><<<blocks, threads, 0, st>>>(partial, static_cast<float*>(out), S, MN);
   else
     reduce_kernel<T><<<blocks, threads, 0, st>>>(partial, static_cast<T*>(out), S, MN);
-}
-
-// Store one f32 value as T (out_f32 = 0) or f32.
-template <typename T>
-__device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_f32) {
-  if (out_f32)
-    static_cast<float*>(out)[i] = v;
-  else
-    static_cast<T*>(out)[i] = Num<T>::from_f(v);
 }
 
 }  // namespace int4k

@@ -1,8 +1,15 @@
 """Attention against the slot KV cache, in plain PyTorch.
 
 The counterpart of ``mlc_llm_tpu/ops/attention.py`` ``attend`` and
-``attend_cache``: QK^T/sqrt(d) and PV with f32 products and f32 softmax,
-causal mask over history plus the current block, V kept D-major.
+``attend_cache``: QK^T/sqrt(d) with f32 scores, f32 softmax, causal mask
+over history plus the current block, the probabilities rounded to q's
+dtype, PV accumulated in f32 and rounded once to q's dtype; V kept
+D-major. On CUDA both products take the operands in their dtype on the
+tensor cores with f32 accumulation and an f32 result (one f32-output
+``bmm`` each), as JAX's einsums with ``preferred_element_type=f32`` do
+(``:48-67``); PV's is then rounded once to q's dtype. On the CPU the
+operands go to f32 first (the same values: products of two bf16/f16
+values are exact in f32).
 
 Prefill attention goes through ``attend`` too, which is what the JAX
 package does on every backend but the TPU (its ``flash_prefill`` calls
@@ -13,6 +20,18 @@ later work (ROADMAP.md queue 2).
 from __future__ import annotations
 
 import torch
+
+
+def _f32_product(a, b):
+    """a [B, H, n, k] @ b [B, H, k, p] with f32 accumulation and an f32
+    result. CUDA, bf16/f16: the operands in their dtype through one
+    f32-output bmm over B*H; otherwise (the CPU, f32) in f32."""
+    if a.device.type != "cuda" or a.dtype == torch.float32:
+        return torch.matmul(a.float(), b.float())
+    B, H, n, k = a.shape
+    y = torch.bmm(a.reshape(B * H, n, k), b.reshape(B * H, k, b.shape[-1]),
+                  out_dtype=torch.float32)
+    return y.reshape(B, H, n, b.shape[-1])
 
 
 def attend(q, k, v, q_pos, *, mask_value: float = -1e30, v_transposed: bool = False):
@@ -27,14 +46,14 @@ def attend(q, k, v, q_pos, *, mask_value: float = -1e30, v_transposed: bool = Fa
         rep = Hq // Hkv
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / D**0.5)
+    scores = _f32_product(q, k.transpose(-1, -2)) * (1.0 / D**0.5)
     kpos = torch.arange(Smax, device=q.device)[None, None, :]
     qabs = q_pos.to(q.device)[:, None, None] + torch.arange(Sq, device=q.device)[None, :, None]
     valid = kpos <= qabs  # [B, Sq, Smax]
     scores = torch.where(valid[:, None], scores, torch.full_like(scores, mask_value))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
-    vt = v.float().transpose(-1, -2) if v_transposed else v.float()
-    return torch.matmul(probs, vt).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    vt = v.transpose(-1, -2) if v_transposed else v
+    return _f32_product(probs, vt).to(q.dtype)
 
 
 def attend_cache(q, kc, vc, ksc, vsc, q_pos):

@@ -74,12 +74,12 @@ GEMM_MAX_M = 2048    # matmul.py prefill_kernel_max_m()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _GEMV_ARGS = {"mlc_gemv_qs_splits": [_I],
-              "mlc_gemv_qs": [_I] + [_P] * 6 + [_I] * 5 + [_P]}
+              "mlc_gemv_qs": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+              "mlc_gemv_qs_tc": [_I] + [_P] * 6 + [_I] * 7 + [_P]}
 _GEMM_ARGS = {"mlc_gemm_qs": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
 _GP_ARGS = {"mlc_gemv_gp_splits": [_I],
             "mlc_gemv_gp": [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P]}
-_PAIRS_ARGS = {"mlc_gemm_pairs_splits": [_I] * 4,
-               "mlc_gemm_pairs": [_I] * 2 + [_P] * 6 + [_I] * 6 + [_P]}
+_PAIRS_ARGS = {"mlc_gemm_pairs": [_I] * 2 + [_P] * 7 + [_I] * 8 + [_P]}
 _GP3_ARGS = {"mlc_gemv_gp3_splits": [_I], "mlc_gemv_gp3": [_P] * 5 + [_I] * 4 + [_P]}
 _PLANE_ARGS = {"mlc_gemm_plane": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
 _QSPLIT = QUANT_PRESETS["q4bf16"]
@@ -97,38 +97,83 @@ PLANE_FORMATS = {("int3", "u32", 40): 0, ("int3", "u16", 40): 1, ("fp4", "u32", 
                  ("int8", "i8", 32): 3}
 _WORD_DTYPES = {"u32": torch.int32, "u16": torch.int16, "i8": torch.int8}
 
-# The wgmma GEMMs (gemm_qs in bf16/f16, gemm_plane; csrc/dequant_wgmma.cuh):
-# a block computes 128 output channels by an m tile of MT tokens, one
-# block an SM; K runs in stages of the ring, split over blockIdx.z into
-# f32 parts where the tiles alone leave SMs idle.
+# The wgmma kernels (gemm_qs in bf16/f16, gemm_pairs, gemm_plane, and
+# gemv_qs in bf16/f16 at 2 <= m <= 8; csrc/dequant_wgmma.cuh): a block
+# computes 128 output channels by an m tile of MT tokens, one block an SM;
+# K runs in stages of the ring, split over blockIdx.z into f32 parts where
+# the tiles alone leave SMs idle.
 TILE_N = 128
 H100_SMS = 132
+HBM_BYTES_PER_US = 3.35e6  # H100 SXM HBM3, 3.35 TB/s
 MAX_SPLITS = 16
 QS_WIDTHS = (16, 64, 128, 256)  # gemm_qs's compiled m tiles
 PLANE_WIDTHS = (16, 64, 128)    # gemm_plane's (int3/u32's 11 x planes fill the ring at 128)
 QS_STAGE_K = 64                 # k of a gemm_qs stage: 8 word rows, 16 k of each quarter
 # word rows of a gemm_plane stage, by format id: one 16-word chunk; int8 four
 PLANE_STAGE_ROWS = {0: 16, 1: 16, 2: 16, 3: 64}
+# gemm_pairs: (layout, f32 compute) -> (k of a stage, compiled m tiles,
+# gemm_tiles' time model: µs a stage at m tile MT, µs a block's fixed
+# cost, MT).
+# bf16/f16 pair: 16 word rows (4 groups) and the offset step, whose 9 x
+# tiles fill the ring at MT = 128; hsplit: 8 word rows (a group of each
+# half); f32 (3xTF32): 8 word rows, MT <= 64 (the fresh fragment and the
+# hi/lo A registers beside the accumulator). The times are fitted to
+# scripts/torch_plan_sweep.py on an H100 (700 W) at the 3B shapes, m = 128:
+# hsplit f16 0.65 and 6.7 at MT = 128, f32 1.66 and 7.3 at MT = 64; pair
+# bf16/f16 (twice the k a stage) is scaled from hsplit
+PAIRS_PLAN = {("pair", False): (128, (16, 64, 128), (1.3, 7.0, 128)),
+              ("hsplit", False): (64, QS_WIDTHS, (0.65, 6.7, 128)),
+              ("pair", True): (64, (16, 64), (1.66, 7.3, 64)),
+              ("hsplit", True): (64, (16, 64), (1.66, 7.3, 64))}
+GEMV_STAGE_K = 128       # gemv_qs on tensor cores: a stage is one group of each quarter
+GEMV_WIDTHS = (16,)      # its one m tile (m <= 8)
+# at most 4 split-K parts: the GEMV streams bytes, and each part writes
+# and the reduction reads an f32 [m, n] (16 parts would add a fifth to
+# w_in's weight bytes for a 5% shorter wave plan)
+GEMV_MAX_SPLITS = 4
 
 
-def gemm_tiles(m: int, n: int, steps: int, widths, sms: int = H100_SMS):
+def gemm_tiles(m: int, n: int, steps: int, widths, sms: int = H100_SMS,
+               max_splits: int = MAX_SPLITS, times=None):
     """The wgmma GEMMs' launch plan for an [m, n] output over `steps` K
     stages: (m tile, split-K parts, stages per part). The m tile is the
-    narrowest compiled width that holds m (the widest above it). K is
-    split when the tiles alone give fewer blocks than SMs, at least until
-    they fill one wave, and at decode widths (m within the narrowest tile,
-    where an f32 part is small) also to even out the last wave; among
-    those split counts the plan minimises the stages one SM walks,
-    ceil(blocks * parts / sms) waves of `per` stages each, and prefers
-    fewer parts (each part writes an f32 [m, n]). Part p covers stages
-    [p * per, min(steps, (p + 1) * per)): none is empty."""
+    narrowest compiled width that holds m (the widest above it). Part p
+    covers stages [p * per, min(steps, (p + 1) * per)): none is empty; at
+    most `max_splits` parts.
+
+    Without `times`: K is split when the tiles alone give fewer blocks
+    than SMs, at least until they fill one wave, and at decode widths (m
+    within the narrowest tile, where an f32 part is small) also to even out
+    the last wave; among those split counts the plan minimises the stages
+    one SM walks, ceil(blocks * parts / sms) waves of `per` stages each,
+    and prefers fewer parts (each part writes an f32 [m, n]).
+
+    With `times` = (µs a stage at m tile t, µs a block's fixed cost: ring
+    fill, epilogue; t): every split count, 1 included, is priced as waves
+    * (per * stage + block), the stage's time scaled by mt / t, plus, when
+    split, the f32 parts' bytes (written, then read by the reduction) at
+    the HBM rate; a count with more parts is taken only when it is at
+    least 5% cheaper."""
     mt = next((w for w in widths if w >= m), widths[-1])
     blocks = (n // TILE_N) * -(-m // mt)
+    if times is not None:
+        stage_us, block_us, fit_mt = times
+        stage_us *= mt / fit_mt
+        best = None
+        for s in range(1, min(steps, max_splits) + 1):
+            per = -(-steps // s)
+            parts = -(-steps // per)
+            cost = -(-blocks * parts // sms) * (per * stage_us + block_us)
+            if parts > 1:
+                cost += parts * m * n * 8 / HBM_BYTES_PER_US
+            if best is None or cost < 0.95 * best[0]:
+                best = (cost, parts, per)
+        return mt, best[1], best[2]
     if blocks >= sms and m > widths[0]:
         return mt, 1, steps
-    lo = min(-(-sms // blocks), steps, MAX_SPLITS)
+    lo = min(-(-sms // blocks), steps, max_splits)
     best = None
-    for s in range(lo, min(steps, MAX_SPLITS) + 1):
+    for s in range(lo, min(steps, max_splits) + 1):
         per = -(-steps // s)
         parts = -(-steps // per)
         cost = -(-blocks * parts // sms) * per
@@ -389,7 +434,9 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     """Group-partial dequant GEMV, qsplit order. x: [m <= 8, K_stored] in
     bf16, f16 or f32; data int32 [KW, N] or [L, KW, N] (then pass
     `layer`); scale/zero like data with G = K/32 rows, in x's dtype; zero
-    None for sym. Returns [m, N] in out_dtype (x's or f32)."""
+    None for sym. Returns [m, N] in out_dtype (x's or f32). bf16 and f16
+    at m >= 2 run the tensor-core body (N % 128 == 0), the rest the SIMT
+    body; one launch counter."""
     if x.device.type == "cpu":
         return gemv_qs_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                              _layer_view(zero, layer), out_dtype)
@@ -399,13 +446,27 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     if not 1 <= m <= GEMV_MAX_M:
         raise ValueError(f"gemv_qs: m={m} outside 1..{GEMV_MAX_M}")
     lib = load_kernel("dequant_gemv_qs", _GEMV_ARGS)
-    splits = lib.mlc_gemv_qs_splits(K)
-    partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
-    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     wp, sp, zp = _ptrs(data, scale, zero, layer)
-    err = lib.mlc_gemv_qs(
-        DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, partial.data_ptr(), out.data_ptr(),
-        m, K, N, int(zero is None), int(out_dtype == torch.float32), _stream(x))
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    sym, out_f32 = int(zero is None), int(out_dtype == torch.float32)
+    if m >= 2 and x.dtype != torch.float32:  # the tensor-core body
+        if N % TILE_N:
+            raise ValueError(f"gemv_qs: N={N} is not a multiple of {TILE_N} at m={m}")
+        _check_tma("gemv_qs", x.data_ptr(), wp, sp, zp)
+        _, splits, per = gemm_tiles(m, N, K // GEMV_STAGE_K, GEMV_WIDTHS,
+                                     max_splits=GEMV_MAX_SPLITS)
+        partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        err = lib.mlc_gemv_qs_tc(
+            DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp,
+            None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, sym,
+            out_f32, splits, per, _stream(x))
+    else:
+        splits = lib.mlc_gemv_qs_splits(K)
+        partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+        err = lib.mlc_gemv_qs(
+            DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, partial.data_ptr(), out.data_ptr(),
+            m, K, N, sym, out_f32, _stream(x))
     check_launch(err, "gemv_qs")
     gemv_qs.launches += 1
     return out
@@ -477,6 +538,21 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
 gemm_qs.launches = 0
 
 
+def _pairs_scratch(layout: str, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """gemm_pairs' prologue output for x [m, K]: bf16/f16 pair the offset
+    plane [m, 16 * K/128] (per 128-k stage, each group's sum of its pair
+    sums as three terms in x's dtype); f32 the TF32 hi and lo planes of x
+    [2, m, Kp] (pair: Kp = K + K/8, the groups' pair-sum columns after K);
+    bf16/f16 hsplit none."""
+    m, K = x.shape
+    if x.dtype == torch.float32:
+        kp = K + K // 8 if layout == "pair" else K
+        return torch.empty((2, m, kp), dtype=torch.float32, device=x.device)
+    if layout == "pair":
+        return torch.empty((m, 16 * (K // 128)), dtype=x.dtype, device=x.device)
+    return None
+
+
 def gemm_pairs(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloat16):
     """Tiled dequant GEMM for the pair and hsplit orders; the arguments of
     gemv_gp, m up to 2048."""
@@ -488,17 +564,23 @@ def gemm_pairs(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bf
     N = data.shape[-1]
     if not 1 <= m <= GEMM_MAX_M:
         raise ValueError(f"gemm_pairs: m={m} outside 1..{GEMM_MAX_M}")
+    if N % TILE_N:
+        raise ValueError(f"gemm_pairs: N={N} is not a multiple of {TILE_N}")
+    wp, sp, zp = _ptrs(data, scale, zero, layer)
+    _check_tma("gemm_pairs", x.data_ptr(), wp, sp, zp)
+    f32 = x.dtype == torch.float32
+    stage_k, widths, times = PAIRS_PLAN[(layout, f32)]
+    mt, splits, per = gemm_tiles(m, N, K // stage_k, widths, times=times)
     lib = load_kernel("dequant_gemm_pairs", _PAIRS_ARGS)
-    dt = DTYPE_IDS[x.dtype]
-    splits = lib.mlc_gemm_pairs_splits(m, K, N, dt)
+    xt = _pairs_scratch(layout, x)
     partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
-    wp, sp, zp = _ptrs(data, scale, zero, layer)
     err = lib.mlc_gemm_pairs(
-        LAYOUT_IDS[layout], dt, x.data_ptr(), wp, sp, zp,
-        None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, splits,
-        int(zero is None), int(out_dtype == torch.float32), _stream(x))
+        LAYOUT_IDS[layout], DTYPE_IDS[x.dtype], x.data_ptr(),
+        None if xt is None else xt.data_ptr(), wp, sp, zp,
+        None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N,
+        int(zero is None), int(out_dtype == torch.float32), mt, splits, per, _stream(x))
     check_launch(err, "gemm_pairs")
     gemm_pairs.launches += 1
     return out
@@ -583,12 +665,24 @@ gemm_plane.launches = 0
 
 
 def dense_matmul(x, w: QuantizedTensor, out_dtype=None, layer=None):
-    """Dequantize (layer `layer` of a stacked w), then multiply in f32:
-    the path without a kernel, as JAX leaves it to XLA."""
+    """Dequantize (layer `layer` of a stacked w) in x's dtype, then
+    multiply: the path without a kernel, as JAX leaves it to XLA
+    (``mlc_llm_tpu/ops/matmul.py:78-79``, ``jnp.matmul(x, wd,
+    preferred_element_type=out_dtype)``). On CUDA the product runs in x's
+    dtype on the tensor cores with f32 accumulation: ``torch.matmul`` when
+    the output is in x's dtype, else an f32-output ``torch.mm`` (f32 x:
+    full f32, TF32 off). On the CPU both operands go to f32 first (the same
+    values: products of two bf16/f16 values are exact in f32)."""
     if layer is not None:
         w = w.map(lambda t: t[layer])
     wd = dequantize(w, dtype=x.dtype)
-    return torch.matmul(x.float(), wd.float()).to(out_dtype or x.dtype)
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return torch.matmul(x.float(), wd.float()).to(out_dtype)
+    if out_dtype == x.dtype:
+        return torch.matmul(x, wd)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), wd, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], wd.shape[1]).to(out_dtype)
 
 
 def dequant_matmul(x, w: QuantizedTensor, out_dtype=None, layer=None):

@@ -1,20 +1,24 @@
-"""Time the prefill GEMMs of one tree of the port on the GPU, beside the
-library call, to compare two trees in one run on one card.
+"""Time the dequant GEMMs and GEMVs of one tree of the port on the GPU,
+beside the library call, to compare two trees in one run on one card.
 
-    python scripts/torch_gemm_ab.py [--tree DIR] [--label NAME]
+    python scripts/torch_gemm_ab.py [--tree DIR] [--label NAME] [--only KERNEL,...]
 
 Imports `mlc_llm_tpu_torch` from DIR (default: this checkout), builds its
-kernels, and times `gemm_qs` on q4bf16 at m = 128 and 2048 and
-`gemm_plane` on q3bf16_s16 at m = 8, 128 and 2048, at the Vicuna-7B
-shapes (layer weights stacked [2, ...] and read at layer 1; the lm head
-flat with f32 out, at m = 8 and 128 only). Each kernel result is held
-against its plain version (1e-2) before it is timed. Times are CUDA-event
-means with the 50 MB L2 flushed before each launch, as chip_smoke.py
-times them; the library call is torch.matmul on the weight dequantized
-once. Prints one JSON line per row, then the card's name and power limit.
-To compare a parent tree, unpack it with `git archive` into a directory
-that .gitignore lists and run the two in turns (parent, change, change,
-parent) in one command.
+kernels, and times, at the Vicuna-7B shapes: `gemm_qs` on q4bf16 at m =
+128 and 2048, `gemm_plane` on q3bf16_s16 at m = 8, 128 and 2048, `gemv_qs`
+on q4bf16 at m = 3 and 8, and `gemm_pairs` in bf16 (q4bf16_pair,
+q4bf16_hs) at w_in, m = 128; at the GPT-NeoX 3B shapes: `gemm_pairs` on
+q4f32 (pair, f32) and q4f16_hs (hsplit, f16; the lm head in f32) at m =
+128 and, on w_in, 2048. Layer weights are stacked [2, ...] and read at
+layer 1; the lm head is flat with f32 out, at m <= 128 only. Each kernel
+result is held against its plain version (1e-2; f32 atol 1e-4, rtol 1e-3)
+before it is timed. Times are CUDA-event means with the 50 MB L2 flushed
+before each launch, as chip_smoke.py times them; the library call is
+torch.matmul on the weight dequantized once (f32: TF32 off). --only keeps
+the named kernels. Prints one JSON line per row, then the card's name and
+power limit. To compare a parent tree, unpack it with `git archive` into
+a directory that .gitignore lists and run the two in turns (parent,
+change, change, parent) in one command.
 """
 
 from __future__ import annotations
@@ -28,7 +32,16 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [("wqkv", 4096, 12288), ("wo", 4096, 4096), ("w_in", 4096, 22016),
           ("w_out", 11008, 4096), ("lm_head", 4096, 32000)]
-CASES = [("q4bf16", "gemm_qs", (128, 2048)), ("q3bf16_s16", "gemm_plane", (8, 128, 2048))]
+SHAPES_3B = [("wqkv", 2560, 7680), ("wo", 2560, 2560), ("w_in", 2560, 10240),
+             ("w_out", 10240, 2560), ("lm_head", 2560, 50432)]
+# (preset, kernel, shapes, {shape name or "*": ms}, lm head in f32 compute)
+CASES = [("q4bf16", "gemm_qs", SHAPES, {"*": (128, 2048)}, False),
+         ("q3bf16_s16", "gemm_plane", SHAPES, {"*": (8, 128, 2048)}, False),
+         ("q4bf16", "gemv_qs", SHAPES, {"*": (3, 8)}, False),
+         ("q4bf16_pair", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
+         ("q4bf16_hs", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
+         ("q4f32", "gemm_pairs", SHAPES_3B, {"*": (128,), "w_in": (128, 2048)}, True),
+         ("q4f16_hs", "gemm_pairs", SHAPES_3B, {"*": (128,), "w_in": (128, 2048)}, True)]
 
 
 def time_ms(torch, fn, flush, reps):
@@ -50,30 +63,42 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--only", default="", help="comma-separated kernel names to keep")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
+    import dataclasses
+
     import torch
 
     from mlc_llm_tpu_torch.ops import dequant_matmul as dm
-    from mlc_llm_tpu_torch.quant import QuantizedTensor, pad_quantized_groups, quantize
-    from mlc_llm_tpu_torch.quant.groupwise import dequantize
+    from mlc_llm_tpu_torch.quant import (QuantizedTensor, pad_quantized_groups, quantize,
+                                         resolve_spec)
+    from mlc_llm_tpu_torch.quant.groupwise import dequantize, torch_dtype
 
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     if not os.path.abspath(dm.__file__).startswith(os.path.abspath(args.tree)):
         sys.exit(f"imported {dm.__file__}, not the tree {args.tree}")
+    only = set(filter(None, args.only.split(",")))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
-    for quant, kname, ms in CASES:
+    for quant, kname, shapes, ms_by_shape, head_f32 in CASES:
+        if only and kname not in only:
+            continue
         fn, plain = getattr(dm, kname), getattr(dm, kname + "_plain")
-        for name, k, n in SHAPES:
+        for name, k, n in shapes:
+            ms = ms_by_shape.get(name, ms_by_shape.get("*", ()))
             flat = name == "lm_head"
+            if not ms or (flat and min(ms) > 128):
+                continue
+            spec = resolve_spec(quant)
+            if flat and head_f32:
+                spec = dataclasses.replace(spec, dtype="float32")
             qts = [pad_quantized_groups(quantize(
-                torch.randn((k, n), generator=gen, device="cuda") * 0.02, quant))
+                torch.randn((k, n), generator=gen, device="cuda") * 0.02, spec))
                 for _ in range(1 if flat else 2)]
             one = qts[-1]
-            spec = one.spec
             data = one.data if flat else torch.stack([q.data for q in qts])
             scale = one.scale if flat else torch.stack([q.scale for q in qts])
             zero = None if one.zero is None else (
@@ -81,26 +106,31 @@ def main():
             layer = None if flat else 1
             K = one.data.shape[0] * spec.elems_per_word
             N = one.data.shape[1]
+            cd = torch_dtype(spec.dtype)
             dense = dequantize(QuantizedTensor(one.data, one.scale, one.zero, spec=spec,
-                                               shape=(K, N)), torch.bfloat16)
-            out_dtype = torch.float32 if flat else torch.bfloat16
-            extra = (spec,) if kname == "gemm_plane" else ()
+                                               shape=(K, N)), cd)
+            out_dtype = torch.float32 if flat else cd
+            extra = ((spec,) if kname == "gemm_plane"
+                     else (spec.layout,) if kname == "gemm_pairs" else ())
+            tol = (dict(atol=1e-4, rtol=1e-3) if cd == torch.float32
+                   else dict(atol=1e-2, rtol=1e-2))
             for m in ms:
                 if flat and m > 128:
                     continue
-                x = torch.zeros((m, K), dtype=torch.bfloat16, device="cuda")
-                x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                x = torch.zeros((m, K), dtype=cd, device="cuda")
+                x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(cd)
 
                 def run():
                     return fn(x, data, scale, zero, *extra, layer=layer, out_dtype=out_dtype)
 
                 got = run()
                 want = plain(x, one.data, one.scale, one.zero, *extra, out_dtype)
-                ok = torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+                ok = torch.allclose(got.float(), want.float(), **tol)
                 reps = 20 if m <= 128 else 5
                 t = time_ms(torch, run, flush, reps)
                 lib = time_ms(torch, lambda: torch.matmul(x, dense), flush, reps)
-                print(json.dumps(dict(tree=args.label, kernel=kname, quant=quant, shape=name,
+                print(json.dumps(dict(tree=args.label, kernel=kname, quant=quant,
+                                      dtype=str(cd).replace("torch.", ""), shape=name,
                                       m=m, k=K, n=N, ms=t, library_ms=lib, ratio=t / lib,
                                       tflops=2 * m * K * N / (t * 1e-3) / 1e12, ok=ok)),
                       flush=True)

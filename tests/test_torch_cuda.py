@@ -335,3 +335,149 @@ def test_cuda_wgmma_misaligned_x_raises(kernel):
             dm.gemm_qs(x, data, scale, zero)
         else:
             dm.gemm_plane(x, data, scale, zero, one.spec)
+
+
+# gemm_pairs on the wgmma mainloop (csrc/dequant_gemm_pairs.cu): both
+# orders in bf16, f16 and f32, sym and asym, stacked (layer 1 of 2) and
+# flat, out in the compute dtype or f32, over every compiled m tile; the
+# 3B width's K = 2560 (80 groups, stored as 96)
+PAIRS_WG_CASES = [("q4bf16_pair", "pair", True, False), ("q4bf16_sym", "pair", False, True),
+                  ("q4f16_pair", "pair", True, True), ("q4f32", "pair", True, False),
+                  ("q4f32", "pair", False, True), ("q4bf16_hs", "hsplit", True, False),
+                  ("q4f16_hs", "hsplit", False, True), ("q4f16_hs", "hsplit", True, False),
+                  ("q4f32", "hsplit", False, True), ("q4bf16_sym", "hsplit", True, False)]
+
+
+def _pairs_weights(preset, layout, k, n, stacked):
+    spec = dataclasses.replace(QUANT_PRESETS[preset], layout=layout)
+    one, tensors, layer = _weights(spec, k, n, stacked)
+    cd = getattr(torch, spec.dtype)
+    return one, tensors, layer, cd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", RAGGED_M)
+@pytest.mark.parametrize("preset,layout,stacked,out_f32", PAIRS_WG_CASES)
+def test_cuda_wgmma_gemm_pairs_matches_plain(preset, layout, stacked, out_f32, m):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer, cd = _pairs_weights(preset, layout, 2560, 1024, stacked)
+    assert one.scale.shape[0] == 96
+    x = _x_for(one, m).to(cd)
+    out_dtype = torch.float32 if out_f32 else cd
+    before = dm.gemm_pairs.launches
+    got = dm.gemm_pairs(x, data, scale, zero, layout, layer=layer, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert dm.gemm_pairs.launches == before + 1
+    want = dm.gemm_pairs_plain(x, one.data, one.scale, one.zero, layout, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32_TOL if cd == torch.float32 else TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(9, 2560, 2560), (128, 10240, 2560), (2047, 2560, 10240)])
+@pytest.mark.parametrize("preset,layout", [("q4f32", "pair"), ("q4f16_hs", "hsplit"),
+                                           ("q4bf16_pair", "pair")])
+def test_cuda_wgmma_gemm_pairs_split_k(preset, layout, m, k, n):
+    # split K on (m = 9, 128 at N = 2560) and off (m = 2047 at w_in)
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer, cd = _pairs_weights(preset, layout, k, n, True)
+    x = _x_for(one, m).to(cd)
+    K, N = x.shape[1], data.shape[-1]
+    stage_k, widths, times = dm.PAIRS_PLAN[(layout, cd == torch.float32)]
+    splits = dm.gemm_tiles(m, N, K // stage_k, widths, times=times)[1]
+    assert (splits > 1) == (m < 2047)
+    got = dm.gemm_pairs(x, data, scale, zero, layout, layer=layer, out_dtype=cd)
+    want = dm.gemm_pairs_plain(x, one.data, one.scale, one.zero, layout, cd)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32_TOL if cd == torch.float32 else TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,layout", [("q4bf16_pair", "pair"), ("q4f32", "hsplit")])
+def test_cuda_wgmma_gemm_pairs_misaligned_x_raises(preset, layout):
+    _need_gpu()
+    one, (data, scale, zero), layer, cd = _pairs_weights(preset, layout, 2560, 1024, False)
+    K = _x_for(one, 1).shape[1]
+    x = torch.zeros(16 * K + 1, dtype=cd, device="cuda")[1:].view(16, K)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dm.gemm_pairs(x, data, scale, zero, layout, out_dtype=cd)
+
+
+# gemv_qs on the tensor cores (2 <= m <= 8, bf16 and f16): the Vicuna-7B
+# widths (wo; w_out's K = 11008 stored as 11264) and the 3B width (K = 2560
+# stored as 3072)
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("preset", ["q4bf16", "q4bf16_sym", "q4f16"])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 4096), (2560, 2560)])
+def test_cuda_gemv_qs_tensor_cores_matches_plain(k, n, preset, m):
+    _need_gpu()
+    spec = dataclasses.replace(QUANT_PRESETS[preset], layout="qsplit")
+    one, (data, scale, zero), layer = _weights(spec, k, n, True)
+    x = _x_for(one, m).to(getattr(torch, spec.dtype))
+    before = dm.gemv_qs.launches
+    got = dm.gemv_qs(x, data, scale, zero, layer=layer, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert dm.gemv_qs.launches == before + 1
+    want = dm.gemv_qs_plain(x, one.data, one.scale, one.zero, torch.float32)
+    # a group sum of x rounded to T may fall the other way after an f32 sum
+    # in another order: the CPU tolerance
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_gemv_qs_tensor_cores_sym_f16():
+    _need_gpu()
+    spec = dataclasses.replace(QUANT_PRESETS["q4f16"], layout="qsplit", sym=True)
+    one, (data, scale, zero), layer = _weights(spec, 4096, 1024, False)
+    assert zero is None
+    x = _x_for(one, 5).to(torch.float16)
+    got = dm.gemv_qs(x, data, scale, zero, out_dtype=torch.float16)
+    want = dm.gemv_qs_plain(x, one.data, one.scale, one.zero, torch.float16)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+# the dense route and attention on the tensor cores against their CPU path
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,out_dtype", [("q4bf16", None), ("q4bf16", torch.float32),
+                                              ("q4f16_hs", torch.float32), ("q4f32", None)])
+def test_cuda_dense_matmul_matches_cpu(preset, out_dtype):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qt = _card_weight_preset(preset, 4096, 1024)
+    cd = getattr(torch, qt.spec.dtype)
+    x = (torch.randn((2, 1100, 4096), device="cuda") * 0.5).to(cd)
+    got = dm.dense_matmul(x, qt, out_dtype)
+    want = dm.dense_matmul(x.cpu(), qt.map(lambda t: t.cpu()), out_dtype)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               **(F32_TOL if cd == torch.float32 else TOL))
+
+
+def _card_weight_preset(preset, k, n):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return quantize(torch.randn((k, n), generator=g, device="cuda") * 0.02, preset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
+def test_cuda_attend_matches_cpu(dtype, hq, hkv):
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, Sq, Smax, D = 2, 64, 256, 128
+    q = torch.randn((B, hq, Sq, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, hkv, Smax, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, hkv, D, Smax), generator=g, device="cuda").to(dtype)
+    q_pos = torch.tensor([0, 150], device="cuda")
+    got = attention.attend(q, k, v, q_pos, v_transposed=True)
+    want = attention.attend(q.cpu(), k.cpu(), v.cpu(), q_pos.cpu(), v_transposed=True)
+    assert got.dtype == dtype
+    # the same products and roundings; the f32 sums run in another order
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               **(F32_TOL if dtype == torch.float32 else TOL))
