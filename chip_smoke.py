@@ -7,8 +7,8 @@ Phases (any failed check exits non-zero before the last line):
 1. card identity (nvidia-smi name and power limit), then the seven kernel
    sources are built from csrc/ with nvcc, one process per source, all at
    once (build seconds printed, and ptxas's registers, shared memory,
-   spills and performance notes of the four sources on the wgmma
-   mainloop: gemm_qs, gemm_plane, gemm_pairs and gemv_qs);
+   spills and performance notes of the five sources on the wgmma
+   mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp);
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
    plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
@@ -17,18 +17,22 @@ Phases (any failed check exits non-zero before the last line):
    2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1 and
    m=128; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128); at
    the GPT-NeoX 3B shapes q4f32 (pair, f32) and q4f16_hs (hsplit, f16, the
-   lm head in f32): GEMV at m=1 and 8 and GEMM at m=128 on all five shapes
-   and at m=2048 on w_in; the qsplit GEMV and GEMM in f16 and f32 at w_in
-   and the qsplit f32 GEMV on the lm head; paged flash-decode at batch 8
-   over mixed lengths, bf16 and int8 KV; each row prints its TFLOP/s and
-   its time over the library call's;
+   lm head in f32): GEMV at m=1, 3 and 8 and GEMM at m=128 on all five
+   shapes and at m=2048 on w_in; the qsplit GEMM in f16 and f32 on all five
+   3B shapes, the qsplit GEMV in f16 and f32 at w_in and the qsplit f32
+   GEMV on the lm head; paged flash-decode at batch 8 over mixed lengths
+   and at batch 1 x 2047, at Vicuna-7B's shapes (D 128, bf16 q, bf16 and
+   int8 KV), the NeoX 3B's (D 80, f32 and f16 q, bf16 and int8 KV) and
+   MOSS's (D 256, bf16 q and KV); each row prints its TFLOP/s and its time
+   over the library call's;
 3. parity phase: 2-layer models at full width, the same params through
    forward on the card (kernels) and on the CPU (plain versions), logits
    compared for a 64-token prefill and 4 decode steps: Vicuna-7B in q4bf16
    and q3bf16_s16, RedPajama-INCITE-Chat-3B-v1 in q4f32, dolly-v2-3b in
-   q4f16_hs and in q4bf16; then on the card (Vicuna q4bf16), 8 slots of
-   mixed prompt lengths, the paged cache against the slot cache (bf16) and
-   int8 paged KV against bf16 paged KV, for a prefill and 4 decode steps;
+   q4f16_hs and in q4bf16; then on the card (Vicuna q4bf16, RedPajama
+   q4f32, dolly q4f16_hs), 8 slots of mixed prompt lengths, the paged cache
+   against the slot cache (bf16) and int8 paged KV against bf16 paged KV,
+   for a prefill and 4 decode steps;
 4. chat phase: full-depth Vicuna-7B q4bf16 on random weights through
    InferenceEngine and ChatSession (slot cache, batch 1), 3 greedy turns
    of 32 new tokens, with the launch counters held to the counts the path
@@ -51,7 +55,14 @@ Phases (any failed check exits non-zero before the last line):
    q4f16_hs (random weights quantized on the card), bf16 slot KV, batch 1,
    3 greedy turns of 32 new tokens with the dolly template: every decode
    matmul and the f32 lm head on the pair/hsplit GEMV, every prefill layer
-   matmul on the pair/hsplit GEMM, launch counts held to the path's;
+   matmul on the pair/hsplit GEMM, launch counts held to the path's; after
+   each chat, the same model behind ContinuousBatchingScheduler over
+   InferenceEngine(kv_layout="paged", max_batch=8, max_seq_len=2048,
+   page_size=128), 8 requests in process (prompts of 16-1500 tokens, 32 new
+   tokens, one sampled): every b8 decode matmul and the f32 lm head on the
+   pair/hsplit GEMV at m = 8, admission prefill on the pair/hsplit GEMM,
+   kernel 7 at D = 80 (f32 q for RedPajama, f16 q for dolly) once a layer
+   a decode forward;
 9. one JSON line of kernels, the card line, and the final ok line.
 
 Every launch counter is set to 0 just before a path is driven and read
@@ -100,12 +111,14 @@ from mlc_llm_tpu_torch.tokenizer import ByteTokenizer
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, and the operation rate
 # each kernel computes at: bf16/f16 tensor cores, f32 FMAs on the CUDA
-# cores (the f32 GEMVs), and 3xTF32 (three TF32 products per f32 product:
-# the f32 GEMMs, int4_common.cuh)
+# cores (the f32 SIMT GEMVs), 3xTF32 (three TF32 products per f32 product:
+# the f32 GEMMs, int4_common.cuh) and 2xTF32 (the f32 pair/hsplit GEMV at
+# m >= 2: A exact in TF32, x split in two)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FMA_FLOPS = 67e12
 F32_3XTF32_FLOPS = 495e12 / 3
+F32_2XTF32_FLOPS = 495e12 / 2
 KERNEL_TOL = 1e-2      # atol and rtol, kernel vs its plain version (bf16, f16)
 # f32 compute: the kernel and its plain version round nothing but their
 # f32 sums, which run in another order (3xTF32 keeps f32's accuracy)
@@ -186,27 +199,42 @@ MATMUL_CASES = [
      [("gemv_gp", {"w_in": (1,)}), ("gemm_pairs", {"w_in": (128,)})]),
     # the two 3B chats' presets
     ("q4f32", "q4f32", SHAPES_3B, True,
-     [("gemv_gp", {"*": (1, 8)}), ("gemm_pairs", {"*": (128,), "w_in": (128, 2048)})]),
+     [("gemv_gp", {"*": (1, 3, 8)}), ("gemm_pairs", {"*": (128,), "w_in": (128, 2048)})]),
     ("q4f16_hs", "q4f16_hs", SHAPES_3B, True,
-     [("gemv_gp", {"*": (1, 8)}), ("gemm_pairs", {"*": (128,), "w_in": (128, 2048)})]),
+     [("gemv_gp", {"*": (1, 3, 8)}), ("gemm_pairs", {"*": (128,), "w_in": (128, 2048)})]),
     # qsplit in f16 (dolly q4f16) and f32 (the f32 head of a q4bf16/q4f16 NeoX)
     ("q4f16", "q4f16", SHAPES_3B, True,
-     [("gemv_qs", {"w_in": (1,), "lm_head": (1,)}), ("gemm_qs", {"w_in": (128,)})]),
+     [("gemv_qs", {"w_in": (1,), "lm_head": (1,)}), ("gemm_qs", {"*": (128,)})]),
     ("q4f32 qsplit", QSPLIT_F32, SHAPES_3B, True,
-     [("gemv_qs", {"w_in": (1,)}), ("gemm_qs", {"w_in": (128,)})]),
+     [("gemv_qs", {"w_in": (1,)}), ("gemm_qs", {"*": (128,)})]),
 ]
 # the serve phase's paged pool and the kernel phase's paged shapes
 PAGE_SIZE, SERVE_BATCH, SERVE_SEQ = 128, 8, 2048
 PAGED_LENGTHS = [1, 127, 128, 511, 1023, 1024, 1536, 2047]
 PAGED_WINDOW = 16  # pages: SERVE_SEQ / PAGE_SIZE
 PAGED_HEAD_BLOCK = 8
+MOSS = get_config("moss-moon-003-sft")
+# kernel 7's cases: (label, kv-heads, query heads, head dim, q dtype, page
+# dtypes) at the serve pool's layout (hb 8, page 128), each at b8 over
+# PAGED_LENGTHS and at b1 x 2047: Vicuna-7B (D 128, bf16 q), the NeoX 3B
+# (D 80; RedPajama q4f32's f32 q, dolly q4f16_hs's f16 q) and MOSS (D 256)
+PAGED_CASES = [
+    ("vicuna", VICUNA.num_kv_heads, VICUNA.num_heads, VICUNA.head_dim, torch.bfloat16,
+     (torch.bfloat16, torch.int8)),
+    ("neox-3b f32 q", REDPAJAMA.num_kv_heads, REDPAJAMA.num_heads, REDPAJAMA.head_dim,
+     torch.float32, (torch.bfloat16, torch.int8)),
+    ("neox-3b f16 q", DOLLY.num_kv_heads, DOLLY.num_heads, DOLLY.head_dim, torch.float16,
+     (torch.bfloat16, torch.int8)),
+    ("moss", MOSS.num_kv_heads, MOSS.num_heads, MOSS.head_dim, torch.bfloat16,
+     (torch.bfloat16,)),
+]
 
 
 # the sources on the wgmma mainloop (csrc/dequant_wgmma.cuh): the build
 # reports their registers, shared memory, spills and ptxas's notes (C7512:
 # serialized wgmma)
 WGMMA_SOURCES = ("dequant_gemm_qs", "dequant_gemm_plane", "dequant_gemm_pairs",
-                 "dequant_gemv_qs")
+                 "dequant_gemv_qs", "dequant_gemv_gp")
 
 
 def ptxas_summary(log: str):
@@ -267,25 +295,28 @@ def bound(m: int, k: int, n: int, weight_bytes: int, x_bytes: int, out_bytes: in
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def op_rate(kname: str, dtype) -> float:
+def op_rate(kname: str, dtype, m: int) -> float:
     """The operation rate a kernel computes at (see the constants)."""
     if dtype != torch.float32:
         return BF16_FLOPS
+    if kname == "gemv_gp" and m >= 2:
+        return F32_2XTF32_FLOPS
     return F32_FMA_FLOPS if kname.startswith("gemv") else F32_3XTF32_FLOPS
 
 
-def paged_bound(lengths, ps: int, hkv: int, hq: int, d: int, int8: bool, window: int):
+def paged_bound(lengths, ps: int, hkv: int, hq: int, d: int, page_bytes: int, q_bytes: int,
+                window: int):
     """Least time (ms) of one paged decode step of one layer: the pages
-    the slots' lengths reach, read once (K and V, plus their f32 scales in
-    int8), q read and the output written once (bf16), the page table and
-    lengths; against the bf16 rate for 4*D operations per (position,
-    query head) (the score and the PV dots)."""
+    the slots' lengths reach, read once (K and V of `page_bytes` an
+    element, plus their f32 scales in int8), q read and the output written
+    once (`q_bytes` an element), the page table and lengths; against the
+    bf16 rate for 4*D operations per (position, query head) (the score and
+    the PV dots)."""
     pages = sum(q_pos // ps + 1 for q_pos in lengths)
-    elem = 1 if int8 else 2
-    nbytes = pages * ps * hkv * d * elem * 2
-    if int8:
+    nbytes = pages * ps * hkv * d * page_bytes * 2
+    if page_bytes == 1:
         nbytes += pages * ps * hkv * 4 * 2
-    nbytes += len(lengths) * hq * d * 2 * 2 + len(lengths) * (window + 1) * 4
+    nbytes += len(lengths) * hq * d * q_bytes * 2 + len(lengths) * (window + 1) * 4
     positions = sum(q_pos + 1 for q_pos in lengths)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * positions * hq * d / BF16_FLOPS * 1e3
@@ -386,7 +417,7 @@ def shape_rows(gen, flush, label, spec, name, k, n, cases):
         ok = torch.allclose(got.float(), want.float(), **tol)
         reps = 20 if m <= 128 else 5
         b_ms, b_by = bound(m, K, N, one.nbytes(), esize, 4 if flat else esize,
-                           op_rate(kname, cdtype))
+                           op_rate(kname, cdtype, m))
         row = dict(kernel=kname, quant=label, dtype=str(cdtype).replace("torch.", ""),
                    shape=name, m=m, k=K, n=N, max_abs_err=err,
                    ms=time_ms(run_kernel, flush, reps),
@@ -406,25 +437,34 @@ def shape_rows(gen, flush, label, spec, name, k, n, cases):
     return rows
 
 
-def paged_rows(gen, flush, lengths=PAGED_LENGTHS, window=PAGED_WINDOW):
-    """paged_flash_decode at the serve phase's Vicuna-7B shapes: Hkv 32,
-    D 128, hb 8 (G 4), ps 128, by default 8 slots of mixed lengths and a
-    16-page window (one slot per entry of `lengths`).
-    The library yardstick is scaled_dot_product_attention over the same
-    window ALREADY GATHERED to contiguous [B, H, W, D] bf16 K/V (int8:
-    dequantized), masked to each slot's length: no single PyTorch call
-    attends a paged pool."""
+def paged_rows(gen, flush, window=PAGED_WINDOW):
+    """paged_flash_decode at each PAGED_CASES shape, in the serve pool's
+    layout (hb 8, page 128, a 16-page window): 8 slots of PAGED_LENGTHS,
+    and one slot at 2047. The library yardstick is
+    scaled_dot_product_attention over the same window ALREADY GATHERED to
+    contiguous [B, H, W, D] K/V in q's dtype (int8: dequantized), masked to
+    each slot's length: no single PyTorch call attends a paged pool."""
     rows = []
-    B, D, hkv, hq = len(lengths), VICUNA.head_dim, VICUNA.num_kv_heads, VICUNA.num_heads
     hb, ps, L = PAGED_HEAD_BLOCK, PAGE_SIZE, 2
+    for label, hkv, hq, D, qdt, page_dtypes in PAGED_CASES:
+        for lengths in (PAGED_LENGTHS, [SERVE_SEQ - 1]):
+            rows += paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window,
+                               hb, ps, L)
+    return rows
+
+
+def paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window, hb, ps, L):
+    rows = []
+    B = len(lengths)
     G, P = hkv // hb, B * window + 1
     table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))
              .reshape(B, window) + 1).int().cuda()
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    q = torch.randn((B, hq, 1, D), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, hq, 1, D), generator=gen, device="cuda").to(qdt)
     W = window * ps
     mask = (torch.arange(W, device="cuda")[None, :] <= lens[:, None].long())[:, None, None, :]
-    for int8 in (False, True):
+    for pdt in page_dtypes:
+        int8 = pdt == torch.int8
         shape = (G, L, P, ps, hb * D)
         if int8:
             kp, vp = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
@@ -432,7 +472,7 @@ def paged_rows(gen, flush, lengths=PAGED_LENGTHS, window=PAGED_WINDOW):
             ks = torch.rand((G, L, P, hb, ps), generator=gen, device="cuda") * 0.02 + 1e-3
             vs = torch.rand((G, L, P, ps, hb), generator=gen, device="cuda") * 0.02 + 1e-3
         else:
-            kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(pdt)
                       for _ in range(2))
             ks = vs = None
 
@@ -452,31 +492,41 @@ def paged_rows(gen, flush, lengths=PAGED_LENGTHS, window=PAGED_WINDOW):
                 s = s.transpose(-1, -2) if k_side else s
                 x = x.reshape(G, B, window, ps, hb, D) * s[..., None]
             x = x.reshape(G, B, window, ps, hb, D).permute(1, 0, 4, 2, 3, 5)
-            return x.reshape(B, hkv, W, D).to(torch.bfloat16).contiguous()
+            return x.reshape(B, hkv, W, D).to(qdt).contiguous()
 
         kc, vc = gathered(kp, ks, True), gathered(vp, vs, False)
+        rep = hq // hkv
 
         def run_library():
-            return torch.nn.functional.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, kc, vc, attn_mask=mask, **({"enable_gqa": True} if rep > 1 else {}))
 
         got, want = run_kernel(), run_plain()
         lib = run_library()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         lib_err = (lib.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
-        b_ms, b_by = paged_bound(lengths, ps, hkv, hq, D, int8, window)
-        kv = "int8" if int8 else "bf16"
-        row = dict(kernel="paged_flash_decode", shape=f"vicuna b{B} {kv} KV", m=B, k=W, n=hq,
+        tol = (F32_KERNEL_TOL if qdt == pdt == torch.float32
+               else dict(atol=KERNEL_TOL, rtol=KERNEL_TOL))
+        ok = got.dtype == qdt and torch.allclose(got.float(), want.float(), **tol)
+        page_bytes = torch.empty((), dtype=pdt).element_size()
+        q_bytes = torch.empty((), dtype=qdt).element_size()
+        b_ms, b_by = paged_bound(lengths, ps, hkv, hq, D, page_bytes, q_bytes, window)
+        kv = str(pdt).replace("torch.", "")
+        qs = str(qdt).replace("torch.", "")
+        name = f"{label} b{B} {kv} KV" if B > 1 else f"{label} b1x{lengths[0]} {kv} KV"
+        row = dict(kernel="paged_flash_decode", shape=name, dtype=qs, m=B, k=W, n=hq, d=D,
                    max_abs_err=err, ms=time_ms(run_kernel, flush, 20),
                    plain_ms=time_ms(run_plain, flush, 5),
                    library_ms=time_ms(run_library, flush, 20), bound_ms=b_ms, bound_by=b_by)
-        print(f"  paged_flash_decode {kv} B={B} lengths={lengths} window={W}: "
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        print(f"  paged_flash_decode {name} D={D} q={qs} lengths={lengths} window={W}: "
               f"max_abs_err={err:.3g} (library vs plain {lib_err:.3g}) ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})")
+              f"bound_ms={b_ms:.4f} ({b_by}) {row['vs_library']:.2f}x library, "
+              f"{row['ms'] / b_ms:.1f}x bound")
         if not ok:
-            fail(f"paged_flash_decode {kv} disagrees with its plain version (max {err})")
+            fail(f"paged_flash_decode {name} disagrees with its plain version (max {err})")
         rows.append(row)
         del kp, vp, ks, vs, kc, vc
     return rows
@@ -526,8 +576,11 @@ def card_vs_cpu(cfg, params, rtol=LOGIT_RTOL):
 
 def paged_vs_slot(cfg, params):
     """8 slots of mixed prompt lengths, prefill + 4 decode steps, on the
-    card: bf16 paged logits against slot logits (LOGIT_RTOL), int8 paged
-    against bf16 paged (INT8_LOGIT_RTOL). The paged decode runs kernel 7."""
+    card: bf16 paged logits against slot logits (LOGIT_RTOL: the paged
+    decode rounds its probabilities to bf16 for bf16 pages, the slot path
+    to the activations' type), int8 paged against bf16 paged
+    (INT8_LOGIT_RTOL). The paged decode runs kernel 7."""
+    print(f"  paged vs slot: {cfg.name}, D = {cfg.head_dim}")
     B, ps = SERVE_BATCH, PAGE_SIZE
     lens = [5, 100, 127, 128, 129, 300, 700, 1000]
     S = 1024  # the prefill bucket
@@ -580,12 +633,15 @@ def parity_phase():
         torch.cuda.empty_cache()
     # GPT-NeoX at the 3B width: pair f32 layers and head; hsplit f16 layers
     # and f32 head; qsplit bf16 layers and the qsplit f32 head
+    # and the NeoX paged decode (kernel 7 at D = 80, f32 and f16 q)
     for model, quant in ((REDPAJAMA, "q4f32"), (DOLLY, "q4f16_hs"), (DOLLY, "q4bf16")):
         rtol = F32_LOGIT_RTOL if quant == "q4f32" else LOGIT_RTOL
         print(f"== parity phase: 2-layer {model.name}, {quant} (share {rtol})")
         cfg = model.replace(num_layers=2)
         params = pad_params(init_random_params(cfg, quant, seed=1, device="cuda"))
         card_vs_cpu(cfg, params, rtol)
+        if quant != "q4bf16":
+            paged_vs_slot(cfg, params)
         del params
         torch.cuda.empty_cache()
 
@@ -661,17 +717,17 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA):
     return launches, stats
 
 
-def serve_requests():
-    """16 requests from a seed: prompt lengths 16-1500, 32 new tokens,
-    every fourth one sampled (T 0.7, top-p 0.95, its own seed)."""
+def serve_requests(n=16, vocab=VICUNA.vocab_size, sampled=lambda i: i % 4 == 3):
+    """n requests from a seed: prompt lengths 16-1500, 32 new tokens; the
+    `sampled` ones at T 0.7, top-p 0.95 and their own seed, the rest
+    greedy (by default every fourth one sampled)."""
     rng = np.random.default_rng(2)
     out = []
-    for i in range(16):
-        n = int(rng.integers(16, 1501))
-        prompt = [int(t) for t in rng.integers(3, VICUNA.vocab_size, n)]
-        sampled = i % 4 == 3
+    for i in range(n):
+        k = int(rng.integers(16, 1501))
+        prompt = [int(t) for t in rng.integers(3, vocab, k)]
         out.append((prompt, GenerationConfig(max_new_tokens=32,
-                                             temperature=0.7 if sampled else 0.0,
+                                             temperature=0.7 if sampled(i) else 0.0,
                                              top_p=0.95, seed=i)))
     return out
 
@@ -780,6 +836,71 @@ def int8_auto_phase(params, quant="q4bf16"):
     return launches, stats
 
 
+def neox_serve_phase(params, cfg, quant):
+    """The paged continuous-batching server on a GPT-NeoX model: 8
+    requests in process (one sampled) through ContinuousBatchingScheduler
+    over InferenceEngine(kv_layout="paged"), bf16 pages. Every b8 decode
+    forward runs its 4L layer matmuls and the f32 lm head through gemv_gp
+    at m = 8 and kernel 7 once a layer (D = 80, q in the model's type);
+    every admission its layer matmuls through gemm_pairs and its lm head
+    through gemv_gp at m = 1."""
+    print(f"== {cfg.name} {quant} serve: paged KV (page {PAGE_SIZE}), max_batch {SERVE_BATCH}, "
+          f"max_seq_len {SERVE_SEQ}, in-process scheduler, 8 requests")
+    engine = InferenceEngine(cfg, params, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                             kv_layout="paged", page_size=PAGE_SIZE, device="cuda")
+    if engine.kv_layout != "paged" or engine.cache.k_pages.dtype != torch.bfloat16:
+        fail(f"{cfg.name} serve engine runs {engine.kv_layout} {engine.cache.k_pages.dtype} KV")
+    sched = ContinuousBatchingScheduler(engine, seed=0)
+    admitted = []
+    prefill_slot = engine._prefill_slot
+
+    def counted_prefill(*a, **kw):
+        admitted.append(1)
+        return prefill_slot(*a, **kw)
+
+    engine._prefill_slot = counted_prefill
+    # the m of every matmul routed to gemv_gp (route is a pure function of
+    # the weight's format and m; the wrapper keeps its own launch count)
+    gp_rows = []
+    route = dm.route
+
+    def route_rows(spec, n_groups, m):
+        kind = route(spec, n_groups, m)
+        if kind == "gemv_gp":
+            gp_rows.append(m)
+        return kind
+
+    work = serve_requests(8, cfg.vocab_size, sampled=lambda i: i == 7)
+    reset_counters()
+    dm.route = route_rows
+    try:
+        t0 = time.perf_counter()
+        reqs = [sched.submit(p, g) for p, g in work]
+        sched.run()
+        wall = time.perf_counter() - t0
+    finally:
+        dm.route = route
+    launches = read_counters()
+    forwards, n_pre, L = engine.decode_forwards, len(admitted), cfg.num_layers
+    want = expected_launches(quant, layers=L, b8_forwards=forwards, prefills=n_pre)
+    lens = [len(r.output) for r in reqs]
+    stats = dict(model=cfg.name, quant=quant, requests=len(reqs), tokens=sum(lens), wall_s=wall,
+                 decode_tok_s=engine.stats.decode_tps, decode_forwards=forwards,
+                 step_wall_ms=engine.stats.decode_time / max(forwards, 1) * 1e3,
+                 admissions=n_pre, prefill_s=engine.stats.prefill_time)
+    print(f"  {json.dumps(stats)}")
+    m8, m1 = gp_rows.count(SERVE_BATCH), gp_rows.count(1)
+    print(f"  launches: {launches} (want {want}); routed to gemv_gp at m = 8: {m8} "
+          f"(want {(4 * L + 1) * forwards}), at m = 1: {m1} (want {n_pre})")
+    if not all(r.done and r.output for r in reqs) or min(lens) < 1:
+        fail(f"{cfg.name} serve: bad completions {lens}")
+    if forwards == 0 or launches != want:
+        fail(f"{cfg.name} serve: launch counts do not match the path")
+    if m8 != (4 * L + 1) * forwards or m1 != n_pre or len(gp_rows) != m8 + m1:
+        fail(f"{cfg.name} serve: gemv_gp was routed m = {sorted(set(gp_rows))}, not the path's")
+    return launches, stats
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -832,6 +953,9 @@ def main():
         print(f"full-depth {cfg.name} {quant} params in {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         paths[path], neox_stats[path] = chat_phase(params, quant, cfg=cfg)
+        torch.cuda.empty_cache()
+        serve_path = path.replace("chat", "serve")
+        paths[serve_path], neox_stats[serve_path] = neox_serve_phase(params, cfg, quant)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -845,11 +969,11 @@ def main():
     kernels = []
     tops = {"gemv_qs": ("q4bf16", "w_in", 1, "serve"),
             "gemm_qs": ("q4bf16", "w_in", 128, "serve"),
-            "gemv_gp": ("q4f32", "w_in", 1, "rp_chat"),
+            "gemv_gp": ("q4f32", "w_in", 8, "rp_serve"),
             "gemm_pairs": ("q4f32", "w_in", 128, "rp_chat"),
             "gemv_gp3": ("q3bf16_s16", "w_in", 1, "q3_chat"),
             "gemm_plane": ("q3bf16_s16", "w_in", 128, "q3_chat"),
-            "paged_flash_decode": (None, "vicuna b8 bf16 KV", SERVE_BATCH, "serve")}
+            "paged_flash_decode": (None, "vicuna b8 bfloat16 KV", SERVE_BATCH, "serve")}
     for kname, (quant, shape, m, path) in tops.items():
         mine = [r for r in rows if r["kernel"] == kname]
         top = next(r for r in mine

@@ -33,8 +33,8 @@
 // The m tile, the split-K parts and the stages per part come from the
 // Python wrapper (ops/dequant_matmul.py gemm_tiles).
 //
-// f32 keeps the first design (3xTF32 nvcuda::wmma on a 64 x 64 tile, one
-// unpipelined stage, int4_common.cuh): it serves only parity checks.
+// f32 runs the same mainloop as 3xTF32 on wgmma .tf32 (QsF32 below): the
+// f32 head of a q4bf16/q4f16 GPT-NeoX above m = 8.
 
 #include <type_traits>
 
@@ -42,8 +42,6 @@
 #include "int4_common.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kSymOffset = -23;  // sym: -(16 + max_int), max_int = 7
 
@@ -128,117 +126,165 @@ cudaError_t launch_wgmma(const void* x, const void* w, const void* s, const void
   return err;
 }
 
-// ---- f32: the first design, 3xTF32 wmma ----
+// ---- f32: 3xTF32 on the mainloop ----
 
-constexpr int BM = 64, BN = 64, LDC = BN + 4;
-constexpr int kThreads = 128;
+// A stage is 8 word rows (16 k of each quarter) in eight k8 steps, step 2f
+// + j = quarter f's k 16t + 8j .. + 7. A of a k8 step: a[0] = (channel ch,
+// position c), a[1] = (ch + 8, c), a[2] = (ch, c + 4), a[3] = (ch + 8, c +
+// 4); position p of step j is word row 4j + p / 2, half p % 2, so a thread
+// reads word rows 4j + c/2 and 4j + 2 + c/2 (bits 16 (c % 2) + 4f of each)
+// and one word feeds all four quarters. The weight is rebuilt in f32 as
+// the TPU body rounds it, (16 + q) * s + (z - 16 s) (sym: + s * -23), with
+// no fma contraction; it is not exact in TF32, so 3xTF32: A split in
+// registers into hi and lo, x split by tf32_split_kernel (a prologue) into
+// hi and lo tiles, acc += a_lo.x_hi + a_hi.x_lo + a_hi.x_hi, a stage's 24
+// MMAs in a fresh fragment (the tensor cores' f32 accumulation truncates)
+// that fold() adds to the running sum with rounded f32 adds.
+struct QsF32 {
+  using T = float;
+  static constexpr int kSteps = 8, kTiles = 16, kARegs = 8, kParts = 1;
+  static constexpr int kMaxMT = 64;  // acc, the fresh fragment and 64 hi/lo A registers
+  static constexpr int kRows = 8;
+  static constexpr int kWBytes = kRows * wg::kBN * 4;
+  static constexpr int kSBytes = 2 * 4 * wg::kBN * 4;  // scales, minima: [4][128]
 
-__global__ void __launch_bounds__(kThreads, 3)
-gemm_qs_f32_kernel(const float* __restrict__ x, const int32_t* __restrict__ w,
-                   const float* __restrict__ s, const float* __restrict__ z, float* __restrict__ out,
-                   int M, int K, int N, int sym) {
-  using Tile = int4k::Tile<float>;
-  constexpr int BK = Tile::BK;  // 64 k per step
-  constexpr int RW = BK / 8;    // word rows per step
-  constexpr int FK = BK / 4;    // k of each field per step
-  constexpr int LDA = BK + Tile::PAD, LDB = BN + Tile::PAD;
-  constexpr int VEC = 4;        // x elements per 16-byte load
-  constexpr int kSmemBytes = (BM * LDA + BK * LDB) * 4;
-  static_assert(BM * LDA >= BM * LDC, "the epilogue tile reuses the x tile");
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  float* As = reinterpret_cast<float*>(smem);  // [BM][LDA]
-  float* Bs = As + BM * LDA;                   // [BK][LDB]
-  float* Cs = As;                              // [BM][LDC], epilogue
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int C = K / 128, KQ = K / 4, steps = K / BK;
-
-  Tile::Acc acc[2][2];
+  // maps: x the split planes [2][M][K] (box [2][MT][8], 32-byte swizzle:
+  // the hi tile, then the lo tile); words [K/8][N] (box [8][128]); scales
+  // and minima [4][G/4][N] (box [4][1][128])
+  static __device__ __forceinline__ void load(const wg::Maps& mp, uint8_t* x, uint8_t* w,
+                                              uint8_t* s, uint64_t* bar, int t, int m0, int n0,
+                                              int MT, const wg::Params& p) {
+    const int kq = p.K / 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int t = 0; t < steps; ++t) {
-    // A: As[r][f*FK + j] = x[m0 + r][f*KQ + FK*t + j], 16-byte loads
-    for (int i = tid; i < BM * (BK / VEC); i += kThreads) {
-      const int r = i / (BK / VEC), v = (i % (BK / VEC)) * VEC, f = v / FK, j = v % FK;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M)
-        val = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + f * KQ + FK * t + j));
-      *reinterpret_cast<uint4*>(As + r * LDA + v) = val;
-    }
-    // B: word (RW*t + rr, n) -> Bs[f*FK + 2*rr + h][n - n0] for f, h
-    for (int i = tid; i < RW * BN; i += kThreads) {
-      const int rr = i / BN, cc = i % BN, n = n0 + cc;
-      const int32_t word = __ldg(w + (size_t)(RW * t + rr) * N + n);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const size_t gi = (size_t)(f * C + (FK * t + 2 * rr) / 32) * N + n;
-        const float sf = s[gi];
-        const float off = sym ? sf * static_cast<float>(kSymOffset) : z[gi] - sf * 16.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q = (word >> (16 * h + 4 * f)) & 0xF;
-          Bs[(f * FK + 2 * rr + h) * LDB + cc] = (16.f + q) * sf + off;
-        }
-      }
-    }
-    __syncthreads();
-    Tile::step(acc, As, LDA, Bs, LDB, wm, wn);
-    __syncthreads();
+    for (int k = 0; k < kSteps; ++k)
+      wg::tma_load_3d(x + 2 * k * MT * wg::kTileRow, &mp.x, bar, (k / 2) * kq + 16 * t + 8 * (k % 2),
+                      m0, 0);
+    wg::tma_load_2d(w, &mp.w, bar, n0, kRows * t);
+    wg::tma_load_3d(s, &mp.s, bar, n0, t / 2, 0);
+    wg::tma_load_3d(s + 4 * wg::kBN * 4, &mp.z, bar, n0, t / 2, 0);
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
+  static __device__ __forceinline__ void dequant(uint32_t (&a)[kSteps][kARegs],
+                                                 const uint8_t* wt, const uint8_t* st, int ch,
+                                                 int c, const wg::Params& p) {
+    const uint32_t* W = reinterpret_cast<const uint32_t*>(wt);
+    const float* S = reinterpret_cast<const float*>(st);
+    const float* Z = S + 4 * wg::kBN;
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += kThreads) {
-    const int r = i / BN, cc = i % BN;
-    if (m0 + r >= M) continue;
-    out[(size_t)(m0 + r) * N + n0 + cc] = Cs[r * LDC + cc];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t w =
+            W[(4 * j + 2 * (r / 2) + c / 2) * wg::kBN + ch + 8 * (r % 2)] >> (16 * (c % 2));
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int i = f * wg::kBN + ch + 8 * (r % 2);
+          const float sf = S[i];
+          const float off = p.sym ? __fmul_rn(sf, static_cast<float>(kSymOffset))
+                                  : __fsub_rn(Z[i], __fmul_rn(sf, 16.f));
+          const float q = static_cast<float>(16 + ((w >> (4 * f)) & 0xFu));
+          const float v = __fadd_rn(__fmul_rn(q, sf), off);
+          const uint32_t hi = wg::tf32(v);
+          a[2 * f + j][r] = hi;
+          a[2 * f + j][4 + r] = wg::tf32(v - __uint_as_float(hi));
+        }
+      }
   }
+
+  template <int MT>
+  static __device__ __forceinline__ void issue(float (&d)[1][MT / 2],
+                                               const uint32_t (&a)[kSteps][kARegs],
+                                               const uint8_t* x) {
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      const uint32_t(&hi)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&a[k][0]);
+      const uint32_t(&lo)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&a[k][4]);
+      const uint64_t xh = wg::desc_sw32(x + 2 * k * MT * wg::kTileRow);
+      const uint64_t xl = wg::desc_sw32(x + (2 * k + 1) * MT * wg::kTileRow);
+      wg::Wgmma<MT, float>::mma(d[0], lo, xh, k > 0);
+      wg::Wgmma<MT, float>::mma(d[0], hi, xl);
+      wg::Wgmma<MT, float>::mma(d[0], hi, xh);
+    }
+  }
+
+  template <int MT>
+  static __device__ __forceinline__ void fold(float (&acc)[MT / 2], float (&d)[1][MT / 2],
+                                              const uint8_t*, const uint8_t*, const uint8_t*,
+                                              int, int, int, const wg::Params&) {
+#pragma unroll
+    for (int i = 0; i < MT / 2; ++i) acc[i] += d[0][i];
+  }
+};
+
+// xs [2][M][K]: plane 0 tf32(x), plane 1 tf32(x - hi)
+__global__ void tf32_split_kernel(const float* __restrict__ x, float* __restrict__ xs, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v = x[i];
+  const uint32_t hi = wg::tf32(v);
+  xs[i] = __uint_as_float(hi);
+  xs[n + i] = __uint_as_float(wg::tf32(v - __uint_as_float(hi)));
+}
+
+cudaError_t launch_f32(const void* x, void* xt, const void* w, const void* s, const void* z,
+                       float* partial, void* out, int M, int K, int N, int sym, int mt,
+                       int splits, int per, cudaStream_t st) {
+  if (xt == nullptr) return cudaErrorInvalidValue;
+  const int G = K / 32, threads = 256;
+  tf32_split_kernel<<<(M * K + threads - 1) / threads, threads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<float*>(xt), M * K);
+  wg::Maps maps;
+  const bool ok =
+      wg::map_3d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xt, K, M, 2, K * 4ull,
+                 static_cast<size_t>(M) * K * 4, 8, mt, 2, CU_TENSOR_MAP_SWIZZLE_32B) &&
+      wg::map_2d(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT32, w, N, K / 8, N * 4ull, wg::kBN,
+                 QsF32::kRows) &&
+      wg::map_3d(&maps.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s, N, G / 4, 4, N * 4ull,
+                 G / 4 * N * 4ull, wg::kBN, 1, 4) &&
+      wg::map_3d(&maps.z, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sym ? s : z, N, G / 4, 4, N * 4ull,
+                 G / 4 * N * 4ull, wg::kBN, 1, 4);
+  if (!ok) return cudaErrorInvalidValue;
+  wg::Params p{M, N, K, K / 64, per, sym, 7, 1, partial, out};
+  const cudaError_t err = wg::launch_mt<QsF32>(mt, maps, p, splits, st);
+  if (err == cudaSuccess && partial != nullptr)
+    int4k::launch_reduce<float>(partial, out, splits, M * N, 1, st);
+  return err;
 }
 
 }  // namespace
 
-// dtype: int4k::DType of x, s and z. x [M, K] (16-byte aligned rows); w
-// int32 words [K/8, N] (a layer's block); s, z [K/32, N] (z unused when
-// sym); out [M, N] in the compute type (out_f32 = 0) or f32. Needs
-// K % 128 == 0, N % 128 == 0 and 16-byte aligned bases. bf16/f16: the m
-// tile mt in {16, 64, 128, 256}, `splits` split-K parts of `per` 64-k
-// stages each, partial f32 [splits, M, N] when splits > 1 (else null).
-// f32 ignores mt, splits, per and partial. Returns cudaGetLastError()
-// after the launches (cudaErrorInvalidValue when a tensor map is refused).
-extern "C" int mlc_gemm_qs(int dtype, const void* x, const void* w, const void* s,
+// dtype: int4k::DType of x, s and z. x [M, K] (16-byte aligned rows); xt
+// the f32 prologue's scratch [2, M, K] f32 (bf16/f16: null); w int32 words
+// [K/8, N] (a layer's block); s, z [K/32, N] (z unused when sym); out [M,
+// N] in the compute type (out_f32 = 0) or f32 (always f32 for f32). Needs
+// K % 128 == 0, N % 128 == 0 and 16-byte aligned bases. The m tile mt
+// (bf16/f16 16, 64, 128, 256; f32 16, 64), `splits` split-K parts of `per`
+// 64-k stages each, partial f32 [splits, M, N] when splits > 1 (else null).
+// Returns cudaGetLastError() after the launches (cudaErrorInvalidValue
+// when a tensor map or the plan is refused).
+extern "C" int mlc_gemm_qs(int dtype, const void* x, void* xt, const void* w, const void* s,
                            const void* z, void* partial, void* out, int M, int K, int N, int sym,
                            int out_f32, int mt, int splits, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  const int steps = K / 64;  // the wgmma ring's stages
-  const bool parts_ok = splits >= 1 && per >= 1 && (splits - 1) * per < steps &&
-                        splits * per >= steps && (splits == 1 || part != nullptr);
-  if (dtype != int4k::kF32 && !parts_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = K / 64;  // the ring's stages
+  if (splits < 1 || per < 1 || (splits - 1) * per >= steps || splits * per < steps ||
+      (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
   switch (dtype) {
     case int4k::kBF16:
-      return static_cast<int>(launch_wgmma<__nv_bfloat16>(x, w, s, z, part, out, M, K, N, sym,
-                                                          out_f32, mt, splits, per, st));
+      err = launch_wgmma<__nv_bfloat16>(x, w, s, z, part, out, M, K, N, sym, out_f32, mt,
+                                        splits, per, st);
+      break;
     case int4k::kF16:
-      return static_cast<int>(
-          launch_wgmma<__half>(x, w, s, z, part, out, M, K, N, sym, out_f32, mt, splits, per, st));
-    case int4k::kF32: {
-      dim3 grid(N / BN, (M + BM - 1) / BM);
-      gemm_qs_f32_kernel<<<grid, kThreads, 0, st>>>(
-          static_cast<const float*>(x), static_cast<const int32_t*>(w),
-          static_cast<const float*>(s), static_cast<const float*>(z), static_cast<float*>(out), M,
-          K, N, sym);
-      return static_cast<int>(cudaGetLastError());
-    }
+      err = launch_wgmma<__half>(x, w, s, z, part, out, M, K, N, sym, out_f32, mt, splits, per,
+                                 st);
+      break;
+    case int4k::kF32:
+      err = launch_f32(x, xt, w, s, z, part, out, M, K, N, sym, mt, splits, per, st);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -26,24 +26,53 @@
 // exist to feed the MXU; here each lane reads x from shared memory in place.
 //
 // Bound on the H100: weight bytes (0.56 bytes per weight for q4f16_hs
-// words, scales and minima; 0.75 with f32 scales), about 2 flops per byte,
-// far below the ridge. The design is dequant_gemv_qs.cu's stream:
+// words, scales and minima; 0.75 with f32 scales), about 2 flops per byte
+// and row, far below the ridge.
+//
+// m = 1 runs a SIMT body on dequant_gemv_qs.cu's stream:
 //   * a block covers 64 columns x 4 chunks (a chunk = 16 word rows = 128 k);
 //     each warp owns one chunk and each lane two columns, so every row load
 //     is a coalesced 256-byte warp transaction along the contiguous N axis;
 //   * a lane issues its 16 row loads before any arithmetic (16 loads in
 //     flight per thread);
-//   * K is split over blockIdx.y, four chunks a block (half the qsplit
-//     kernel's eight, so that the 3B width's wo, N = 2560 at K = 3072, still
-//     launches 240 blocks over the 132 SMs); the split-K partials go to an
-//     f32 scratch and a second small kernel sums them in a fixed order;
+//   * K is split over blockIdx.y, four chunks a block (so that the 3B
+//     width's wo, N = 2560 at K = 3072, still launches 240 blocks over the
+//     132 SMs); the split-K partials go to an f32 scratch and a second small
+//     kernel sums them in a fixed order;
 //   * the block's slice of x is staged once in shared memory as f32 (pair:
-//     128 consecutive k a chunk; hsplit: 64 of each half);
-//   * the row count is a template parameter M in {1, 2, 4, 8} (the decode
-//     batches); other m run the next M with zero rows, which keeps the
-//     build to 24 instantiations.
+//     128 consecutive k a chunk; hsplit: 64 of each half).
+//
+// 2 <= m <= 8 runs on the tensor cores, as policies of the wgmma mainloop
+// of dequant_wgmma.cuh at m tile 16 (the tokens are wgmma's N = 16
+// operand). The SIMT body redid the nibble extract, the int-to-float and an
+// fmaf for every weight and every row, so m = 8 cost eight times m = 1's
+// instructions over the same bytes. Here:
+//   * A = the raw codes 0-15, exact in bf16, f16 and TF32 (bf16/f16: the
+//     code pair bit assembly wg::codes2, no multiply); B = x in natural k
+//     order, so each order's k order of a step is chosen to make a thread's
+//     A register come from one word: pair step k is word rows 2k and 2k +
+//     1, byte c of each; hsplit steps j (low half) and 4 + j (high half)
+//     share word rows 4j + c/2 and 4j + 2 + c/2, bytes 2 (c % 2) and 2 (c %
+//     2) + 1, low and high nibbles;
+//   * a stage is 16 word rows = 128 k = four groups (pair: 4t .. 4t + 3;
+//     hsplit: the stage's two groups of each half), and each group's MMAs
+//     run into a fresh f32 fragment, the group partial P;
+//   * fold() adds s * P + z * sx (sym: s * (P - 7 sx)) with the stage's
+//     scales on the CUDA cores. bf16/f16 take the group sums of x from the
+//     stage's x tiles (256 threads, 8 elements each, two shuffles, the even
+//     and odd sums apart for pair) at the rounding points above;
+//   * f32 runs TF32 wgmma (k8). A is exact in TF32, so only x is split,
+//     into hi = tf32(x) and lo = tf32(x - hi) planes by a prologue kernel:
+//     two products a step, each group's eight into its fresh fragment (the
+//     tensor cores' f32 accumulation truncates). The prologue also writes
+//     each group's f32 sum of x, which the stage loads beside its scales;
+//   * split K, the m tile and the epilogue are the mainloop's (the plan
+//     from ops/dequant_matmul.py gemm_tiles at GEMV_STAGE_K = 128).
 // Compute type T (x, s, z) is bf16, f16 or f32; the output is T or f32.
 
+#include <type_traits>
+
+#include "dequant_wgmma.cuh"
 #include "int4_common.cuh"
 
 namespace {
@@ -185,34 +214,343 @@ void launch(const void* x, const void* w, const void* s, const void* z, void* pa
       static_cast<const T*>(z), static_cast<float*>(partial), rows, K, N, sym);
 }
 
+// the SIMT body runs m = 1 (2 <= m <= 8 run the tensor-core policies below)
 template <int L, typename T>
-int launch_m(const void* x, const void* w, const void* s, const void* z, void* partial,
-             int M, int K, int N, int sym, cudaStream_t st) {
-  if (M < 1 || M > 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 1)
-    launch<L, T, 1>(x, w, s, z, partial, M, K, N, sym, st);
-  else if (M == 2)
-    launch<L, T, 2>(x, w, s, z, partial, M, K, N, sym, st);
-  else if (M <= 4)
-    launch<L, T, 4>(x, w, s, z, partial, M, K, N, sym, st);
-  else
-    launch<L, T, 8>(x, w, s, z, partial, M, K, N, sym, st);
+int launch_t(const void* x, const void* w, const void* s, const void* z, void* partial,
+             void* out, int M, int K, int N, int sym, int out_f32, int S, cudaStream_t st) {
+  if (M != 1) return static_cast<int>(cudaErrorInvalidValue);
+  launch<L, T, 1>(x, w, s, z, partial, M, K, N, sym, st);
+  int4k::launch_reduce<T>(static_cast<const float*>(partial), out, S, M * N, out_f32, st);
   return 0;
 }
 
+// ---- 2 <= m <= 8: the tensor-core policies ----
+
 template <typename T>
-int launch_t(int layout, const void* x, const void* w, const void* s, const void* z,
-             void* partial, void* out, int M, int K, int N, int sym, int out_f32, int S,
-             cudaStream_t st) {
-  int err;
-  if (layout == kPair)
-    err = launch_m<kPair, T>(x, w, s, z, partial, M, K, N, sym, st);
-  else if (layout == kHsplit)
-    err = launch_m<kHsplit, T>(x, w, s, z, partial, M, K, N, sym, st);
-  else
-    err = static_cast<int>(cudaErrorInvalidValue);
-  if (!err) int4k::launch_reduce<T>(static_cast<const float*>(partial), out, S, M * N, out_f32, st);
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+         : std::is_same<T, __half>::value      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
+// both orders' stage: 16 word rows = 128 k = four groups, part p of the
+// stage in fresh fragment p; pair: groups 4t + p; hsplit: p = 2 hf + gg,
+// group hf * G/2 + 2t + gg (half hf, the stage's two groups of each half)
+template <int L>
+__device__ __forceinline__ void load_words_scales(const wg::Maps& mp, uint8_t* w, uint8_t* s,
+                                                  uint64_t* bar, int t, int n0, int sbytes) {
+  wg::tma_load_2d(w, &mp.w, bar, n0, kRows * t);
+  if constexpr (L == kPair) {
+    wg::tma_load_2d(s, &mp.s, bar, n0, 4 * t);
+    wg::tma_load_2d(s + sbytes, &mp.z, bar, n0, 4 * t);
+  } else {
+    wg::tma_load_3d(s, &mp.s, bar, n0, 2 * t, 0);
+    wg::tma_load_3d(s + sbytes, &mp.z, bar, n0, 2 * t, 0);
+  }
+}
+
+// the fold: acc += s * (P - base * sx) + z * sx for each of the stage's
+// four groups (base = max_int when sym, where z is 0; else 0), f32 scales;
+// sx(p, token) from the caller
+template <typename T, int MT, typename SX>
+__device__ __forceinline__ void fold_groups(float (&acc)[MT / 2], float (&d)[4][MT / 2],
+                                            const uint8_t* st, int ch, int c,
+                                            const wg::Params& p, SX sx_at) {
+  const T* S = reinterpret_cast<const T*>(st);
+  const T* Z = S + 4 * wg::kBN;
+  const float base = p.sym ? static_cast<float>(kMaxInt) : 0.f;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    float sc[2], z[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sc[h] = Num<T>::to_f(S[g * wg::kBN + ch + 8 * h]);
+      z[h] = p.sym ? 0.f : Num<T>::to_f(Z[g * wg::kBN + ch + 8 * h]);
+    }
+#pragma unroll
+    for (int e = 0; e < MT / 2; ++e) {
+      // d[4j + {0,1}] = (channel ch, token 8j + 2c + {0,1}); + {2,3}: ch + 8
+      const int tok = 8 * (e / 4) + 2 * c + e % 2, h = (e % 4) / 2;
+      const float sx = sx_at(g, tok);
+      acc[e] += sc[h] * (d[g][e] - base * sx) + z[h] * sx;
+    }
+  }
+}
+
+// bf16 and f16: A = the raw codes (exact), eight k16 steps a stage, two
+// per group
+template <int L, typename TT>
+struct GpHalf {
+  using T = TT;
+  using V = typename wg::Vec2<T>::V;
+  static constexpr int kSteps = 8, kTiles = 8, kARegs = 4, kParts = 4, kMaxMT = 16;
+  static constexpr int kWBytes = kRows * wg::kBN * 4;
+  static constexpr int kSBytes = 2 * 4 * wg::kBN * sizeof(T);  // scales, minima: [4][128]
+
+  // maps: x [M][K] (box [16][16], 32-byte swizzle); words [K/8][N] (box
+  // [16][128]); scales and minima: pair [G][N] (box [4][128]), hsplit
+  // [2][G/2][N] (box [2][2][128])
+  static __device__ __forceinline__ void load(const wg::Maps& mp, uint8_t* x, uint8_t* w,
+                                              uint8_t* s, uint64_t* bar, int t, int m0, int n0,
+                                              int MT, const wg::Params& p) {
+    // step k: pair k 128t + 16k; hsplit half k / 4 at 64t + 16 (k % 4)
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k)
+      wg::tma_load_2d(x + k * MT * wg::kTileRow, &mp.x, bar,
+                      L == kPair ? 128 * t + 16 * k : (k / 4) * (p.K / 2) + 64 * t + 16 * (k % 4),
+                      m0);
+    load_words_scales<L>(mp, w, s, bar, t, n0, 4 * wg::kBN * sizeof(T));
+  }
+
+  // positions 2c, 2c + 1 (a[.][0..1]) and 2c + 8, 2c + 9 (a[.][2..3]) of
+  // channels ch, ch + 8 (r % 2); B is x in natural k order, so
+  //   pair step k: word rows 2k (positions 0-7) and 2k + 1, byte c;
+  //   hsplit steps j and 4 + j: word rows 4j + c/2 and 4j + 2 + c/2, bytes
+  //   2 (c % 2) and 2 (c % 2) + 1, low nibbles (half 0) or high (half 1)
+  static __device__ __forceinline__ void dequant(uint32_t (&a)[kSteps][4], const uint8_t* wt,
+                                                 const uint8_t*, int ch, int c,
+                                                 const wg::Params&) {
+    const uint32_t* W = reinterpret_cast<const uint32_t*>(wt);
+    if constexpr (L == kPair) {
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t t = W[(2 * k + r / 2) * wg::kBN + ch + 8 * (r % 2)] >> (8 * c);
+          a[k][r] = wg::codes2<T>((t & 0xFu) | ((t & 0xF0u) << 12));
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t t =
+              W[(4 * j + 2 * (r / 2) + c / 2) * wg::kBN + ch + 8 * (r % 2)] >> (16 * (c % 2));
+          a[j][r] = wg::codes2<T>((t & 0xFu) | ((t & 0xF00u) << 8));
+          a[4 + j][r] = wg::codes2<T>(((t >> 4) & 0xFu) | ((t & 0xF000u) << 4));
+        }
+    }
+  }
+
+  template <int MT>
+  static __device__ __forceinline__ void issue(float (&d)[kParts][MT / 2],
+                                               const uint32_t (&a)[kSteps][4],
+                                               const uint8_t* x) {
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k)
+      wg::Wgmma<MT, T>::mma(d[k / 2], a[k], wg::desc_sw32(x + k * MT * wg::kTileRow), k % 2);
+  }
+
+  // the group sums of x from the stage's tiles: thread (group p, token) =
+  // tid / 4 sums 8 elements of tile 2p + tid % 4 / 2, 16-byte half tid % 2
+  // (the swizzle moves whole halves, so element e of a half is k parity e
+  // % 2); pair rounds its even and odd sums to T and adds them in T,
+  // hsplit rounds one sum
+  template <int MT>
+  static __device__ __forceinline__ void fold(float (&acc)[MT / 2], float (&d)[kParts][MT / 2],
+                                              const uint8_t* x, const uint8_t*,
+                                              const uint8_t* st, int ch, int c, int i,
+                                              const wg::Params& p) {
+    static_assert(MT == kMaxMT, "the x sums cover a 16-token tile");
+    __shared__ float sxs[2][4][16];  // [stage parity][group][token]
+    const int tid = threadIdx.x;
+    {
+      const int q = tid / 4, g = q / 16, tok = q % 16;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          x + (2 * g + (tid % 4) / 2) * MT * wg::kTileRow + tok * wg::kTileRow + 16 * (tid % 2));
+      const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+      float even = 0.f, odd = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const V e = wg::from_bits<V>(u[j]);
+        even += wg::Vec2<T>::to_f(e.x);
+        odd += wg::Vec2<T>::to_f(e.y);
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        even += __shfl_xor_sync(0xffffffffu, even, o);
+        odd += __shfl_xor_sync(0xffffffffu, odd, o);
+      }
+      if (tid % 4 == 0)
+        sxs[i & 1][g][tok] = L == kPair ? rnd<T>(rnd<T>(even) + rnd<T>(odd)) : rnd<T>(even + odd);
+    }
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    fold_groups<T, MT>(acc, d, st, ch, c, p,
+                       [&](int g, int tok) { return sxs[i & 1][g][tok]; });
+  }
+};
+
+// f32: A = the raw codes (exact in TF32), x split by gp_f32_prologue into
+// TF32 hi and lo planes: two products a step (x_hi.A + x_lo.A), sixteen
+// k8 steps a stage, four per group into the group's fresh fragment; the
+// prologue also writes each group's f32 sum of x, in stage order
+template <int L>
+struct GpF32 {
+  using T = float;
+  static constexpr int kSteps = 16, kTiles = 32, kARegs = 4, kParts = 4, kMaxMT = 16;
+  static constexpr int kWBytes = kRows * wg::kBN * 4;
+  static constexpr int kScaleBytes = 4 * wg::kBN * 4;           // scales or minima: [4][128]
+  static constexpr int kSBytes = 2 * kScaleBytes + 16 * 4 * 4;  // and the x sums [16][4]
+
+  // maps: x the split planes [2][M][K] (box [2][16][8], 32-byte swizzle:
+  // the hi tile, then the lo tile); words, scales, minima as GpHalf; o the
+  // group sums [M][G] in stage order (box [16][4])
+  static __device__ __forceinline__ void load(const wg::Maps& mp, uint8_t* x, uint8_t* w,
+                                              uint8_t* s, uint64_t* bar, int t, int m0, int n0,
+                                              int MT, const wg::Params& p) {
+    // step k: pair k 128t + 8k; hsplit half k / 8 at 64t + 8 (k % 8)
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k)
+      wg::tma_load_3d(x + 2 * k * MT * wg::kTileRow, &mp.x, bar,
+                      L == kPair ? 128 * t + 8 * k : (k / 8) * (p.K / 2) + 64 * t + 8 * (k % 8),
+                      m0, 0);
+    load_words_scales<L>(mp, w, s, bar, t, n0, kScaleBytes);
+    wg::tma_load_2d(s + 2 * kScaleBytes, &mp.o, bar, 4 * t, m0);
+  }
+
+  // A of a k8 step: a[0] = (channel ch, position c), a[1] = (ch + 8, c),
+  // a[2] = (ch, c + 4), a[3] = (ch + 8, c + 4);
+  //   pair step k: word row k, nibbles c and c + 4;
+  //   hsplit steps j and 8 + j: word rows 2j (position c) and 2j + 1
+  //   (c + 4), byte c, low nibble (half 0) or high (half 1)
+  static __device__ __forceinline__ void dequant(uint32_t (&a)[kSteps][4], const uint8_t* wt,
+                                                 const uint8_t*, int ch, int c,
+                                                 const wg::Params&) {
+    const uint32_t* W = reinterpret_cast<const uint32_t*>(wt);
+    if constexpr (L == kPair) {
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t w = W[k * wg::kBN + ch + 8 * (r % 2)];
+          a[k][r] = __float_as_uint(static_cast<float>((w >> (4 * (c + 4 * (r / 2)))) & 0xFu));
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t w = W[(2 * j + r / 2) * wg::kBN + ch + 8 * (r % 2)] >> (8 * c);
+          a[j][r] = __float_as_uint(static_cast<float>(w & 0xFu));
+          a[8 + j][r] = __float_as_uint(static_cast<float>((w >> 4) & 0xFu));
+        }
+    }
+  }
+
+  template <int MT>
+  static __device__ __forceinline__ void issue(float (&d)[kParts][MT / 2],
+                                               const uint32_t (&a)[kSteps][4],
+                                               const uint8_t* x) {
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      const uint64_t xh = wg::desc_sw32(x + 2 * k * MT * wg::kTileRow);
+      const uint64_t xl = wg::desc_sw32(x + (2 * k + 1) * MT * wg::kTileRow);
+      wg::Wgmma<MT, float>::mma(d[k / 4], a[k], xh, k % 4);
+      wg::Wgmma<MT, float>::mma(d[k / 4], a[k], xl);
+    }
+  }
+
+  template <int MT>
+  static __device__ __forceinline__ void fold(float (&acc)[MT / 2], float (&d)[kParts][MT / 2],
+                                              const uint8_t*, const uint8_t*,
+                                              const uint8_t* st, int ch, int c, int,
+                                              const wg::Params& p) {
+    static_assert(MT == kMaxMT, "the x sums cover a 16-token tile");
+    const float* sums = reinterpret_cast<const float*>(st + 2 * kScaleBytes);  // [16][4]
+    fold_groups<float, MT>(acc, d, st, ch, c, p,
+                           [&](int g, int tok) { return sums[tok * 4 + g]; });
+  }
+};
+
+// f32: xs [2][M][K], plane 0 tf32(x), plane 1 tf32(x - hi); sums [M][G],
+// column 4t + p the f32 sum of x over part p of stage t's group (pair:
+// the even and the odd elements summed apart, then added)
+template <int L>
+__global__ void gp_f32_prologue(const float* __restrict__ x, float* __restrict__ xs,
+                                float* __restrict__ sums, int M, int K) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < M * K) {
+    const float v = x[i];
+    const uint32_t hi = wg::tf32(v);
+    xs[i] = __uint_as_float(hi);
+    xs[static_cast<size_t>(M) * K + i] = __uint_as_float(wg::tf32(v - __uint_as_float(hi)));
+  }
+  const int G = K / 32;
+  if (i < M * G) {
+    const int m = i / G, col = i % G, t = col / 4, part = col % 4;
+    const int g = L == kPair ? col : (part / 2) * (G / 2) + 2 * t + part % 2;
+    const float* xg = x + static_cast<size_t>(m) * K + 32 * g;
+    float even = 0.f, odd = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      even += xg[2 * j];
+      odd += xg[2 * j + 1];
+    }
+    sums[i] = even + odd;
+  }
+}
+
+// scales/minima maps: pair [G][N] (box [4][128]); hsplit [2][G/2][N] (box
+// [2][2][128]: the stage's two groups of each half)
+template <int L, typename T>
+bool scale_maps(wg::Maps& maps, const void* s, const void* z, int G, int N) {
+  const size_t es = sizeof(T);
+  const CUtensorMapDataType dt = map_type<T>();
+  if (L == kPair)
+    return wg::map_2d(&maps.s, dt, s, N, G, N * es, wg::kBN, 4) &&
+           wg::map_2d(&maps.z, dt, z, N, G, N * es, wg::kBN, 4);
+  return wg::map_3d(&maps.s, dt, s, N, G / 2, 2, N * es, G / 2 * N * es, wg::kBN, 2, 2) &&
+         wg::map_3d(&maps.z, dt, z, N, G / 2, 2, N * es, G / 2 * N * es, wg::kBN, 2, 2);
+}
+
+template <int L, typename T>
+cudaError_t launch_tc(const void* x, void* xt, const void* w, const void* s, const void* z,
+                      float* partial, void* out, int M, int K, int N, int sym, int out_f32,
+                      int splits, int per, cudaStream_t st) {
+  const int G = K / 32, steps = K / 128;
+  if ((splits - 1) * per >= steps || splits * per < steps) return cudaErrorInvalidValue;
+  const size_t es = sizeof(T);
+  wg::Maps maps;
+  bool ok = wg::map_2d(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT32, w, N, K / 8, N * 4ull, wg::kBN,
+                       kRows) &&
+            scale_maps<L, T>(maps, s, sym ? s : z, G, N);
+  wg::Params p{M, N, K, steps, per, sym, kMaxInt, out_f32, partial, out};
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    if (xt == nullptr) return cudaErrorInvalidValue;
+    float* xs = static_cast<float*>(xt);
+    float* sums = xs + 2 * static_cast<size_t>(M) * K;
+    const int threads = 256;
+    gp_f32_prologue<L><<<(M * K + threads - 1) / threads, threads, 0, st>>>(
+        static_cast<const float*>(x), xs, sums, M, K);
+    ok = ok &&
+         wg::map_3d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xs, K, M, 2, K * 4ull,
+                    static_cast<size_t>(M) * K * 4, 8, 16, 2, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         wg::map_2d(&maps.o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sums, G, M, G * 4ull, 4, 16);
+    if (!ok) return cudaErrorInvalidValue;
+    err = wg::launch<GpF32<L>, 16>(maps, p, splits, st);
+  } else {
+    ok = ok && wg::map_2d(&maps.x, map_type<T>(), x, K, M, K * es, 16, 16,
+                          CU_TENSOR_MAP_SWIZZLE_32B);
+    if (!ok) return cudaErrorInvalidValue;
+    err = wg::launch<GpHalf<L, T>, 16>(maps, p, splits, st);
+  }
+  if (err == cudaSuccess && partial != nullptr)
+    int4k::launch_reduce<T>(partial, out, splits, M * N, out_f32, st);
   return err;
+}
+
+template <typename T>
+cudaError_t launch_tc_layout(int layout, const void* x, void* xt, const void* w, const void* s,
+                             const void* z, float* partial, void* out, int M, int K, int N,
+                             int sym, int out_f32, int splits, int per, cudaStream_t st) {
+  if (layout == kPair)
+    return launch_tc<kPair, T>(x, xt, w, s, z, partial, out, M, K, N, sym, out_f32, splits, per,
+                               st);
+  if (layout == kHsplit)
+    return launch_tc<kHsplit, T>(x, xt, w, s, z, partial, out, M, K, N, sym, out_f32, splits,
+                                 per, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -222,28 +560,64 @@ extern "C" int mlc_gemv_gp_splits(int K) {
   return (K / kChunkK + kWarps - 1) / kWarps;
 }
 
-// layout: 0 pair, 1 hsplit; dtype: int4k::DType of x, s and z. x [M, K];
-// w int32 words [K/8, N] (a layer's block); s, z [K/32, N] (z unused when
-// sym); partial f32 [splits, M, N]; out [M, N] in the compute type
-// (out_f32 = 0) or f32. Needs 1 <= M <= 8, K % 128 == 0, N % 64 == 0.
+// The SIMT body, M = 1. layout: 0 pair, 1 hsplit; dtype: int4k::DType of
+// x, s and z. x [M, K]; w int32 words [K/8, N] (a layer's block); s, z
+// [K/32, N] (z unused when sym); partial f32 [splits, M, N]; out [M, N] in
+// the compute type (out_f32 = 0) or f32. Needs K % 128 == 0, N % 64 == 0.
 // Returns cudaGetLastError() after the launches.
 extern "C" int mlc_gemv_gp(int layout, int dtype, const void* x, const void* w, const void* s,
                            const void* z, void* partial, void* out, int M, int K, int N,
                            int sym, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = mlc_gemv_gp_splits(K);
+  auto go = [&](auto tag) {
+    using T = decltype(tag);
+    if (layout == kPair)
+      return launch_t<kPair, T>(x, w, s, z, partial, out, M, K, N, sym, out_f32, S, st);
+    if (layout == kHsplit)
+      return launch_t<kHsplit, T>(x, w, s, z, partial, out, M, K, N, sym, out_f32, S, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
   int err;
   switch (dtype) {
-    case int4k::kBF16:
-      err = launch_t<__nv_bfloat16>(layout, x, w, s, z, partial, out, M, K, N, sym, out_f32, S, st);
-      break;
-    case int4k::kF16:
-      err = launch_t<__half>(layout, x, w, s, z, partial, out, M, K, N, sym, out_f32, S, st);
-      break;
-    case int4k::kF32:
-      err = launch_t<float>(layout, x, w, s, z, partial, out, M, K, N, sym, out_f32, S, st);
-      break;
+    case int4k::kBF16: err = go(__nv_bfloat16()); break;
+    case int4k::kF16: err = go(__half()); break;
+    case int4k::kF32: err = go(0.f); break;
     default: err = static_cast<int>(cudaErrorInvalidValue);
   }
   return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core body, 2 <= M <= 8: the arguments of mlc_gemv_gp, with xt
+// the f32 prologue's scratch (f32: [2, M, K] TF32 planes then [M, K/32]
+// group sums, f32; bf16/f16: null), `splits` split-K parts of `per` stages
+// (128 k a stage) and partial f32 [splits, M, N] when splits > 1 (else
+// null). Needs K % 128 == 0, N % 128 == 0 and 16-byte
+// aligned bases (TMA). Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for a refused tensor map or plan).
+extern "C" int mlc_gemv_gp_tc(int layout, int dtype, const void* x, void* xt, const void* w,
+                              const void* s, const void* z, void* partial, void* out, int M,
+                              int K, int N, int sym, int out_f32, int splits, int per,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  if (M < 2 || M > 8 || splits < 1 || per < 1 || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (dtype) {
+    case int4k::kBF16:
+      err = launch_tc_layout<__nv_bfloat16>(layout, x, xt, w, s, z, part, out, M, K, N, sym,
+                                            out_f32, splits, per, st);
+      break;
+    case int4k::kF16:
+      err = launch_tc_layout<__half>(layout, x, xt, w, s, z, part, out, M, K, N, sym, out_f32,
+                                     splits, per, st);
+      break;
+    case int4k::kF32:
+      err = launch_tc_layout<float>(layout, x, xt, w, s, z, part, out, M, K, N, sym, out_f32,
+                                    splits, per, st);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // The Hopper mainloop of the dequant GEMMs (dequant_gemm_qs.cu,
-// dequant_gemm_plane.cu, dequant_gemm_pairs.cu) and of the qsplit GEMV at
-// 2 <= m <= 8 (dequant_gemv_qs.cu): warp-specialized wgmma over a TMA ring,
+// dequant_gemm_plane.cu, dequant_gemm_pairs.cu) and of the group-partial
+// GEMVs at 2 <= m <= 8 (dequant_gemv_qs.cu, dequant_gemv_gp.cu):
+// warp-specialized wgmma over a TMA ring,
 // with the weights dequantized in registers into wgmma's A operand.
 //
 // Each block computes one output tile transposed, out^T[n, m] = W^T[n, k] .

@@ -6,8 +6,9 @@ device of the tensors it is given: on CPU tensors it runs its plain
 PyTorch version, on CUDA tensors it launches the kernel or raises.
 
 Kernels live in ``csrc/<name>.cu`` with a plain C interface (the int4
-kernels share ``csrc/int4_common.cuh``; the wgmma GEMMs ``gemm_qs`` and
-``gemm_plane`` share the Hopper mainloop ``csrc/dequant_wgmma.cuh``). Each is compiled at first use
+kernels share ``csrc/int4_common.cuh``; the wgmma GEMMs and the
+tensor-core GEMVs share the Hopper mainloop ``csrc/dequant_wgmma.cuh``).
+Each is compiled at first use
 by ``nvcc`` into ``csrc/build/<name>.so`` (rebuilt when the source or a
 header is newer) and loaded with ``ctypes``. A failed build raises;
 nothing falls back.

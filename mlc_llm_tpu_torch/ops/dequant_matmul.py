@@ -76,9 +76,10 @@ _I = ctypes.c_int
 _GEMV_ARGS = {"mlc_gemv_qs_splits": [_I],
               "mlc_gemv_qs": [_I] + [_P] * 6 + [_I] * 5 + [_P],
               "mlc_gemv_qs_tc": [_I] + [_P] * 6 + [_I] * 7 + [_P]}
-_GEMM_ARGS = {"mlc_gemm_qs": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
+_GEMM_ARGS = {"mlc_gemm_qs": [_I] + [_P] * 7 + [_I] * 8 + [_P]}
 _GP_ARGS = {"mlc_gemv_gp_splits": [_I],
-            "mlc_gemv_gp": [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P]}
+            "mlc_gemv_gp": [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
+            "mlc_gemv_gp_tc": [_I] * 2 + [_P] * 7 + [_I] * 7 + [_P]}
 _PAIRS_ARGS = {"mlc_gemm_pairs": [_I] * 2 + [_P] * 7 + [_I] * 8 + [_P]}
 _GP3_ARGS = {"mlc_gemv_gp3_splits": [_I], "mlc_gemv_gp3": [_P] * 5 + [_I] * 4 + [_P]}
 _PLANE_ARGS = {"mlc_gemm_plane": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
@@ -97,8 +98,8 @@ PLANE_FORMATS = {("int3", "u32", 40): 0, ("int3", "u16", 40): 1, ("fp4", "u32", 
                  ("int8", "i8", 32): 3}
 _WORD_DTYPES = {"u32": torch.int32, "u16": torch.int16, "i8": torch.int8}
 
-# The wgmma kernels (gemm_qs in bf16/f16, gemm_pairs, gemm_plane, and
-# gemv_qs in bf16/f16 at 2 <= m <= 8; csrc/dequant_wgmma.cuh): a block
+# The wgmma kernels (gemm_qs, gemm_pairs, gemm_plane, and gemv_qs in
+# bf16/f16 and gemv_gp at 2 <= m <= 8; csrc/dequant_wgmma.cuh): a block
 # computes 128 output channels by an m tile of MT tokens, one block an SM;
 # K runs in stages of the ring, split over blockIdx.z into f32 parts where
 # the tiles alone leave SMs idle.
@@ -109,6 +110,16 @@ MAX_SPLITS = 16
 QS_WIDTHS = (16, 64, 128, 256)  # gemm_qs's compiled m tiles
 PLANE_WIDTHS = (16, 64, 128)    # gemm_plane's (int3/u32's 11 x planes fill the ring at 128)
 QS_STAGE_K = 64                 # k of a gemm_qs stage: 8 word rows, 16 k of each quarter
+# gemm_qs: f32 compute -> (compiled m tiles, gemm_tiles' time model: µs a
+# stage at m tile MT, µs a block's fixed cost, MT). bf16/f16: four k16
+# steps a stage, as hsplit's, whose times hold here; f32 (3xTF32): eight
+# k8 steps of three products, MT <= 64. Checked and fitted against
+# scripts/torch_plan_sweep.py on an H100 (700 W): bf16 at the Vicuna-7B
+# shapes (m = 128, 2048) and f16 at the 3B shapes (m = 128) pick the
+# sweep's fastest plan or one within 2.2%; f32 at the 3B shapes within
+# 1.8%, but for w_out's shape at 3.8% (54 stages in one wave against 6-16
+# parts over two to five waves, which the wave model cannot prefer)
+QS_PLAN = {False: (QS_WIDTHS, (0.65, 6.7, 128)), True: ((16, 64), (2.2, 5.0, 64))}
 # word rows of a gemm_plane stage, by format id: one 16-word chunk; int8 four
 PLANE_STAGE_ROWS = {0: 16, 1: 16, 2: 16, 3: 64}
 # gemm_pairs: (layout, f32 compute) -> (k of a stage, compiled m tiles,
@@ -131,6 +142,13 @@ GEMV_WIDTHS = (16,)      # its one m tile (m <= 8)
 # and the reduction reads an f32 [m, n] (16 parts would add a fifth to
 # w_in's weight bytes for a 5% shorter wave plan)
 GEMV_MAX_SPLITS = 4
+# the pair/hsplit GEMV at 2 <= m <= 8 (the same mainloop and stage k):
+# gemm_tiles' time model (µs a stage at MT = 16, µs a block's fixed cost,
+# MT), fitted to scripts/torch_plan_sweep.py on an H100 (700 W) at the 3B
+# shapes, m = 8, hsplit f16 and pair f32 with their f32 heads: the split
+# plan it picks is the sweep's fastest at every swept shape (a cap of 4
+# parts, gemv_qs's, ran the N = 2560 shapes up to 27% slower)
+GP_GEMV_TIMES = (0.3, 0.0, 16)
 
 
 def gemm_tiles(m: int, n: int, steps: int, widths, sms: int = H100_SMS,
@@ -477,7 +495,10 @@ gemv_qs.launches = 0
 
 def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloat16):
     """Group-partial dequant GEMV for the pair and hsplit orders; the
-    arguments of gemv_qs, plus the weight's `layout`."""
+    arguments of gemv_qs, plus the weight's `layout`. m = 1 runs the SIMT
+    body; 2 <= m <= 8 the tensor-core body (N % 128 == 0) in every compute
+    dtype, f32 with a prologue that splits x into TF32 planes and sums its
+    groups (scratch [2*m*K + m*G] f32); one launch counter."""
     if x.device.type == "cpu":
         return gemv_gp_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                              _layer_view(zero, layer), layout, out_dtype)
@@ -487,14 +508,30 @@ def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloa
     if not 1 <= m <= GEMV_MAX_M:
         raise ValueError(f"gemv_gp: m={m} outside 1..{GEMV_MAX_M}")
     lib = load_kernel("dequant_gemv_gp", _GP_ARGS)
-    splits = lib.mlc_gemv_gp_splits(K)
-    partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     wp, sp, zp = _ptrs(data, scale, zero, layer)
-    err = lib.mlc_gemv_gp(
-        LAYOUT_IDS[layout], DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, partial.data_ptr(),
-        out.data_ptr(), m, K, N, int(zero is None), int(out_dtype == torch.float32),
-        _stream(x))
+    sym, out_f32 = int(zero is None), int(out_dtype == torch.float32)
+    if m >= 2:  # the tensor-core body
+        if N % TILE_N:
+            raise ValueError(f"gemv_gp: N={N} is not a multiple of {TILE_N} at m={m}")
+        _check_tma("gemv_gp", x.data_ptr(), wp, sp, zp)
+        _, splits, per = gemm_tiles(m, N, K // GEMV_STAGE_K, GEMV_WIDTHS,
+                                     times=GP_GEMV_TIMES)
+        partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        xt = (torch.empty((2 * m * K + m * (K // 32),), dtype=torch.float32, device=x.device)
+              if x.dtype == torch.float32 else None)
+        err = lib.mlc_gemv_gp_tc(
+            LAYOUT_IDS[layout], DTYPE_IDS[x.dtype], x.data_ptr(),
+            None if xt is None else xt.data_ptr(), wp, sp, zp,
+            None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, sym,
+            out_f32, splits, per, _stream(x))
+    else:
+        splits = lib.mlc_gemv_gp_splits(K)
+        partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+        err = lib.mlc_gemv_gp(
+            LAYOUT_IDS[layout], DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp,
+            partial.data_ptr(), out.data_ptr(), m, K, N, sym, out_f32, _stream(x))
     check_launch(err, "gemv_gp")
     gemv_gp.launches += 1
     return out
@@ -514,20 +551,21 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     N = data.shape[-1]
     if not 1 <= m <= GEMM_MAX_M:
         raise ValueError(f"gemm_qs: m={m} outside 1..{GEMM_MAX_M}")
+    if N % TILE_N:
+        raise ValueError(f"gemm_qs: N={N} is not a multiple of {TILE_N}")
     wp, sp, zp = _ptrs(data, scale, zero, layer)
-    if x.dtype == torch.float32:  # the first design's 3xTF32 body: no plan
-        mt, splits, per = 0, 1, 0
-    else:
-        if N % TILE_N:
-            raise ValueError(f"gemm_qs: N={N} is not a multiple of {TILE_N}")
-        _check_tma("gemm_qs", x.data_ptr(), wp, sp, zp)
-        mt, splits, per = gemm_tiles(m, N, K // QS_STAGE_K, QS_WIDTHS)
+    _check_tma("gemm_qs", x.data_ptr(), wp, sp, zp)
+    f32 = x.dtype == torch.float32
+    widths, times = QS_PLAN[f32]
+    mt, splits, per = gemm_tiles(m, N, K // QS_STAGE_K, widths, times=times)
     lib = load_kernel("dequant_gemm_qs", _GEMM_ARGS)
+    # f32: the prologue's TF32 hi and lo planes of x
+    xt = torch.empty((2, m, K), dtype=torch.float32, device=x.device) if f32 else None
     partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     err = lib.mlc_gemm_qs(
-        DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp,
+        DTYPE_IDS[x.dtype], x.data_ptr(), None if xt is None else xt.data_ptr(), wp, sp, zp,
         None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N,
         int(zero is None), int(out_dtype == torch.float32), mt, splits, per, _stream(x))
     check_launch(err, "gemm_qs")

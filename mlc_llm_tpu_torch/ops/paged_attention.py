@@ -4,24 +4,27 @@ head-packed page pool, a CUDA kernel and its plain PyTorch version.
 ``paged_flash_decode`` (``csrc/paged_flash_decode.cu``) replaces the
 Pallas kernel ``_kernel`` / ``paged_flash_decode`` of
 ``mlc_llm_tpu/ops/pallas/paged_attention.py`` and keeps its signature:
-q [B, Hq, 1, D] unscaled, pages [G, L, P, ps, hb*D] (bf16, or int8 codes
-with f32 scales k [G, L, P, hb, ps] and v [G, L, P, ps, hb]), int32 page
-table [B, maxp] and PRE-advance lengths [B]. For slot b, query head
-hq reads kv-head h = hq // rep at lanes (h % hb)*D of group h // hb.
+q [B, Hq, 1, D] unscaled, pages [G, L, P, ps, hb*D] (bf16, f16, f32, or
+int8 codes with f32 scales k [G, L, P, hb, ps] and v [G, L, P, ps,
+hb]), int32 page table [B, maxp] and PRE-advance lengths [B]. For slot
+b, query head hq reads kv-head h = hq // rep at lanes (h % hb)*D of
+group h // hb.
 
 What both versions compute, page by page (an online softmax):
 - q_pos = lengths[b]; pages p = 0 .. min(np_ - 1, q_pos // ps), page id
   table[b, p], np_ = min(num_pages_window, maxp);
-- s = (q . k) in f32 on q cast to the key's type (bf16 for int8 codes),
+- s = (q . k) in f32 on q cast to the page type (bf16 for int8 codes),
   times ks[pos] in int8 mode, times 1/sqrt(D); positions > q_pos get
   -1e30;
 - m, l, acc in f32; pij = exp(s - m_new) is rounded to bf16 before the
-  PV product when the pages are bf16, kept f32 in int8 mode, where V is
-  v_code * vs[pos] in f32;
+  PV product when the pages are bf16, kept f32 otherwise (in int8 mode V
+  is v_code * vs[pos] in f32);
 - out = acc / max(l, 1e-20) in q's dtype.
 
-The wrapper runs the plain version on CPU tensors and launches the
-kernel on CUDA tensors, or raises. ``paged_flash_decode.launches``
+The CUDA kernel takes q in bf16, f16 or f32, the four page types and
+the head dims of the registry's models (``KERNEL_HEAD_DIMS``). The
+wrapper runs the plain version on CPU tensors and launches the kernel on
+CUDA tensors, or raises. ``paged_flash_decode.launches``
 counts kernel launches only.
 """
 
@@ -35,11 +38,16 @@ import torch
 from . import check_launch, load_kernel
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 128  # the kernel's block is one thread per head-dim lane
+# the head dims the kernel's lane layouts take: 8 elements a lane (80 on 10
+# of a row's 16 lanes, 128), or 16 (256)
+KERNEL_HEAD_DIMS = (80, 128, 256)
+# the kernel's type ids (csrc enum QType, and the page types' switch)
+Q_TYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+PAGE_TYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2, torch.int8: 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = {"mlc_paged_flash_decode": [_P] * 8 + [_I] * 12 + [_P]}
+_ARGS = {"mlc_paged_flash_decode": [_P] * 8 + [_I] * 13 + [_P]}
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
@@ -99,14 +107,16 @@ def _check_cuda_args(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
     B, Hq, S, D = q.shape
     if S != 1 or D != head_dim:
         raise ValueError(f"paged_flash_decode: q {tuple(q.shape)} must be [B, Hq, 1, {head_dim}]")
-    if D != KERNEL_HEAD_DIM:
+    if D not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
-            f"paged_flash_decode: the CUDA kernel takes head_dim {KERNEL_HEAD_DIM}, got {D}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(f"paged_flash_decode: q must be bf16, got {q.dtype}")
-    if k_pages.dtype not in (torch.bfloat16, torch.int8) or v_pages.dtype != k_pages.dtype:
+            f"paged_flash_decode: the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {D}")
+    if q.dtype not in Q_TYPES:
         raise NotImplementedError(
-            f"paged_flash_decode: pages must be bf16 or int8, got {k_pages.dtype}/{v_pages.dtype}")
+            f"paged_flash_decode: q must be one of {[str(t) for t in Q_TYPES]}, got {q.dtype}")
+    if k_pages.dtype not in PAGE_TYPES or v_pages.dtype != k_pages.dtype:
+        raise NotImplementedError(
+            f"paged_flash_decode: pages must be one of {[str(t) for t in PAGE_TYPES]}, got "
+            f"{k_pages.dtype}/{v_pages.dtype}")
     G, L, P, ps, hbD = k_pages.shape
     if v_pages.shape != k_pages.shape or hbD % D or Hq % (G * hbD // D):
         raise ValueError(f"paged_flash_decode: bad pool {tuple(k_pages.shape)} for q "
@@ -158,8 +168,8 @@ def paged_flash_decode(q, k_pages, v_pages, k_scale, v_scale, page_table, length
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, Hq, G, L, P, ps, hbD // D, D, maxp, np_, layer, int(int8),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        B, Hq, G, L, P, ps, hbD // D, D, maxp, np_, layer, PAGE_TYPES[k_pages.dtype],
+        Q_TYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "paged_flash_decode")
     paged_flash_decode.launches += 1
     return out

@@ -9,8 +9,15 @@ kernels, and times, at the Vicuna-7B shapes: `gemm_qs` on q4bf16 at m =
 on q4bf16 at m = 3 and 8, and `gemm_pairs` in bf16 (q4bf16_pair,
 q4bf16_hs) at w_in, m = 128; at the GPT-NeoX 3B shapes: `gemm_pairs` on
 q4f32 (pair, f32) and q4f16_hs (hsplit, f16; the lm head in f32) at m =
-128 and, on w_in, 2048. Layer weights are stacked [2, ...] and read at
-layer 1; the lm head is flat with f32 out, at m <= 128 only. Each kernel
+128 and, on w_in, 2048, `gemv_gp` on the same two presets at m = 3 and 8,
+and `gemm_qs` in f16 and f32 (qsplit) at m = 128; and
+`paged_flash_decode` at the serve pool's layout (hb 8, page 128, a
+16-page window) at b8 over mixed lengths and at b1 x 2047: Vicuna-7B (D
+128, bf16 q, bf16 and int8 pages), the NeoX 3B (D 80, f32 and f16 q) and
+MOSS (D 256), against SDPA on the gathered K/V (a shape a tree's kernel
+does not take prints as unsupported). Layer weights are stacked [2, ...]
+and read at layer 1; the lm head is flat with f32 out, at m <= 128 only.
+Each kernel
 result is held against its plain version (1e-2; f32 atol 1e-4, rtol 1e-3)
 before it is timed. Times are CUDA-event means with the 50 MB L2 flushed
 before each launch, as chip_smoke.py times them; the library call is
@@ -41,7 +48,17 @@ CASES = [("q4bf16", "gemm_qs", SHAPES, {"*": (128, 2048)}, False),
          ("q4bf16_pair", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
          ("q4bf16_hs", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
          ("q4f32", "gemm_pairs", SHAPES_3B, {"*": (128,), "w_in": (128, 2048)}, True),
-         ("q4f16_hs", "gemm_pairs", SHAPES_3B, {"*": (128,), "w_in": (128, 2048)}, True)]
+         ("q4f16_hs", "gemm_pairs", SHAPES_3B, {"*": (128,), "w_in": (128, 2048)}, True),
+         ("q4f32", "gemv_gp", SHAPES_3B, {"*": (3, 8)}, True),
+         ("q4f16_hs", "gemv_gp", SHAPES_3B, {"*": (3, 8)}, True),
+         ("q4f16", "gemm_qs", SHAPES_3B, {"*": (128,)}, True),
+         ("q4f32:qsplit", "gemm_qs", SHAPES_3B, {"*": (128,)}, True)]
+# kernel 7: (label, kv-heads, query heads, head dim, q dtype, page dtypes)
+PAGED = [("vicuna", 32, 32, 128, "bfloat16", ("bfloat16", "int8")),
+         ("neox-3b", 32, 32, 80, "float32", ("bfloat16", "int8")),
+         ("neox-3b", 32, 32, 80, "float16", ("bfloat16", "int8")),
+         ("moss", 24, 24, 256, "bfloat16", ("bfloat16",))]
+PAGED_LENGTHS = [1, 127, 128, 511, 1023, 1024, 1536, 2047]
 
 
 def time_ms(torch, fn, flush, reps):
@@ -57,6 +74,67 @@ def time_ms(torch, fn, flush, reps):
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+def paged_rows(torch, label, gen, flush):
+    from mlc_llm_tpu_torch.ops import paged_attention as pa
+
+    hb, ps, window = 8, 128, 16
+    W = window * ps
+    for name, hkv, hq, D, qname, pages in PAGED:
+        qdt = getattr(torch, qname)
+        for lengths in (PAGED_LENGTHS, [2047]):
+            B = len(lengths)
+            G, P = hkv // hb, B * window + 1
+            table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))
+                     .reshape(B, window) + 1).int().cuda()
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            q = torch.randn((B, hq, 1, D), generator=gen, device="cuda").to(qdt)
+            mask = (torch.arange(W, device="cuda")[None, :] <= lens[:, None].long())[:, None, None]
+            for pname in pages:
+                shape = (G, 2, P, ps, hb * D)
+                ks = vs = None
+                if pname == "int8":
+                    kp, vp = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                            dtype=torch.int8) for _ in range(2))
+                    ks = torch.rand((G, 2, P, hb, ps), generator=gen, device="cuda") * 0.02 + 1e-3
+                    vs = torch.rand((G, 2, P, ps, hb), generator=gen, device="cuda") * 0.02 + 1e-3
+                else:
+                    kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(
+                        getattr(torch, pname)) for _ in range(2))
+
+                def gathered(pages, sc, k_side):
+                    x = pages[:, 1][:, table.long()].float()
+                    if sc is not None:
+                        s = sc[:, 1][:, table.long()]
+                        s = s.transpose(-1, -2) if k_side else s
+                        x = x.reshape(G, B, window, ps, hb, D) * s[..., None]
+                    x = x.reshape(G, B, window, ps, hb, D).permute(1, 0, 4, 2, 3, 5)
+                    return x.reshape(B, hkv, W, D).to(qdt).contiguous()
+
+                kc, vc = gathered(kp, ks, True), gathered(vp, vs, False)
+
+                def run():
+                    return pa.paged_flash_decode(q, kp, vp, ks, vs, table, lens, 1,
+                                                 num_pages_window=window, head_dim=D)
+
+                row = dict(tree=label, kernel="paged_flash_decode", shape=name, d=D, q=qname,
+                           pages=pname, b=B, lengths=lengths)
+                try:
+                    got = run()
+                except NotImplementedError:
+                    print(json.dumps(dict(row, unsupported=True)), flush=True)
+                    continue
+                want = pa.paged_flash_decode_plain(q, kp, vp, ks, vs, table, lens, 1,
+                                                   num_pages_window=window, head_dim=D)
+                ok = torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+                t = time_ms(torch, run, flush, 20)
+                lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=mask), flush, 20)
+                print(json.dumps(dict(row, ms=t, library_ms=lib, ratio=t / lib, ok=ok)),
+                      flush=True)
+                del kp, vp, ks, vs, kc, vc
+            torch.cuda.empty_cache()
 
 
 def main():
@@ -92,7 +170,9 @@ def main():
             flat = name == "lm_head"
             if not ms or (flat and min(ms) > 128):
                 continue
-            spec = resolve_spec(quant)
+            spec = resolve_spec(quant.split(":")[0])
+            if quant.endswith(":qsplit"):
+                spec = dataclasses.replace(spec, layout="qsplit")
             if flat and head_f32:
                 spec = dataclasses.replace(spec, dtype="float32")
             qts = [pad_quantized_groups(quantize(
@@ -111,7 +191,7 @@ def main():
                                                shape=(K, N)), cd)
             out_dtype = torch.float32 if flat else cd
             extra = ((spec,) if kname == "gemm_plane"
-                     else (spec.layout,) if kname == "gemm_pairs" else ())
+                     else (spec.layout,) if kname in ("gemm_pairs", "gemv_gp") else ())
             tol = (dict(atol=1e-4, rtol=1e-3) if cd == torch.float32
                    else dict(atol=1e-2, rtol=1e-2))
             for m in ms:
@@ -136,6 +216,8 @@ def main():
                       flush=True)
             del data, scale, zero, dense, qts
             torch.cuda.empty_cache()
+    if not only or "paged_flash_decode" in only:
+        paged_rows(torch, args.label, gen, flush)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 

@@ -481,3 +481,125 @@ def test_cuda_attend_matches_cpu(dtype, hq, hkv):
     # the same products and roundings; the f32 sums run in another order
     torch.testing.assert_close(got.float().cpu(), want.float(),
                                **(F32_TOL if dtype == torch.float32 else TOL))
+
+
+# kernel 7 at every head dim of the registry (80: NeoX 3B, 128, 256: MOSS),
+# every query type and every page type
+def _paged_inputs(D, hkv, rep, hb, qdt, pdt, lengths, ps=64, maxp=8, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, L, P = len(lengths), 2, 64
+    G = hkv // hb
+    shape = (G, L, P, ps, hb * D)
+    ks = vs = None
+    if pdt == torch.int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks = torch.rand((G, L, P, hb, ps), generator=g, device="cuda") * 0.02 + 1e-3
+        vs = torch.rand((G, L, P, ps, hb), generator=g, device="cuda") * 0.02 + 1e-3
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device="cuda").to(pdt) for _ in range(2))
+    table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(1))[:B * maxp]
+             .reshape(B, maxp) + 1).int().cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, hkv * rep, 1, D), generator=g, device="cuda").to(qdt)
+    return q, kp, vp, ks, vs, table, lens
+
+
+PAGE_DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.int8]
+Q_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdt", PAGE_DTYPES, ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("qdt", Q_DTYPES, ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("D,hkv,rep,hb", [(80, 32, 1, 8), (80, 8, 3, 4), (128, 8, 2, 8),
+                                          (256, 24, 1, 8), (256, 4, 3, 2)])
+def test_cuda_paged_flash_decode_head_dims_and_types(D, hkv, rep, hb, qdt, pdt):
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, ks, vs, table, lens = _paged_inputs(D, hkv, rep, hb, qdt, pdt,
+                                                   [0, 63, 64, 300, 511])
+    before = pa.paged_flash_decode.launches
+    got = pa.paged_flash_decode(q, kp, vp, ks, vs, table, lens, 1, num_pages_window=8,
+                                head_dim=D)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode.launches == before + 1 and got.dtype == qdt
+    want = pa.paged_flash_decode_plain(q, kp, vp, ks, vs, table, lens, 1, num_pages_window=8,
+                                       head_dim=D)
+    # the same roundings, summed in another order; f32 pages and q round nothing
+    tol = F32_TOL if qdt == pdt == torch.float32 else TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 96, 512])
+def test_cuda_paged_flash_decode_other_head_dims_raise(D):
+    # no lane layout compiled for D: it raises, nothing runs the plain version
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, ks, vs, table, lens = _paged_inputs(D, 8, 1, 8, torch.bfloat16, torch.bfloat16,
+                                                   [5, 70])
+    before = pa.paged_flash_decode.launches
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        pa.paged_flash_decode(q, kp, vp, ks, vs, table, lens, 1, num_pages_window=8,
+                              head_dim=D)
+    assert pa.paged_flash_decode.launches == before
+
+
+# gemv_gp on the tensor cores (2 <= m <= 8): pair and hsplit, bf16, f16 and
+# f32 (TF32 on x's hi and lo planes), sym and asym, at the 3B width (K =
+# 2560 stored as 3072; w_out's K = 10240)
+GP_TC_CASES = [("q4bf16_pair", "pair"), ("q4bf16_sym", "pair"), ("q4f16_pair", "pair"),
+               ("q4f32", "pair"), ("q4bf16_hs", "hsplit"), ("q4f16_hs", "hsplit"),
+               ("q4f32", "hsplit"), ("q4bf16_sym", "hsplit")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("preset,layout", GP_TC_CASES)
+@pytest.mark.parametrize("k,n", [(2560, 2560), (10240, 2560)])
+def test_cuda_gemv_gp_tensor_cores_matches_plain(k, n, preset, layout, m):
+    _need_gpu()
+    one, (data, scale, zero), layer, cd = _pairs_weights(preset, layout, k, n, True)
+    x = _x_for(one, m).to(cd)
+    before = dm.gemv_gp.launches
+    got = dm.gemv_gp(x, data, scale, zero, layout, layer=layer, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert dm.gemv_gp.launches == before + 1
+    want = dm.gemv_gp_plain(x, one.data, one.scale, one.zero, layout, torch.float32)
+    torch.testing.assert_close(got, want, **(F32_TOL if cd == torch.float32 else TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,layout", [("q4f32", "pair"), ("q4f32", "hsplit"),
+                                           ("q4f16_hs", "hsplit")])
+def test_cuda_gemv_gp_tensor_cores_flat_head(preset, layout):
+    # the 3B lm head: flat, N = 50432, f32 out (f32 compute for q4f16_hs's head)
+    _need_gpu()
+    spec = dataclasses.replace(QUANT_PRESETS[preset], layout=layout, dtype="float32")
+    one, (data, scale, zero), layer = _weights(spec, 2560, 50432, False)
+    x = _x_for(one, 8).float()
+    got = dm.gemv_gp(x, data, scale, zero, layout, out_dtype=torch.float32)
+    want = dm.gemv_gp_plain(x, one.data, one.scale, one.zero, layout, torch.float32)
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+# gemm_qs in f32 on the wgmma mainloop (3xTF32): sym and asym, stacked and
+# flat, over both compiled m tiles, split K on and off
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", RAGGED_M)
+@pytest.mark.parametrize("sym,stacked", [(False, True), (True, False)], ids=["asym", "sym"])
+def test_cuda_wgmma_gemm_qs_f32_matches_plain(sym, stacked, m):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = dataclasses.replace(QUANT_PRESETS["q4f32"], layout="qsplit", sym=sym)
+    one, (data, scale, zero), layer = _weights(spec, 2560, 2560, stacked)
+    x = _x_for(one, m).float()
+    before = dm.gemm_qs.launches
+    got = dm.gemm_qs(x, data, scale, zero, layer=layer, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert dm.gemm_qs.launches == before + 1
+    want = dm.gemm_qs_plain(x, one.data, one.scale, one.zero, torch.float32)
+    torch.testing.assert_close(got, want, **F32_TOL)

@@ -75,25 +75,41 @@ def _steps(kernel, k):
 @pytest.mark.parametrize("m", [8, 9, 128, 2047, 2048])
 @pytest.mark.parametrize("kernel,model,name,k,n", PLAN_CASES)
 def test_gemm_tiles_plan(kernel, model, name, k, n, m):
-    widths = dm.QS_WIDTHS if kernel == "gemm_qs" else dm.PLANE_WIDTHS
+    # gemm_qs plans on its time model (QS_PLAN, bf16/f16), gemm_plane on waves
+    widths, times = dm.QS_PLAN[False] if kernel == "gemm_qs" else (dm.PLANE_WIDTHS, None)
     steps = _steps(kernel, k)
-    mt, parts, per = dm.gemm_tiles(m, n, steps, widths)
+    mt, parts, per = dm.gemm_tiles(m, n, steps, widths, times=times)
     assert mt in widths and (mt >= m or mt == widths[-1])
     # part p covers stages [p * per, (p + 1) * per): each stage in one
     # part, no part empty
     covered = [t for p in range(parts) for t in range(p * per, min(steps, (p + 1) * per))]
     assert covered == list(range(steps))
     assert all(p * per < steps for p in range(parts))
-    # the blocks fill at least one wave of the H100's SMs
-    assert (n // dm.TILE_N) * -(-m // mt) * parts >= SMS
     assert 1 <= parts <= dm.MAX_SPLITS
+    if times is None:
+        # the blocks fill at least one wave of the H100's SMs
+        assert (n // dm.TILE_N) * -(-m // mt) * parts >= SMS
+    else:
+        # no split count is 5% cheaper under the time model (a block's fixed
+        # cost can make one short wave the fastest plan)
+        stage_us, block_us, fit_mt = times
+
+        def cost(pt, pr):
+            c = -(-(n // dm.TILE_N) * -(-m // mt) * pt // SMS) * (
+                pr * stage_us * mt / fit_mt + block_us)
+            return c + (pt * m * n * 8 / dm.HBM_BYTES_PER_US if pt > 1 else 0.0)
+
+        for s in range(1, min(steps, dm.MAX_SPLITS) + 1):
+            p_per = -(-steps // s)
+            assert cost(-(-steps // p_per), p_per) >= 0.95 * cost(parts, per) - 1e-9
 
 
 def test_gemm_tiles_splits_only_where_needed():
     # prefill at m = 2048 never splits (the tiles fill the card); decode
     # widths split at wo, and to even out w_in's last wave
-    assert dm.gemm_tiles(2048, 4096, 64, dm.QS_WIDTHS) == (256, 1, 64)
-    assert dm.gemm_tiles(128, 22528, 64, dm.QS_WIDTHS) == (128, 1, 64)
+    widths, times = dm.QS_PLAN[False]
+    assert dm.gemm_tiles(2048, 4096, 64, widths, times=times) == (256, 1, 64)
+    assert dm.gemm_tiles(128, 22528, 64, widths, times=times) == (128, 1, 64)
     assert dm.gemm_tiles(8, 4096, 64, dm.PLANE_WIDTHS)[1] > 1
     assert dm.gemm_tiles(8, 22528, 64, dm.PLANE_WIDTHS)[1] > 1
 
