@@ -8,23 +8,26 @@ Phases (any failed check exits non-zero before the last line):
    sources are built from csrc/ with nvcc, one process per source, all at
    once (build seconds printed, and ptxas's registers, shared memory,
    spills and performance notes of the five sources on the wgmma
-   mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp);
+   mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp; then
+   each gemm_plane instantiation's registers, spills and C7512 notes: the
+   m tile of 256 must be there for int3/u16, fp4 and int8, without spills);
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
    plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
    GEMV at m=1, 3 and 8, GEMM at m=128 and m=2048 and on the flat lm head at
    m=128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
-   2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1 and
-   m=128; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128); at
+   2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1, 128
+   and 2048; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128); at
    the GPT-NeoX 3B shapes q4f32 (pair, f32) and q4f16_hs (hsplit, f16, the
    lm head in f32): GEMV at m=1, 3 and 8 and GEMM at m=128 on all five
    shapes and at m=2048 on w_in; the qsplit GEMM in f16 and f32 on all five
    3B shapes, the qsplit GEMV in f16 and f32 at w_in and the qsplit f32
    GEMV on the lm head; paged flash-decode at batch 8 over mixed lengths
-   and at batch 1 x 2047, at Vicuna-7B's shapes (D 128, bf16 q, bf16 and
-   int8 KV), the NeoX 3B's (D 80, f32 and f16 q, bf16 and int8 KV) and
-   MOSS's (D 256, bf16 q and KV); each row prints its TFLOP/s and its time
-   over the library call's;
+   and at batch 1 x 255, 256, 1023 and 2047, at Vicuna-7B's shapes (D 128,
+   bf16 q, bf16 and int8 KV), the NeoX 3B's (D 80, f32 and f16 q, bf16 and
+   int8 KV) and MOSS's (D 256, bf16 q and KV), each under the wrapper's
+   split-KV plan (printed), held against the plain version under the same
+   plan; each row prints its TFLOP/s and its time over the library call's;
 3. parity phase: 2-layer models at full width, the same params through
    forward on the card (kernels) and on the CPU (plain versions), logits
    compared for a 64-token prefill and 4 decode steps: Vicuna-7B in q4bf16
@@ -76,6 +79,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -123,6 +127,13 @@ KERNEL_TOL = 1e-2      # atol and rtol, kernel vs its plain version (bf16, f16)
 # f32 compute: the kernel and its plain version round nothing but their
 # f32 sums, which run in another order (3xTF32 keeps f32's accuracy)
 F32_KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)
+# kernel 7 with 2-byte or int8 pages: the kernel and its plain version
+# round at the same points and differ by at most 5e-4 here (H100); a
+# combine that drops or doubles one of 16 partials at b1 x 2047 moves the
+# output by up to 3e-2 to 5e-2 (the plain version so mutated, on the
+# CPU). rtol covers a one-ulp bf16 rounding of the larger outputs of
+# short slots.
+PAGED_KERNEL_TOL = dict(atol=2e-3, rtol=1e-2)
 # card (kernels) vs CPU (plain versions) logits, as a share of the largest
 # |logit|. Activations are bf16 between ops; a bf16 rounding that goes the
 # other way after an f32 sum in another order (0.4%) is amplified by the
@@ -189,9 +200,10 @@ MATMUL_CASES = [
     ("q3bf16_s16", "q3bf16_s16", SHAPES, False,
      [("gemv_gp3", {"*": (1, 2)}), ("gemm_plane", {"*": (8, 128, 2048)})]),
     # the other plane formats once each, at their decode and prefill widths
-    ("q3bf16", "q3bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128)})]),
-    ("fp4bf16", "fp4bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128)})]),
-    ("q8bf16", "q8bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128)})]),
+    # (m = 2048: the m tile of 256 for fp4 and int8, 128 for int3/u32)
+    ("q3bf16", "q3bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128, 2048)})]),
+    ("fp4bf16", "fp4bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128, 2048)})]),
+    ("q8bf16", "q8bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128, 2048)})]),
     # the pair and hsplit bodies in bf16, beside the qsplit rows
     ("q4bf16_pair", "q4bf16_pair", SHAPES, False,
      [("gemv_gp", {"w_in": (1,)}), ("gemm_pairs", {"w_in": (128,)})]),
@@ -211,12 +223,15 @@ MATMUL_CASES = [
 # the serve phase's paged pool and the kernel phase's paged shapes
 PAGE_SIZE, SERVE_BATCH, SERVE_SEQ = 128, 8, 2048
 PAGED_LENGTHS = [1, 127, 128, 511, 1023, 1024, 1536, 2047]
+# one slot's lengths at b1: a split boundary (255, 256: pages 2 and 3) and
+# half and all of the window
+PAGED_B1_LENGTHS = (255, 256, 1023, SERVE_SEQ - 1)
 PAGED_WINDOW = 16  # pages: SERVE_SEQ / PAGE_SIZE
 PAGED_HEAD_BLOCK = 8
 MOSS = get_config("moss-moon-003-sft")
 # kernel 7's cases: (label, kv-heads, query heads, head dim, q dtype, page
 # dtypes) at the serve pool's layout (hb 8, page 128), each at b8 over
-# PAGED_LENGTHS and at b1 x 2047: Vicuna-7B (D 128, bf16 q), the NeoX 3B
+# PAGED_LENGTHS and at b1 x PAGED_B1_LENGTHS: Vicuna-7B (D 128, bf16 q), the NeoX 3B
 # (D 80; RedPajama q4f32's f32 q, dolly q4f16_hs's f16 q) and MOSS (D 256)
 PAGED_CASES = [
     ("vicuna", VICUNA.num_kv_heads, VICUNA.num_heads, VICUNA.head_dim, torch.bfloat16,
@@ -242,6 +257,33 @@ def ptxas_summary(log: str):
     bytes, registers and shared memory, and ptxas's performance notes."""
     keep = ("Compiling entry", "spill", "Used", "Performance", "warning")
     return [f"    {line.strip()}" for line in log.splitlines() if any(k in line for k in keep)]
+
+
+def plane_instantiations(log: str):
+    """gemm_plane's mainloop instantiations in ptxas's report: (format id,
+    m tile, registers, spill store bytes, spill load bytes, C7512 notes),
+    from the mangled name gemm_kernel<PlanePolicy<F>, MT>."""
+    out, cur = [], None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S*PlanePolicyILi(\d)EEELi(\d+)EE\S*)'",
+                        line)
+        if hit:
+            cur = dict(name=hit.group(1), fmt=int(hit.group(2)), mt=int(hit.group(3)),
+                       regs=None, spill_stores=None, spill_loads=None, c7512=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and cur["spill_stores"] is None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used and cur["regs"] is None:
+            cur["regs"] = int(used.group(1))
+            cur = None
+    for e in out:  # ptxas names the function in each note
+        e["c7512"] = sum("C7512" in line and e["name"] in line for line in log.splitlines())
+    return out
 
 
 def fail(msg: str):
@@ -447,7 +489,7 @@ def paged_rows(gen, flush, window=PAGED_WINDOW):
     rows = []
     hb, ps, L = PAGED_HEAD_BLOCK, PAGE_SIZE, 2
     for label, hkv, hq, D, qdt, page_dtypes in PAGED_CASES:
-        for lengths in (PAGED_LENGTHS, [SERVE_SEQ - 1]):
+        for lengths in (PAGED_LENGTHS, *([n] for n in PAGED_B1_LENGTHS)):
             rows += paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window,
                                hb, ps, L)
     return rows
@@ -480,9 +522,13 @@ def paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window,
             return pa.paged_flash_decode(q, kp, vp, ks, vs, table, lens, 1,
                                          num_pages_window=window, head_dim=D)
 
+        # the plain version under the kernel's split plan
+        pps, nsplit = pa.launch_plan(q, kp, table, window)
+
         def run_plain():
             return pa.paged_flash_decode_plain(q, kp, vp, ks, vs, table, lens, 1,
-                                               num_pages_window=window, head_dim=D)
+                                               num_pages_window=window, head_dim=D,
+                                               pages_per_split=pps)
 
         # contiguous K/V of the window for the yardstick, [B, H, W, D]
         def gathered(pages, sc, k_side):
@@ -506,8 +552,7 @@ def paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window,
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         lib_err = (lib.float() - want.float()).abs().max().item()
-        tol = (F32_KERNEL_TOL if qdt == pdt == torch.float32
-               else dict(atol=KERNEL_TOL, rtol=KERNEL_TOL))
+        tol = F32_KERNEL_TOL if qdt == pdt == torch.float32 else PAGED_KERNEL_TOL
         ok = got.dtype == qdt and torch.allclose(got.float(), want.float(), **tol)
         page_bytes = torch.empty((), dtype=pdt).element_size()
         q_bytes = torch.empty((), dtype=qdt).element_size()
@@ -516,11 +561,13 @@ def paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window,
         qs = str(qdt).replace("torch.", "")
         name = f"{label} b{B} {kv} KV" if B > 1 else f"{label} b1x{lengths[0]} {kv} KV"
         row = dict(kernel="paged_flash_decode", shape=name, dtype=qs, m=B, k=W, n=hq, d=D,
+                   pages_per_split=pps, splits=nsplit,
                    max_abs_err=err, ms=time_ms(run_kernel, flush, 20),
                    plain_ms=time_ms(run_plain, flush, 5),
                    library_ms=time_ms(run_library, flush, 20), bound_ms=b_ms, bound_by=b_by)
         row["vs_library"] = row["ms"] / row["library_ms"]
-        print(f"  paged_flash_decode {name} D={D} q={qs} lengths={lengths} window={W}: "
+        print(f"  paged_flash_decode {name} D={D} q={qs} lengths={lengths} window={W} "
+              f"split plan {nsplit} x {pps} pages: "
               f"max_abs_err={err:.3g} (library vs plain {lib_err:.3g}) ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) {row['vs_library']:.2f}x library, "
@@ -909,12 +956,24 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     t0 = time.perf_counter()
-    logs = build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"))
+    # the wgmma sources are built in any case, so that ptxas reports them
+    # on a warm csrc/build/ too
+    logs = build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"), force=WGMMA_SOURCES)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name in WGMMA_SOURCES:
-        if name in logs:
-            print(f"  ptxas, {name}.cu:")
-            print("\n".join(ptxas_summary(logs[name])))
+        print(f"  ptxas, {name}.cu:")
+        print("\n".join(ptxas_summary(logs[name])))
+    # every gemm_plane instantiation: registers, spills, serialized wgmma;
+    # the m tile of 256 (A streamed per k16 step) must not spill
+    plane = plane_instantiations(logs["dequant_gemm_plane"])
+    for e in plane:
+        print(f"  gemm_plane format {e['fmt']} MT={e['mt']}: {e['regs']} registers, spill "
+              f"stores {e['spill_stores']} B, loads {e['spill_loads']} B, C7512 notes "
+              f"{e['c7512']}")
+    wide = [e for e in plane if e["mt"] == 256]
+    if sorted(e["fmt"] for e in wide) != [1, 2, 3] or any(
+            e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in wide):
+        fail(f"gemm_plane MT=256 instantiations missing or spilling: {wide}")
 
     rows = kernel_phase()
     parity_phase()

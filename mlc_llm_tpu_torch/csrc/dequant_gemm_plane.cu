@@ -17,7 +17,10 @@
 // against the ~295 flops/byte ridge), the bf16 tensor-core rate above.
 //
 // The Hopper mainloop of dequant_wgmma.cuh (wgmma, the weight as the
-// register A operand, a TMA ring). x arrives in the TPU wrapper's
+// register A operand, a TMA ring), with A streamed one k16 step at a time
+// (kStream: two A buffers, so an m tile of 256 tokens fits the registers
+// beside its accumulator and each warpgroup's dequant of a step overlaps
+// its own MMA of the step before). x arrives in the TPU wrapper's
 // plane-transposed order x_t[f, m, kw] = x[m, kw * epw + f] (+ for int3 one
 // more plane, the bf16 word sums of x), made by plane_x_kernel, a prologue
 // launched by the same entry (int8 reads x itself as its one plane). A
@@ -31,8 +34,9 @@
 // (constant over a group's words), B the word-sum plane. Group counts that
 // are no multiple of a chunk read zeros past the stored words, scales and
 // x (TMA fills out of bounds with zeros; the x_t planes are zero-padded).
-// The m tile, the split-K parts and the stages per part come from the
-// Python wrapper (ops/dequant_matmul.py gemm_tiles).
+// The m tile (up to 256, 128 for int3/u32), the split-K parts and the
+// stages per part come from the Python wrapper (ops/dequant_matmul.py
+// plane_tiles).
 
 #include "dequant_wgmma.cuh"
 #include "int4_common.cuh"
@@ -71,24 +75,37 @@ struct Fmt<kI8> {  // one signed code a byte: no fields, no offset term
 template <int F>
 constexpr bool kOffset = F == kI3W32 || F == kI3W16;
 
-// the bf16x2 bits of the unscaled values of field f of two words (low
-// half: word lo), exact
+// A thread's words and scales of one fetch: for rows (ch, words 2c, 2c+1),
+// (ch+8, the same), (ch, words 2c+8, 2c+9), (ch+8, the same), the low and
+// the high word of the pair and the pair's scale, duplicated. Two formats
+// pack a pair into lo alone, the low word in bits 0-15: int3/u16 (both
+// words), and fp4, which fetches a chunk in two halves of four fields (a
+// word's bits 0-15, then 16-31), so that 4 registers hold a pair's codes
+// as for int3/u16, and the m64n256 accumulator still fits beside them
+struct PlaneChunk {
+  uint32_t lo[4], hi[4];
+  __nv_bfloat162 sc[4];
+};
+
+// the bf16x2 bits of the unscaled values of field f of pair r (low half:
+// the low word), exact
 template <int F>
-__device__ __forceinline__ uint32_t value_pair(typename Fmt<F>::Word lo,
-                                               typename Fmt<F>::Word hi, int f) {
+__device__ __forceinline__ uint32_t value_pair(const PlaneChunk& w, int r, int f) {
   if constexpr (F == kI8) {
-    return wg::bits(__floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi)));
+    return wg::bits(__floats2bfloat162_rn(static_cast<float>(static_cast<int8_t>(w.lo[r])),
+                                          static_cast<float>(static_cast<int8_t>(w.hi[r]))));
   } else if constexpr (F == kF4W32) {
-    const uint32_t cl = (static_cast<uint32_t>(lo) >> (4 * f)) & 15u;
-    const uint32_t ch = (static_cast<uint32_t>(hi) >> (4 * f)) & 15u;
+    // field f of the half: both codes at once, one a 16-bit lane;
     // +-2^(e-7): exponent field e + 120, sign bit 15; 0 when e == 0
-    const uint32_t bl = (cl & 7u) ? (((cl & 7u) + 120u) << 7) | ((cl & 8u) << 12) : 0u;
-    const uint32_t bh = (ch & 7u) ? (((ch & 7u) + 120u) << 7) | ((ch & 8u) << 12) : 0u;
-    return bl | (bh << 16);
+    const uint32_t t = (w.lo[r] >> (4 * f)) & 0x000F000Fu;
+    const uint32_t e = t & 0x00070007u;
+    const uint32_t nz = __vcmpne2(e, 0u);  // 0xFFFF a lane where e != 0
+    return ((((e + 0x00780078u) << 7) | ((t & 0x00080008u) << 12)) & nz);
   } else {
     // int3: 128 + code exactly (bf16 128.0 is 0x4300, its ulp 1), less 128
-    const uint32_t t = ((static_cast<uint32_t>(lo) >> (3 * f)) & 7u) |
-                       (((static_cast<uint32_t>(hi) >> (3 * f)) & 7u) << 16) | 0x43004300u;
+    const uint32_t t =
+        F == kI3W16 ? ((w.lo[r] >> (3 * f)) & 0x00070007u) | 0x43004300u
+                    : ((w.lo[r] >> (3 * f)) & 7u) | (((w.hi[r] >> (3 * f)) & 7u) << 16) | 0x43004300u;
     return wg::bits(__hsub2(wg::from_bits<__nv_bfloat162>(t), __float2bfloat162_rn(128.f)));
   }
 }
@@ -97,11 +114,21 @@ template <int F>
 struct PlanePolicy {
   using T = __nv_bfloat16;
   using Word = typename Fmt<F>::Word;
+  using Chunk = PlaneChunk;
   static constexpr int kEpw = Fmt<F>::kEpw, kWpg = Fmt<F>::kWpg, kChunks = Fmt<F>::kChunks;
   static constexpr int kPlanes = kEpw + (kOffset<F> ? 1 : 0);  // x_t planes
-  static constexpr int kSteps = kChunks * kPlanes;
+  static constexpr int kHalves = F == kF4W32 ? 2 : 1;  // fetches a chunk
+  static constexpr int kSteps = kChunks * kPlanes, kChunkSteps = kPlanes / kHalves;
   static constexpr int kTiles = kSteps, kARegs = 4, kParts = 0;
-  static constexpr int kMaxMT = 128;  // int3/u32's 11 planes of [256][16] leave < 3 stages
+  // the ring holds three stages of [256][32 bytes] x tiles for 6 (int3/u16),
+  // 8 (fp4) and 4 (int8) tiles a stage in 225 KB, not for int3/u32's 11;
+  // the formats with the m tile of 256 stream A per k16 step (its
+  // accumulator leaves no room for a stage's fragments), int3/u32 builds a
+  // stage's 11 steps at once in the mainloop's usual ring (faster at its
+  // widest tile, 128)
+  static constexpr int kMaxMT = F == kI3W32 ? 128 : 256;
+  static constexpr bool kStream = kMaxMT == 256;
+  static constexpr int kRingBytes = kMaxMT == 256 ? 225 * 1024 : wg::kRingBudget;
   static constexpr int kRows = 16 * kChunks;                    // word rows a stage
   static constexpr int kSRows = kRows / kWpg > 0 ? kRows / kWpg : 1;
   static constexpr int kWBytes = kRows * wg::kBN * sizeof(Word);
@@ -120,35 +147,60 @@ struct PlanePolicy {
     wg::tma_load_2d(s, &mp.s, bar, n0, kRows * t / kWpg);
   }
 
+  // fetch j's words and scales of channels ch and ch + 8, k group c (chunk
+  // j / kHalves; fp4's half j % 2); each pair lies in one group, so one
+  // scale multiplies it
+  static __device__ __forceinline__ Chunk fetch(const uint8_t* wt, const uint8_t* st, int ch,
+                                                int c, int j, const wg::Params&) {
+    const Word* W = reinterpret_cast<const Word*>(wt);
+    const __nv_bfloat16* S = reinterpret_cast<const __nv_bfloat16*>(st);
+    Chunk x;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 16 * (j / kHalves) + 2 * c + 8 * (r / 2), col = ch + 8 * (r % 2);
+      const Word lo = W[row * wg::kBN + col], hi = W[(row + 1) * wg::kBN + col];
+      if constexpr (F == kI3W16) {
+        x.lo[r] = static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+        x.hi[r] = 0u;
+      } else if constexpr (F == kF4W32) {
+        const uint32_t l = lo, h = hi;
+        x.lo[r] = j % 2 == 0 ? (l & 0xFFFFu) | (h << 16) : (l >> 16) | (h & 0xFFFF0000u);
+        x.hi[r] = 0u;
+      } else {
+        x.lo[r] = static_cast<uint32_t>(lo);
+        x.hi[r] = static_cast<uint32_t>(hi);
+      }
+      x.sc[r] = __bfloat162bfloat162(S[(row / kWpg) * wg::kBN + col]);
+    }
+    return x;
+  }
+
+
+  // the stage at once (kStream false): every step's A, fetch by fetch
   static __device__ __forceinline__ void dequant(uint32_t (&a)[kSteps][4], const uint8_t* wt,
                                                  const uint8_t* st, int ch, int c,
                                                  const wg::Params& p) {
-    const Word* W = reinterpret_cast<const Word*>(wt);
-    const __nv_bfloat16* S = reinterpret_cast<const __nv_bfloat16*>(st);
-    const __nv_bfloat162 neg_max = __float2bfloat162_rn(static_cast<float>(-p.max_int));
 #pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      // a[.][0]: (ch, words 2c, 2c+1), [1]: (ch+8, the same), [2]: (ch,
-      // words 2c+8, 2c+9), [3]: (ch+8, the same)
-      Word lo[4], hi[4];
-      __nv_bfloat162 sc[4];
+    for (int j = 0; j < kSteps / kChunkSteps; ++j) {
+      const Chunk w = fetch(wt, st, ch, c, j, p);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = 16 * j + 2 * c + 8 * (r / 2), col = ch + 8 * (r % 2);
-        lo[r] = W[row * wg::kBN + col];
-        hi[r] = W[(row + 1) * wg::kBN + col];
-        sc[r] = __bfloat162bfloat162(S[(row / kWpg) * wg::kBN + col]);
-      }
+      for (int f = 0; f < kChunkSteps; ++f) dequant_step(f, a[j * kChunkSteps + f], w, p);
+    }
+  }
+
+  // A of step f of a chunk: bf16(value * s) of field f (one __hmul2_rn),
+  // or for int3's offset step (f == epw) off = bf16(-max_int * s)
+  static __device__ __forceinline__ void dequant_step(int f, uint32_t (&a)[4], const Chunk& w,
+                                                      const wg::Params& p) {
+    if (kOffset<F> && f == kEpw) {
+      const __nv_bfloat162 neg_max = __float2bfloat162_rn(static_cast<float>(-p.max_int));
 #pragma unroll
-      for (int f = 0; f < kEpw; ++f)
+      for (int r = 0; r < 4; ++r) a[r] = wg::bits(__hmul2_rn(w.sc[r], neg_max));
+    } else {
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          a[j * kPlanes + f][r] = wg::bits(
-              __hmul2_rn(wg::from_bits<__nv_bfloat162>(value_pair<F>(lo[r], hi[r], f)), sc[r]));
-      if constexpr (kOffset<F>) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[j * kPlanes + kEpw][r] = wg::bits(__hmul2_rn(sc[r], neg_max));
-      }
+      for (int r = 0; r < 4; ++r)
+        a[r] = wg::bits(
+            __hmul2_rn(wg::from_bits<__nv_bfloat162>(value_pair<F>(w, r, f)), w.sc[r]));
     }
   }
 };
@@ -215,7 +267,8 @@ cudaError_t launch(const void* x, void* xt, const void* w, const void* s, float*
 // aligned; xt bf16 scratch [planes, M, KWp] (planes = epw, + 1 for int3;
 // KWp = the word rows rounded up to 8; null for int8); w words [G * words
 // per group, N] (int8: [K, N]), a layer's block; s [G, N] bf16; out [M, N]
-// in bf16 (out_f32 = 0) or f32. The m tile mt in {16, 64, 128}, `splits`
+// in bf16 (out_f32 = 0) or f32. The m tile mt in {16, 64, 128, 256} (not
+// 256 for int3/u32), `splits`
 // split-K parts of `per` stages (16 word rows a stage; int8: 64 rows),
 // partial f32 [splits, M, N] when splits > 1, else null. Needs N % 128 ==
 // 0 and 16-byte aligned bases. Returns cudaGetLastError() after the

@@ -38,6 +38,17 @@
 // run the whole K) and the group-partial GEMV (each group's partial is
 // scaled and offset in f32, as the TPU body does).
 //
+// A policy may instead stream its A fragments one k16 step at a time
+// (P::kStream: gemm_plane at int3/u16, fp4 and int8, whose m tile reaches
+// 256): step k is dequantized into one of two register buffers, fenced,
+// issued and committed, and `wgmma.wait_group 1` retires step k - 1's MMA
+// before its buffer is rewritten for step k + 1. So 8 A
+// registers are live instead of 4 * kSteps (an m64n256 accumulator fits the
+// 168 registers ptxas grants 384-thread blocks), and a warpgroup's dequant
+// of step k + 1 overlaps its own MMA of step k. The MMAs still add into
+// the accumulator in k order: the sums are those of the stage-at-once loop,
+// bit for bit. Policies without the flag compile as before.
+//
 // Register A fragment of a k16 step (PTX ISA, wgmma .bf16/.f16 A in
 // registers): warp w of a warpgroup holds rows 16w..16w+15; lane l with
 // g = l / 4, c = l % 4 holds a[0] = (row g, k 2c..2c+1), a[1] = (row g+8,
@@ -166,6 +177,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 // keep the compiler from moving accumulator reads or writes across a
 // wgmma fence or wait
@@ -384,6 +400,25 @@ struct Wgmma<64, float> {
   }
 };
 
+// A policy's optional flags: P::kStream (stream A per k16 step) and
+// P::kRingBytes (the ring's shared-memory budget, kRingBudget when unset)
+template <class P, class = void>
+struct Streams {
+  static constexpr bool value = false;
+};
+template <class P>
+struct Streams<P, std::void_t<decltype(P::kStream)>> {
+  static constexpr bool value = P::kStream;
+};
+template <class P, class = void>
+struct RingBytes {
+  static constexpr int value = kRingBudget;
+};
+template <class P>
+struct RingBytes<P, std::void_t<decltype(P::kRingBytes)>> {
+  static constexpr int value = P::kRingBytes;
+};
+
 // Shared-memory plan of a ring: per stage, the x tiles (P::kTiles of
 // [MT][32 bytes]: 16 bf16/f16 or 8 f32 k), the word tile and the scale
 // tile, each 1024-aligned; the epilogue's [MT][kLdc] f32 tile reuses the
@@ -392,7 +427,7 @@ template <class P, int MT>
 struct Ring {
   static constexpr int kX = P::kTiles * MT * kTileRow;
   static constexpr int kStage = align1k(kX) + align1k(P::kWBytes) + align1k(P::kSBytes);
-  static constexpr int kStagesFit = kRingBudget / kStage;
+  static constexpr int kStagesFit = RingBytes<P>::value / kStage;
   static constexpr int kStages = kStagesFit < kMaxStages ? kStagesFit : kMaxStages;
   static constexpr int kTx = kX + P::kWBytes + P::kSBytes;  // bytes a stage's loads deliver
   static constexpr int kEpi = MT * kLdc * 4;
@@ -416,6 +451,11 @@ struct Ring {
 //                             (exactly Ring::kTx bytes onto bar)
 //   dequant(a, w, s, ch, c, p)  the stage's A fragments of channels ch and
 //                             ch + 8 (within the tile), k group c
+//   (with kStream = true the mainloop calls these instead of dequant:)
+//   kChunkSteps, Chunk        the steps that share one fetch of the
+//                             thread's words and scales, held in a Chunk
+//   fetch(w, s, ch, c, j, p)  chunk j's Chunk (steps j * kChunkSteps ..)
+//   dequant_step(f, a, chunk, p)  step f of the chunk into a[4]
 //   issue<MT>(parts, a, x)      (kParts > 0) the stage's MMAs
 //   fold<MT>(acc, parts, x, w, s, ch, c, i, p)  (kParts > 0) add the parts
 //                             to acc; i counts the block's stages; all 256
@@ -479,27 +519,44 @@ gemm_kernel(const __grid_constant__ Maps maps, const Params p) {
       const uint8_t* st = smem + s * R::kStage;
       const uint8_t* wt = st + align1k(R::kX);
       const uint8_t* sc = wt + align1k(P::kWBytes);
-      uint32_t a[P::kSteps][P::kARegs];
-      P::dequant(a, wt, sc, ch, c, p);
-      if constexpr (P::kParts == 0) {
+      if constexpr (Streams<P>::value) {
+        uint32_t a[2][P::kARegs];  // step k in buffer k % 2
+        typename P::Chunk w;
         fence_acc(acc);
-        wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < P::kSteps; ++k)
-          Wgmma<MT, T>::mma(acc, a[k], desc_sw32(st + k * MT * kTileRow));
-        wgmma_commit();
+        for (int k = 0; k < P::kSteps; ++k) {
+          if (k % P::kChunkSteps == 0) w = P::fetch(wt, sc, ch, c, k / P::kChunkSteps, p);
+          P::dequant_step(k % P::kChunkSteps, a[k % 2], w, p);
+          wgmma_fence();
+          Wgmma<MT, T>::mma(acc, a[k % 2], desc_sw32(st + k * MT * kTileRow));
+          wgmma_commit();
+          if (k + 1 < P::kSteps) wgmma_wait<1>();  // step k - 1 retired: its buffer is free
+        }
         wgmma_wait_all();
         fence_acc(acc);
       } else {
+        uint32_t a[P::kSteps][P::kARegs];
+        P::dequant(a, wt, sc, ch, c, p);
+        if constexpr (P::kParts == 0) {
+          fence_acc(acc);
+          wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < kP; ++j) fence_acc(part[j]);
-        wgmma_fence();
-        P::template issue<MT>(part, a, st);
-        wgmma_commit();
-        wgmma_wait_all();
+          for (int k = 0; k < P::kSteps; ++k)
+            Wgmma<MT, T>::mma(acc, a[k], desc_sw32(st + k * MT * kTileRow));
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_acc(acc);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kP; ++j) fence_acc(part[j]);
-        P::template fold<MT>(acc, part, st, wt, sc, ch, c, i, p);
+          for (int j = 0; j < kP; ++j) fence_acc(part[j]);
+          wgmma_fence();
+          P::template issue<MT>(part, a, st);
+          wgmma_commit();
+          wgmma_wait_all();
+#pragma unroll
+          for (int j = 0; j < kP; ++j) fence_acc(part[j]);
+          P::template fold<MT>(acc, part, st, wt, sc, ch, c, i, p);
+        }
       }
       mbar_arrive(&empty[s]);
     }

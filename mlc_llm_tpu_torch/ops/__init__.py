@@ -75,12 +75,14 @@ def _stale(name: str) -> bool:
     return not os.path.exists(out) or os.path.getmtime(out) < max(map(os.path.getmtime, srcs))
 
 
-def build_kernels(names: Iterable[str], extra_flags=()) -> Dict[str, str]:
-    """Compile the named sources that are missing or stale, one nvcc
-    process per source, all started together. Returns nvcc's output of
-    each source it built (warnings; ptxas's report under -Xptxas -v).
-    Raises on any failure."""
-    todo = [n for n in names if _stale(n)]
+def build_kernels(names: Iterable[str], extra_flags=(),
+                  force: Iterable[str] = ()) -> Dict[str, str]:
+    """Compile the named sources that are missing or stale, and those in
+    `force` in any case, one nvcc process per source, all started
+    together. Returns nvcc's output of each source it built (warnings;
+    ptxas's report under -Xptxas -v). Raises on any failure."""
+    force = set(force)
+    todo = [n for n in names if n in force or _stale(n)]
     logs: Dict[str, str] = {}
     if not todo:
         return logs

@@ -108,7 +108,6 @@ H100_SMS = 132
 HBM_BYTES_PER_US = 3.35e6  # H100 SXM HBM3, 3.35 TB/s
 MAX_SPLITS = 16
 QS_WIDTHS = (16, 64, 128, 256)  # gemm_qs's compiled m tiles
-PLANE_WIDTHS = (16, 64, 128)    # gemm_plane's (int3/u32's 11 x planes fill the ring at 128)
 QS_STAGE_K = 64                 # k of a gemm_qs stage: 8 word rows, 16 k of each quarter
 # gemm_qs: f32 compute -> (compiled m tiles, gemm_tiles' time model: µs a
 # stage at m tile MT, µs a block's fixed cost, MT). bf16/f16: four k16
@@ -122,6 +121,26 @@ QS_STAGE_K = 64                 # k of a gemm_qs stage: 8 word rows, 16 k of eac
 QS_PLAN = {False: (QS_WIDTHS, (0.65, 6.7, 128)), True: ((16, 64), (2.2, 5.0, 64))}
 # word rows of a gemm_plane stage, by format id: one 16-word chunk; int8 four
 PLANE_STAGE_ROWS = {0: 16, 1: 16, 2: 16, 3: 64}
+# gemm_plane's compiled m tiles, by format id: up to 256 where the ring
+# holds three stages of the x tiles at that width (int3/u16: 6 tiles a
+# stage, fp4 8, int8 4; A streamed per k16 step leaves the registers for
+# the m64n256 accumulator), 128 for int3/u32 (11 tiles a stage)
+PLANE_WIDTHS = {0: (16, 64, 128), 1: QS_WIDTHS, 2: QS_WIDTHS, 3: QS_WIDTHS}
+# gemm_plane's time model, by format id and m tile: (µs a stage, µs a
+# block's fixed cost) for gemm_tiles at that tile. Fitted to
+# scripts/torch_plan_sweep.py on an H100 (700 W): the tiles a main-path m
+# picks (16 at m = 8, 128 at m = 128, the widest at m = 2048; q3bf16_s16
+# at the Vicuna-7B shapes, the other formats at w_in) choose the sweep's
+# fastest plan at every swept shape; MT = 64, which no main path picks, is
+# fitted to all its swept plans. int3/u32 builds a stage's A at once at MT =
+# 128 (no streaming): its block cost keeps m = 128 unsplit, which ran 2.4%
+# faster than two parts (scripts/torch_gemm_ab.py)
+PLANE_TIMES = {
+    0: {16: (1.28, 1.0), 64: (1.33, 2.0), 128: (1.52, 10.0)},
+    1: {16: (0.70, 1.5), 64: (0.71, 2.0), 128: (0.72, 4.5), 256: (1.46, 0.0)},
+    2: {16: (1.26, 1.0), 64: (1.20, 2.0), 128: (1.54, 2.5), 256: (1.98, 2.0)},
+    3: {16: (0.86, 1.5), 64: (0.88, 2.0), 128: (1.04, 2.0), 256: (1.24, 1.0)},
+}
 # gemm_pairs: (layout, f32 compute) -> (k of a stage, compiled m tiles,
 # gemm_tiles' time model: µs a stage at m tile MT, µs a block's fixed
 # cost, MT).
@@ -149,6 +168,18 @@ GEMV_MAX_SPLITS = 4
 # plan it picks is the sweep's fastest at every swept shape (a cap of 4
 # parts, gemv_qs's, ran the N = 2560 shapes up to 27% slower)
 GP_GEMV_TIMES = (0.3, 0.0, 16)
+
+
+def plane_tiles(fmt: int, m: int, n: int, rows: int):
+    """gemm_plane's launch plan for an [m, n] output over `rows` stored
+    word rows of format `fmt` (int8: k rows): the narrowest of the format's
+    m tiles that holds m (its widest above), and the split-K plan that
+    `gemm_tiles` prices on the format's time model at that tile."""
+    widths = PLANE_WIDTHS[fmt]
+    mt = next((w for w in widths if w >= m), widths[-1])
+    stage_us, block_us = PLANE_TIMES[fmt][mt]
+    return gemm_tiles(m, n, -(-rows // PLANE_STAGE_ROWS[fmt]), widths,
+                      times=(stage_us, block_us, mt))
 
 
 def gemm_tiles(m: int, n: int, steps: int, widths, sms: int = H100_SMS,
@@ -680,7 +711,7 @@ def gemm_plane(x, data, scale, zero, spec: QuantSpec, layer=None, out_dtype=torc
         raise ValueError(f"gemm_plane: m={m} outside 1..{GEMM_MAX_M}")
     wp, sp, _ = _ptrs(data, scale, None, layer)
     _check_tma("gemm_plane", x.data_ptr(), wp, sp)
-    mt, splits, per = gemm_tiles(m, N, -(-rows // PLANE_STAGE_ROWS[fmt]), PLANE_WIDTHS)
+    mt, splits, per = plane_tiles(fmt, m, N, rows)
     lib = load_kernel("dequant_gemm_plane", _PLANE_ARGS)
     # x in the plane-transposed order (+ int3's word-sum plane), rows of
     # the word count rounded up to 8 (16 bytes): the prologue's output

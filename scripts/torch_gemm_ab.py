@@ -5,14 +5,16 @@ beside the library call, to compare two trees in one run on one card.
 
 Imports `mlc_llm_tpu_torch` from DIR (default: this checkout), builds its
 kernels, and times, at the Vicuna-7B shapes: `gemm_qs` on q4bf16 at m =
-128 and 2048, `gemm_plane` on q3bf16_s16 at m = 8, 128 and 2048, `gemv_qs`
+128 and 2048, `gemm_plane` on q3bf16_s16 at m = 8, 128 and 2048 (and on
+q3bf16, fp4bf16 and q8bf16 at w_in), `gemv_qs`
 on q4bf16 at m = 3 and 8, and `gemm_pairs` in bf16 (q4bf16_pair,
 q4bf16_hs) at w_in, m = 128; at the GPT-NeoX 3B shapes: `gemm_pairs` on
 q4f32 (pair, f32) and q4f16_hs (hsplit, f16; the lm head in f32) at m =
 128 and, on w_in, 2048, `gemv_gp` on the same two presets at m = 3 and 8,
 and `gemm_qs` in f16 and f32 (qsplit) at m = 128; and
 `paged_flash_decode` at the serve pool's layout (hb 8, page 128, a
-16-page window) at b8 over mixed lengths and at b1 x 2047: Vicuna-7B (D
+16-page window) at b8 over mixed lengths, at b8 x 1024 and at b1 x 255,
+256, 1023 and 2047: Vicuna-7B (D
 128, bf16 q, bf16 and int8 pages), the NeoX 3B (D 80, f32 and f16 q) and
 MOSS (D 256), against SDPA on the gathered K/V (a shape a tree's kernel
 does not take prints as unsupported). Layer weights are stacked [2, ...]
@@ -44,6 +46,9 @@ SHAPES_3B = [("wqkv", 2560, 7680), ("wo", 2560, 2560), ("w_in", 2560, 10240),
 # (preset, kernel, shapes, {shape name or "*": ms}, lm head in f32 compute)
 CASES = [("q4bf16", "gemm_qs", SHAPES, {"*": (128, 2048)}, False),
          ("q3bf16_s16", "gemm_plane", SHAPES, {"*": (8, 128, 2048)}, False),
+         ("q3bf16", "gemm_plane", SHAPES, {"w_in": (8, 128, 2048)}, False),
+         ("fp4bf16", "gemm_plane", SHAPES, {"w_in": (8, 128, 2048)}, False),
+         ("q8bf16", "gemm_plane", SHAPES, {"w_in": (8, 128, 2048)}, False),
          ("q4bf16", "gemv_qs", SHAPES, {"*": (3, 8)}, False),
          ("q4bf16_pair", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
          ("q4bf16_hs", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
@@ -83,7 +88,7 @@ def paged_rows(torch, label, gen, flush):
     W = window * ps
     for name, hkv, hq, D, qname, pages in PAGED:
         qdt = getattr(torch, qname)
-        for lengths in (PAGED_LENGTHS, [2047]):
+        for lengths in (PAGED_LENGTHS, [1024] * 8, [255], [256], [1023], [2047]):
             B = len(lengths)
             G, P = hkv // hb, B * window + 1
             table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))
@@ -184,8 +189,8 @@ def main():
             zero = None if one.zero is None else (
                 one.zero if flat else torch.stack([q.zero for q in qts]))
             layer = None if flat else 1
-            K = one.data.shape[0] * spec.elems_per_word
-            N = one.data.shape[1]
+            rows, N = one.data.shape
+            K = rows if spec.storage == "i8" else rows * spec.elems_per_word
             cd = torch_dtype(spec.dtype)
             dense = dequantize(QuantizedTensor(one.data, one.scale, one.zero, spec=spec,
                                                shape=(K, N)), cd)

@@ -1,4 +1,5 @@
-"""Time the wgmma kernels of this tree under every launch plan, on the GPU.
+"""Time the wgmma kernels and kernel 7 of this tree under every launch
+plan, on the GPU.
 
     python scripts/torch_plan_sweep.py [--only KERNEL[:PRESET],...] [--reps N]
 
@@ -6,14 +7,22 @@ For each case (kernel, preset, shape, m: the 3B and Vicuna-7B shapes the
 NeoX and Vicuna prefills and the b8 decode steps run; `gemm_qs` in bf16 at
 the Vicuna-7B shapes at m = 128 and 2048, in f16 and f32 at the 3B shapes
 at m = 128; `gemv_gp` at m = 8 at the 3B shapes, hsplit f16 and pair f32
-with their f32 lm heads), forces each distinct plan (m
-tile, split-K parts, stages per part) in place of `gemm_tiles`' choice,
-holds the result against the plain version (1e-2; f32 atol 1e-4, rtol
-1e-3) and times it as chip_smoke.py does (CUDA events, the L2 flushed
-before each launch). Prints one JSON line per (case, plan) with the plan
-`gemm_tiles` picks marked, then the card's name and power limit. --only
-keeps the named kernels (or kernel:preset pairs); --reps sets the timed
-launches of each plan (default 20).
+with their f32 lm heads; `gemm_plane` on q3bf16_s16 at the Vicuna-7B
+shapes at m = 8, 128 and 2048 and on q3bf16, fp4bf16 and q8bf16 at w_in),
+forces each distinct plan (m tile, split-K parts, stages per part) in
+place of `gemm_tiles`' choice, holds the result against the plain version
+(1e-2; f32 atol 1e-4, rtol 1e-3) and times it as chip_smoke.py does (CUDA
+events, the L2 flushed before each launch). Prints one JSON line per
+(case, plan) with the plan the wrapper picks marked. Then kernel 7
+(`paged_flash_decode`) at chip_smoke.py's cases (the serve pool's layout:
+page 128, a 16-page window; Vicuna-7B D 128, the NeoX 3B D 80 with f32 and
+f16 q, MOSS D 256; bf16 and int8 pages) at b8 over mixed lengths, at b8 x
+1024 and b8 x 2047, and at b1 x 255, 256, 1023 and 2047, under every
+pages-per-split plan of PAGED_PPS,
+each held against the plain version under the same split (1e-2), one JSON
+line each with `split_pages`' pick marked. Last, the card's name and power
+limit. --only keeps the named kernels (or kernel:preset pairs); --reps
+sets the timed launches of each plan (default 20).
 """
 
 from __future__ import annotations
@@ -49,6 +58,21 @@ CASES += [("gemm_qs", "q4f16", k, n, 128) for k, n in NEOX_3B[:4] if n != 10240]
 CASES += [("gemm_qs", "q4f32", k, n, 128) for k, n in NEOX_3B]
 CASES += [("gemv_gp", preset + (":f32" if n == 50432 and preset == "q4f16_hs" else ""), k, n, 8)
           for preset in ("q4f16_hs", "q4f32") for k, n in NEOX_3B]
+# gemm_plane: the q3 Vicuna-7B prefill (m = 128, 2048; not the lm head, which
+# a prefill runs at m = 1) and b8 decode (m = 8, the lm head too), and the
+# other plane formats at w_in
+CASES += [("gemm_plane", "q3bf16_s16", k, n, m) for m in (8, 128, 2048) for k, n in VICUNA
+          if m == 8 or n != 32000]
+CASES += [("gemm_plane", preset, 4096, 22016, m) for preset in ("q3bf16", "fp4bf16", "q8bf16")
+          for m in (8, 128, 2048)]
+# kernel 7: (label, kv-heads, query heads, head dim, q dtype, page dtypes)
+PAGED = [("vicuna", 32, 32, 128, "bfloat16", ("bfloat16", "int8")),
+         ("neox-3b", 32, 32, 80, "float32", ("bfloat16", "int8")),
+         ("neox-3b", 32, 32, 80, "float16", ("bfloat16", "int8")),
+         ("moss", 24, 24, 256, "bfloat16", ("bfloat16",))]
+PAGED_LENGTHS = [[1, 127, 128, 511, 1023, 1024, 1536, 2047], [1024] * 8, [2047] * 8,
+                 [255], [256], [1023], [2047]]
+PAGED_PPS = (1, 2, 3, 4, 6, 8, 16)
 
 
 def time_ms(fn, flush, reps):
@@ -78,6 +102,58 @@ def geometry(kernel, spec, cd):
         return dm.QS_STAGE_K, widths, dict(times=times)
     stage_k, widths, times = dm.PAIRS_PLAN[(spec.layout, cd == torch.float32)]
     return stage_k, widths, dict(times=times)
+
+
+def plane_fmt(spec):
+    return dm.PLANE_FORMATS[(spec.mode, spec.storage, spec.group_size)]
+
+
+def time_paged(pa, gen, flush, reps):
+    """Kernel 7 under each forced pages-per-split plan."""
+    hb, ps, window = 8, 128, 16
+    picked_split = pa.split_pages
+    for name, hkv, hq, D, qname, pages in PAGED:
+        qdt = getattr(torch, qname)
+        for lengths in PAGED_LENGTHS:
+            B = len(lengths)
+            G, P = hkv // hb, B * window + 1
+            table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))
+                     .reshape(B, window) + 1).int().cuda()
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            q = torch.randn((B, hq, 1, D), generator=gen, device="cuda").to(qdt)
+            for pname in pages:
+                shape = (G, 2, P, ps, hb * D)
+                ks = vs = None
+                if pname == "int8":
+                    kp, vp = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                            dtype=torch.int8) for _ in range(2))
+                    ks = torch.rand((G, 2, P, hb, ps), generator=gen, device="cuda") * 0.02 + 1e-3
+                    vs = torch.rand((G, 2, P, ps, hb), generator=gen, device="cuda") * 0.02 + 1e-3
+                else:
+                    kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(
+                        getattr(torch, pname)) for _ in range(2))
+                pick = pa.launch_plan(q, kp, table, window)[0]
+                for pps in PAGED_PPS:
+                    pa.split_pages = lambda *a, _p=pps: _p
+                    try:
+                        def run():
+                            return pa.paged_flash_decode(q, kp, vp, ks, vs, table, lens, 1,
+                                                         num_pages_window=window, head_dim=D)
+
+                        want = pa.paged_flash_decode_plain(
+                            q, kp, vp, ks, vs, table, lens, 1, num_pages_window=window,
+                            head_dim=D, pages_per_split=pps)
+                        ok = torch.allclose(run().float(), want.float(), atol=1e-2, rtol=1e-2)
+                        t = time_ms(run, flush, reps)
+                    finally:
+                        pa.split_pages = picked_split
+                    print(json.dumps(dict(kernel="paged_flash_decode", case=name, d=D, q=qname,
+                                          pages=pname, b=B,
+                                          lengths=lengths if len(set(lengths)) == 1 else "mixed",
+                                          pps=pps, splits=-(-window // pps), ms=t, ok=ok,
+                                          picked=pps == pick)), flush=True)
+                del kp, vp, ks, vs
+            torch.cuda.empty_cache()
 
 
 def plans(m, steps, widths):
@@ -121,18 +197,26 @@ def main():
         data = torch.stack([q.data for q in qts])
         scale = torch.stack([q.scale for q in qts])
         zero = None if one.zero is None else torch.stack([q.zero for q in qts])
-        K, N = one.data.shape[0] * 8, one.data.shape[1]
+        rows, N = one.data.shape
+        K = rows if spec.storage == "i8" else rows * spec.elems_per_word
         cd = torch_dtype(spec.dtype)
         x = torch.zeros((m, K), dtype=cd, device="cuda")
         x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(cd)
         fn, plain = getattr(dm, kernel), getattr(dm, kernel + "_plain")
-        extra = (spec.layout,) if kernel in ("gemm_pairs", "gemv_gp") else ()
+        extra = ((spec,) if kernel == "gemm_plane"
+                 else (spec.layout,) if kernel in ("gemm_pairs", "gemv_gp") else ())
         want = plain(x, one.data, one.scale, one.zero, *extra, cd)
         tol = (dict(atol=1e-4, rtol=1e-3) if cd == torch.float32
                else dict(atol=1e-2, rtol=1e-2))
-        stage_k, widths, kwargs = geometry(kernel, spec, cd)
-        steps = K // stage_k
-        pick = chosen_tiles(m, N, steps, widths, **kwargs)
+        if kernel == "gemm_plane":
+            fmt = plane_fmt(spec)
+            widths = dm.PLANE_WIDTHS[fmt]
+            steps = -(-rows // dm.PLANE_STAGE_ROWS[fmt])
+            pick = dm.plane_tiles(fmt, m, N, rows)
+        else:
+            stage_k, widths, kwargs = geometry(kernel, spec, cd)
+            steps = K // stage_k
+            pick = chosen_tiles(m, N, steps, widths, **kwargs)
         for plan in plans(m, steps, widths):
             dm.gemm_tiles = lambda *a, _p=plan, **kw: _p
             try:
@@ -148,6 +232,10 @@ def main():
                                   picked=plan == pick)), flush=True)
         del data, scale, zero, qts
         torch.cuda.empty_cache()
+    if not only or "paged_flash_decode" in only:
+        from mlc_llm_tpu_torch.ops import paged_attention as pa
+
+        time_paged(pa, gen, flush, args.reps)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 

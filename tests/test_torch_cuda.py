@@ -314,8 +314,7 @@ def test_cuda_wgmma_gemm_plane_split_k(m, n):
     one, (data, scale, zero), layer = _weights("q3bf16_s16", 4096, n, True)
     x = _x_for(one, m)
     rows, N = data.shape[-2:]
-    steps = -(-rows // dm.PLANE_STAGE_ROWS[1])
-    assert (dm.gemm_tiles(m, N, steps, dm.PLANE_WIDTHS)[1] > 1) == (m == 8)
+    assert (dm.plane_tiles(1, m, N, rows)[1] > 1) == (m == 8)
     got = dm.gemm_plane(x, data, scale, zero, one.spec, layer=layer)
     want = dm.gemm_plane_plain(x, one.data, one.scale, one.zero, one.spec, torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), **TOL)
@@ -485,9 +484,9 @@ def test_cuda_attend_matches_cpu(dtype, hq, hkv):
 
 # kernel 7 at every head dim of the registry (80: NeoX 3B, 128, 256: MOSS),
 # every query type and every page type
-def _paged_inputs(D, hkv, rep, hb, qdt, pdt, lengths, ps=64, maxp=8, seed=0):
+def _paged_inputs(D, hkv, rep, hb, qdt, pdt, lengths, ps=64, maxp=8, seed=0, pool=64):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, L, P = len(lengths), 2, 64
+    B, L, P = len(lengths), 2, pool
     G = hkv // hb
     shape = (G, L, P, ps, hb * D)
     ks = vs = None
@@ -603,3 +602,83 @@ def test_cuda_wgmma_gemm_qs_f32_matches_plain(sym, stacked, m):
     assert dm.gemm_qs.launches == before + 1
     want = dm.gemm_qs_plain(x, one.data, one.scale, one.zero, torch.float32)
     torch.testing.assert_close(got, want, **F32_TOL)
+
+
+# gemm_plane at the m tile of 256 (A streamed per k16 step; int3/u32 runs
+# its widest, 128): ragged m around and past the tile, every format,
+# stacked and flat, split K off and on (the plan forced)
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 3], ids=["unsplit", "split3"])
+@pytest.mark.parametrize("m", [255, 256, 257, 2047, 2048])
+@pytest.mark.parametrize("preset", ["q3bf16_s16", "q3bf16", "fp4bf16", "q8bf16"])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "flat"])
+def test_cuda_gemm_plane_wide_tile_matches_plain(stacked, preset, m, parts, monkeypatch):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer = _weights(preset, 4096, 1024, stacked)
+    x = _x_for(one, m)
+    spec = one.spec
+    fmt = dm.PLANE_FORMATS[(spec.mode, spec.storage, spec.group_size)]
+    steps = -(-data.shape[-2] // dm.PLANE_STAGE_ROWS[fmt])
+    mt, per = dm.PLANE_WIDTHS[fmt][-1], -(-steps // parts)
+    monkeypatch.setattr(dm, "plane_tiles", lambda *a: (mt, -(-steps // per), per))
+    out_dtype = torch.bfloat16 if stacked else torch.float32
+    got = dm.gemm_plane(x, data, scale, zero, spec, layer=layer, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    want = dm.gemm_plane_plain(x, one.data, one.scale, one.zero, spec, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+# kernel 7 under split-KV at the serve pool's layout (page 128, a 16-page
+# window): one long slot (b1) and 8 slots of mixed lengths, on and around
+# the split boundaries, every head dim, q type and page type, under the
+# wrapper's plan and a forced one of 3 pages; held against the plain
+# version under the same plan, and run twice: bit-identical outputs.
+# Kernel and plain version round at the same points: an atol of 2e-3
+# fails a combine that drops or doubles one partial of a long slot
+# (which moves the output by 3e-2 or more), rtol covers one bf16 ulp of
+# the larger outputs.
+PAGED_SPLIT_TOL = dict(atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [None, 3], ids=["plan", "pps3"])
+@pytest.mark.parametrize("batch", ["b1", "b8"])
+@pytest.mark.parametrize("pdt", PAGE_DTYPES, ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("qdt", Q_DTYPES, ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("D,hkv,rep,hb", [(80, 32, 1, 8), (128, 32, 1, 8), (128, 8, 4, 8),
+                                          (256, 24, 1, 8)])
+def test_cuda_paged_flash_decode_split(D, hkv, rep, hb, qdt, pdt, batch, forced, monkeypatch):
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import paged_attention as pa
+
+    ps, window = 128, 16
+    if forced is not None:
+        monkeypatch.setattr(pa, "split_pages", lambda *a: forced)
+    B = 1 if batch == "b1" else 8
+    probe, kp0, _, _, _, table0, _ = _paged_inputs(D, hkv, rep, hb, qdt, pdt, [0] * B, ps=ps,
+                                                   maxp=window, pool=B * window + 1)
+    pps, nsplit = pa.launch_plan(probe, kp0, table0, window)
+    edge = pps * ps  # the first position of split 1
+    if B == 1:
+        runs = [[n] for n in (0, edge - 1, edge, edge + 1, window * ps - 1)]
+    else:
+        runs = [[0, 1, edge - 1, edge, edge + 1, 2 * edge, 1500, window * ps - 1]]
+    for lengths in runs:
+        q, kp, vp, ks, vs, table, lens = _paged_inputs(D, hkv, rep, hb, qdt, pdt, lengths,
+                                                       ps=ps, maxp=window, pool=B * window + 1)
+
+        def run():
+            return pa.paged_flash_decode(q, kp, vp, ks, vs, table, lens, 1,
+                                         num_pages_window=window, head_dim=D)
+
+        before = pa.paged_flash_decode.launches
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        assert pa.paged_flash_decode.launches == before + 2 and got.dtype == qdt
+        assert torch.equal(got, again)  # the combine's order is fixed
+        want = pa.paged_flash_decode_plain(q, kp, vp, ks, vs, table, lens, 1,
+                                           num_pages_window=window, head_dim=D,
+                                           pages_per_split=pps)
+        tol = F32_TOL if qdt == pdt == torch.float32 else PAGED_SPLIT_TOL
+        torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -72,13 +72,24 @@ def _steps(kernel, k):
     return -(-(k // 5) // dm.PLANE_STAGE_ROWS[1])  # q3bf16_s16: 5 k a u16 word
 
 
+def _plan(kernel, k, n, m):
+    """(compiled m tiles, the time model gemm_tiles priced, the plan):
+    gemm_qs on QS_PLAN (bf16/f16); gemm_plane (q3bf16_s16) through
+    plane_tiles, on its format's time model at the chosen m tile."""
+    if kernel == "gemm_qs":
+        widths, times = dm.QS_PLAN[False]
+        return widths, times, dm.gemm_tiles(m, n, _steps(kernel, k), widths, times=times)
+    plan = dm.plane_tiles(1, m, n, k // 5)
+    return dm.PLANE_WIDTHS[1], (*dm.PLANE_TIMES[1][plan[0]], plan[0]), plan
+
+
 @pytest.mark.parametrize("m", [8, 9, 128, 2047, 2048])
 @pytest.mark.parametrize("kernel,model,name,k,n", PLAN_CASES)
 def test_gemm_tiles_plan(kernel, model, name, k, n, m):
-    # gemm_qs plans on its time model (QS_PLAN, bf16/f16), gemm_plane on waves
-    widths, times = dm.QS_PLAN[False] if kernel == "gemm_qs" else (dm.PLANE_WIDTHS, None)
+    # both kernels plan on a time model: gemm_qs on QS_PLAN, gemm_plane on
+    # its format's PLANE_TIMES at the m tile it picks
+    widths, times, (mt, parts, per) = _plan(kernel, k, n, m)
     steps = _steps(kernel, k)
-    mt, parts, per = dm.gemm_tiles(m, n, steps, widths, times=times)
     assert mt in widths and (mt >= m or mt == widths[-1])
     # part p covers stages [p * per, (p + 1) * per): each stage in one
     # part, no part empty
@@ -86,22 +97,18 @@ def test_gemm_tiles_plan(kernel, model, name, k, n, m):
     assert covered == list(range(steps))
     assert all(p * per < steps for p in range(parts))
     assert 1 <= parts <= dm.MAX_SPLITS
-    if times is None:
-        # the blocks fill at least one wave of the H100's SMs
-        assert (n // dm.TILE_N) * -(-m // mt) * parts >= SMS
-    else:
-        # no split count is 5% cheaper under the time model (a block's fixed
-        # cost can make one short wave the fastest plan)
-        stage_us, block_us, fit_mt = times
+    # no split count is 5% cheaper under the time model (a block's fixed
+    # cost can make one short wave the fastest plan)
+    stage_us, block_us, fit_mt = times
 
-        def cost(pt, pr):
-            c = -(-(n // dm.TILE_N) * -(-m // mt) * pt // SMS) * (
-                pr * stage_us * mt / fit_mt + block_us)
-            return c + (pt * m * n * 8 / dm.HBM_BYTES_PER_US if pt > 1 else 0.0)
+    def cost(pt, pr):
+        c = -(-(n // dm.TILE_N) * -(-m // mt) * pt // SMS) * (
+            pr * stage_us * mt / fit_mt + block_us)
+        return c + (pt * m * n * 8 / dm.HBM_BYTES_PER_US if pt > 1 else 0.0)
 
-        for s in range(1, min(steps, dm.MAX_SPLITS) + 1):
-            p_per = -(-steps // s)
-            assert cost(-(-steps // p_per), p_per) >= 0.95 * cost(parts, per) - 1e-9
+    for s in range(1, min(steps, dm.MAX_SPLITS) + 1):
+        p_per = -(-steps // s)
+        assert cost(-(-steps // p_per), p_per) >= 0.95 * cost(parts, per) - 1e-9
 
 
 def test_gemm_tiles_splits_only_where_needed():
@@ -110,8 +117,51 @@ def test_gemm_tiles_splits_only_where_needed():
     widths, times = dm.QS_PLAN[False]
     assert dm.gemm_tiles(2048, 4096, 64, widths, times=times) == (256, 1, 64)
     assert dm.gemm_tiles(128, 22528, 64, widths, times=times) == (128, 1, 64)
-    assert dm.gemm_tiles(8, 4096, 64, dm.PLANE_WIDTHS)[1] > 1
-    assert dm.gemm_tiles(8, 22528, 64, dm.PLANE_WIDTHS)[1] > 1
+    assert dm.plane_tiles(1, 8, 4096, 1024)[1] > 1
+    assert dm.plane_tiles(1, 8, 22528, 1024)[1] > 1
+    assert dm.plane_tiles(1, 2048, 22528, 1024) == (256, 1, 64)
+
+
+# gemm_plane's m tiles by format (PLANE_FORMATS ids: int3/u32, int3/u16,
+# fp4, int8): 256 where three ring stages of the format's x tiles fit in a
+# 225 KB ring (kRingBytes; 6, 8 and 4 tiles of [256][32 bytes] a stage,
+# plus the word and scale tiles), 128 for int3/u32's 11, which keeps the
+# mainloop's 200 KB ring
+PLANE_STAGE_TILES = {0: 11, 1: 6, 2: 8, 3: 4}
+
+
+@pytest.mark.parametrize("fmt", sorted(PLANE_STAGE_TILES))
+def test_plane_widths_fit_the_ring(fmt):
+    widths = dm.PLANE_WIDTHS[fmt]
+    assert widths[:3] == (16, 64, 128) and set(dm.PLANE_TIMES[fmt]) == set(widths)
+    word = {0: 4, 1: 2, 2: 4, 3: 1}[fmt]
+    rows = dm.PLANE_STAGE_ROWS[fmt]
+    wpg = {0: 4, 1: 8, 2: 4, 3: 32}[fmt]
+
+    def stage(mt):  # 1024-aligned x tiles, word tile and scale tile
+        al = lambda b: -(-b // 1024) * 1024  # noqa: E731
+        return al(PLANE_STAGE_TILES[fmt] * mt * 32) + al(rows * 128 * word) + al(
+            max(rows // wpg, 1) * 128 * 2)
+
+    ring = 225 * 1024 if 256 in widths else 200 * 1024
+    for mt in widths:
+        assert ring // stage(mt) >= 3
+    # the next width up is compiled where it fits
+    assert (256 in widths) == ((225 * 1024) // stage(256) >= 3)
+
+
+@pytest.mark.parametrize("fmt,rows", [(1, 1024), (1, 2304), (0, 512), (2, 512), (3, 4096)])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 65, 128, 129, 255, 256, 257, 2047, 2048])
+@pytest.mark.parametrize("n", [4096, 22528])
+def test_plane_tiles_plan(fmt, rows, m, n):
+    widths = dm.PLANE_WIDTHS[fmt]
+    mt, parts, per = dm.plane_tiles(fmt, m, n, rows)
+    steps = -(-rows // dm.PLANE_STAGE_ROWS[fmt])
+    # the narrowest compiled tile that holds m, the widest above
+    assert mt == next((w for w in widths if w >= m), widths[-1])
+    assert (mt, parts, per) == dm.gemm_tiles(m, n, steps, widths,
+                                             times=(*dm.PLANE_TIMES[fmt][mt], mt))
+    assert 1 <= parts <= dm.MAX_SPLITS and (parts - 1) * per < steps <= parts * per
 
 
 # ---- the qsplit bit assembly ----
@@ -231,6 +281,67 @@ def emulate_gemm_plane(x, data, scale, spec):
     return acc
 
 
+def _bf16_bits(b):
+    """int64 tensor of 16-bit patterns -> bf16 tensor"""
+    return (((b & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16).view(torch.bfloat16)
+
+
+def _step_values(lo, hi, f, spec):
+    """The kernel's value_pair from a chunk's register words: lo and hi
+    the low and high word of each pair (int64, the stored bits), packed
+    into one register as fetch() packs them (int3/u16 lo | hi << 16; fp4 the
+    half of four fields, 16 bits of each word). Returns the
+    unscaled bf16 values of field f, [2 * pairs, N], pair rows interleaved."""
+    if spec.storage == "i8":
+        v = torch.stack([lo, hi], 1).to(torch.int8).to(torch.bfloat16)
+        return v.reshape(-1, lo.shape[1])
+    if spec.mode == "fp4":
+        # fetched in two halves of four fields, a pair packed into one
+        # register; both codes converted at once, one a 16-bit lane
+        p = ((lo & 0xFFFF) | (hi << 16)) if f < 4 else ((lo >> 16) | (hi & 0xFFFF0000))
+        t = (p >> (4 * (f % 4))) & 0x000F000F
+        e = t & 0x00070007
+        nz = ((e | (e >> 1) | (e >> 2)) & 0x00010001) * 0xFFFF
+        bits = (((e + 0x00780078) << 7) | ((t & 0x00080008) << 12)) & nz
+        return _bf16_bits(torch.stack([bits, bits >> 16], 1)).reshape(-1, lo.shape[1])
+    if spec.storage == "u16":
+        t = (((lo | (hi << 16)) >> (3 * f)) & 0x00070007) | 0x43004300
+    else:
+        t = ((lo >> (3 * f)) & 7) | (((hi >> (3 * f)) & 7) << 16) | 0x43004300
+    halves = _bf16_bits(torch.stack([t, t >> 16], 1)).reshape(-1, lo.shape[1])
+    return (halves.float() - 128.0).to(torch.bfloat16)  # exact: __hsub2 of 128
+
+
+def emulate_gemm_plane_streamed(x, data, scale, spec):
+    """gemm_plane's mainloop as the kStream policy runs it: per chunk of 16
+    words the thread's words and scales are fetched once (int3/u16 packed
+    into one register a pair), then each k16 step's A is dequantized from
+    them alone and its MMA issued, step after step. Returns f32 [m, N]."""
+    m, K = x.shape
+    G, N = scale.shape
+    i8 = spec.storage == "i8"
+    epw = 1 if i8 else spec.elems_per_word
+    wpg = spec.group_size if i8 else words_per_group(spec)
+    kw = data.shape[0]
+    xt = x.reshape(m, kw, epw).permute(2, 0, 1)
+    if spec.mode == "int3":
+        xt = torch.cat([xt, x.float().reshape(m, kw, epw).sum(2).to(x.dtype)[None]])
+    pad = -kw % 16
+    xt = torch.nn.functional.pad(xt, (0, pad))
+    bits = {"u32": 0xFFFFFFFF, "u16": 0xFFFF, "i8": 0xFF}[spec.storage]
+    words = torch.nn.functional.pad(data.to(torch.int64) & bits, (0, 0, 0, pad))
+    s_rows = torch.nn.functional.pad(scale[torch.arange(kw) // wpg], (0, 0, 0, pad))
+    neg_max = torch.tensor(-spec.max_int, dtype=torch.bfloat16)
+    acc = torch.zeros((m, N), dtype=torch.float32)
+    for kw0 in range(0, kw + pad, 16):
+        lo, hi = words[kw0:kw0 + 16:2], words[kw0 + 1:kw0 + 16:2]  # the chunk's pairs
+        s = s_rows[kw0:kw0 + 16]
+        for f in range(xt.shape[0]):  # one k16 step, A in natural k order
+            a = _step_values(lo, hi, f, spec) * s if f < epw else s * neg_max
+            acc += xt[f][:, kw0:kw0 + 16].float() @ a.float()
+    return acc
+
+
 def test_fragment_k_is_the_natural_order():
     # a[2j + .] of lane c holds k = 2c + 8j + h; qsplit word row c + 4j
     # holds k 2(c + 4j) + h of its quarter, plane word 2c + 8j + h is k:
@@ -299,3 +410,20 @@ def test_gemm_plane_k_order_matches_plain_and_jax(preset, k, stacked):
                                   out_dtype=jnp.float32, interpret=True)
     np.testing.assert_allclose(got.float().numpy()[:, :256], np.asarray(want, np.float32),
                                **JAX_TOL)
+
+
+@pytest.mark.parametrize("preset,k", PLANE_CASES + [("q3bf16_s16", 4000), ("fp4bf16", 1024)])
+def test_gemm_plane_streamed_k_order_is_bit_equal(preset, k):
+    # A streamed per k16 step from the chunk's register words (kStream)
+    # adds the same products in the same k order as the stage-at-once
+    # loop: the f32 sums are equal bit for bit
+    rng = np.random.default_rng(6)
+    tq = params_from_jax(jax.tree.map(np.asarray, jquantize(
+        (rng.standard_normal((k, 256)) * 0.05).astype(np.float32), preset)))
+    spec = tq.spec
+    rows = tq.data.shape[0]
+    k_stored = rows if spec.storage == "i8" else rows * spec.elems_per_word
+    x = torch.nn.functional.pad(
+        torch.from_numpy(rng.standard_normal((9, k)) * 0.1).to(torch.bfloat16), (0, k_stored - k))
+    got = emulate_gemm_plane_streamed(x, tq.data, tq.scale, spec)
+    assert torch.equal(got, emulate_gemm_plane(x, tq.data, tq.scale, spec))
