@@ -10,7 +10,9 @@ Phases (any failed check exits non-zero before the last line):
    spills and performance notes of the five sources on the wgmma
    mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp; then
    each gemm_plane instantiation's registers, spills and C7512 notes: the
-   m tile of 256 must be there for int3/u16, fp4 and int8, without spills);
+   m tile of 256 must be there for int3/u16, fp4 and int8, without spills;
+   and each instantiation of the weight-streaming mainloop of the m = 1
+   GEMVs, csrc/gemv_stream.cuh: all 18 must be there, without spills);
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
    plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
@@ -28,6 +30,10 @@ Phases (any failed check exits non-zero before the last line):
    int8 KV) and MOSS's (D 256, bf16 q and KV), each under the wrapper's
    split-KV plan (printed), held against the plain version under the same
    plan; each row prints its TFLOP/s and its time over the library call's;
+   then one m = 1 call of each streaming GEMV body (qsplit bf16, f16 and
+   f32; pair and hsplit in bf16, f16 and f32; int3/u16 at m = 1 and 2), at
+   a w_in shape whose plan splits K, counted with torch.profiler: each must
+   be one device kernel (the split parts combined in the same launch);
 3. parity phase: 2-layer models at full width, the same params through
    forward on the card (kernels) and on the CPU (plain versions), logits
    compared for a 64-token prefill and 4 decode steps: Vicuna-7B in q4bf16
@@ -75,6 +81,7 @@ not count. Needs a CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -99,7 +106,7 @@ from mlc_llm_tpu_torch.models import (
     init_random_params,
 )
 from mlc_llm_tpu_torch.models.transformer import tree_map
-from mlc_llm_tpu_torch.ops import KERNELS, build_kernels
+from mlc_llm_tpu_torch.ops import KERNELS, build_kernels, load_kernel
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
 from mlc_llm_tpu_torch.parallel.wire import RemoteScheduler, SchedulerServer
@@ -250,6 +257,9 @@ PAGED_CASES = [
 # serialized wgmma)
 WGMMA_SOURCES = ("dequant_gemm_qs", "dequant_gemm_plane", "dequant_gemm_pairs",
                  "dequant_gemv_qs", "dequant_gemv_gp")
+# the sources of the weight-streaming mainloop (csrc/gemv_stream.cuh), whose
+# stream_kernel instantiations must not spill
+STREAM_SOURCES = ("dequant_gemv_qs", "dequant_gemv_gp", "dequant_gemv_gp3")
 
 
 def ptxas_summary(log: str):
@@ -259,17 +269,16 @@ def ptxas_summary(log: str):
     return [f"    {line.strip()}" for line in log.splitlines() if any(k in line for k in keep)]
 
 
-def plane_instantiations(log: str):
-    """gemm_plane's mainloop instantiations in ptxas's report: (format id,
-    m tile, registers, spill store bytes, spill load bytes, C7512 notes),
-    from the mangled name gemm_kernel<PlanePolicy<F>, MT>."""
+def ptxas_entries(log: str, pattern: str):
+    """ptxas's report of each kernel entry whose mangled name matches
+    `pattern` (one group: the name): its regex groups, registers, spill
+    store bytes and spill load bytes."""
     out, cur = [], None
     for line in log.splitlines():
-        hit = re.search(r"Compiling entry function '(\S*PlanePolicyILi(\d)EEELi(\d+)EE\S*)'",
-                        line)
+        hit = re.search(rf"Compiling entry function '({pattern})'", line)
         if hit:
-            cur = dict(name=hit.group(1), fmt=int(hit.group(2)), mt=int(hit.group(3)),
-                       regs=None, spill_stores=None, spill_loads=None, c7512=0)
+            cur = dict(name=hit.group(1), groups=hit.groups()[1:], regs=None,
+                       spill_stores=None, spill_loads=None)
             out.append(cur)
             continue
         if cur is None:
@@ -281,9 +290,53 @@ def plane_instantiations(log: str):
         if used and cur["regs"] is None:
             cur["regs"] = int(used.group(1))
             cur = None
+    return out
+
+
+def plane_instantiations(log: str):
+    """gemm_plane's mainloop instantiations in ptxas's report: (format id,
+    m tile, registers, spill store bytes, spill load bytes, C7512 notes),
+    from the mangled name gemm_kernel<PlanePolicy<F>, MT>."""
+    out = ptxas_entries(log, r"\S*PlanePolicyILi(\d)EEELi(\d+)EE\S*")
     for e in out:  # ptxas names the function in each note
+        e["fmt"], e["mt"] = map(int, e.pop("groups"))
         e["c7512"] = sum("C7512" in line and e["name"] in line for line in log.splitlines())
     return out
+
+
+def stream_instantiations(log: str):
+    """The weight-streaming mainloop's stream_kernel instantiations in
+    ptxas's report: name, registers, spill store and load bytes."""
+    return ptxas_entries(log, r"\S*stream_kernel\S*")
+
+
+def stream_blocks_check():
+    """Each streaming body's blocks an SM as the built kernel reports them
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) against the count
+    stream_plan prices it at (dm.STREAM_BLOCKS, by word kind, compute
+    dtype bytes and m)."""
+    qs = load_kernel("dequant_gemv_qs", dm._GEMV_ARGS)
+    gp = load_kernel("dequant_gemv_gp", dm._GP_ARGS)
+    gp3 = load_kernel("dequant_gemv_gp3", dm._GP3_ARGS)
+    names = {v: str(k).split(".")[-1] for k, v in dm.DTYPE_IDS.items()}
+    bodies = ([(f"qsplit {names[d]} m={m}", ("int4", 4 if d == 2 else 2, m),
+                lambda n, d=d, m=m: qs.mlc_gemv_qs_blocks(d, m, n))
+               for d, m in [(0, 1), (1, 1)] + [(2, m) for m in range(1, 9)]]
+              + [(f"{lay} {names[d]} m=1", ("int4", 4 if d == 2 else 2, 1),
+                  lambda n, d=d, i=i: gp.mlc_gemv_gp_blocks(i, d, n))
+                 for lay, i in dm.LAYOUT_IDS.items() for d in range(3)]
+              + [(f"int3 bfloat16 m={m}", ("int3", 2, m),
+                  lambda n, m=m: gp3.mlc_gemv_gp3_blocks(m, n)) for m in (1, 2)])
+    wrong = []
+    for label, key, query in bodies:
+        n = ctypes.c_int(0)
+        err = query(ctypes.addressof(n))
+        print(f"  stream_kernel {label}: {n.value} blocks an SM (STREAM_BLOCKS "
+              f"{dm.STREAM_BLOCKS[key]}), cudaError {err}")
+        if err or n.value != dm.STREAM_BLOCKS[key]:
+            wrong.append(label)
+    if wrong:
+        fail(f"stream_plan prices these streaming bodies at the wrong blocks an SM: {wrong}")
 
 
 def fail(msg: str):
@@ -588,6 +641,55 @@ def kernel_phase():
     del flush
     torch.cuda.empty_cache()
     return rows
+
+
+# one m = 1 call of each streaming GEMV body (and gemv_gp3 at m = 2), at a
+# w_in shape whose plan splits K (so the last part's combine runs): (label,
+# spec, k, n, m)
+ONE_LAUNCH_CASES = [
+    ("gemv_qs bf16", "q4bf16", 4096, 22016, 1),
+    ("gemv_qs f16", "q4f16", 2560, 10240, 1),
+    ("gemv_qs f32", QSPLIT_F32, 2560, 10240, 1),
+    *[(f"gemv_gp {lay} {dt}", dataclasses.replace(QUANT_PRESETS["q4f32"], layout=lay, dtype=dt),
+       2560, 10240, 1) for lay in ("pair", "hsplit") for dt in ("bfloat16", "float16", "float32")],
+    ("gemv_gp3 m=1", "q3bf16_s16", 4096, 22016, 1),
+    ("gemv_gp3 m=2", "q3bf16_s16", 4096, 22016, 2),
+]
+
+
+def one_launch_phase():
+    """Each case's call is one device kernel (torch.profiler), from two
+    before the split parts were combined in the same launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    print("== one-launch phase (torch.profiler, CUDA activity)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, spec, k, n, m in ONE_LAUNCH_CASES:
+        spec = resolve_spec(spec)
+        w = pad_quantized_groups(quantize(
+            torch.randn((k, n), generator=gen, device="cuda") * 0.02, spec))
+        x = torch.randn((m, stored_k(w)), generator=gen, device="cuda").to(torch_dtype(spec.dtype))
+        kname = dm.route(spec, w.n_groups, m)
+        cols, parts, per = dm.stream_plan(
+            "int3" if kname == "gemv_gp3" else spec.layout, m, stored_k(w), w.data.shape[1],
+            x.element_size())
+        call_kernel(kname, x, w, None, x.dtype)  # warm: the build and the tickets
+        torch.cuda.synchronize()
+        # a trace that holds no device activity at all measured nothing (the
+        # call raises if its launch fails): it is taken again, up to 3 times
+        for tries in range(1, 4):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call_kernel(kname, x, w, None, x.dtype)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        print(f"  {label} ({kname}, {parts} parts of {per} stages, {cols} columns a block): "
+              f"{len(names)} device kernel(s) {names} (trace {tries})")
+        if len(names) != 1:
+            fail(f"{label}: one m = {m} call launched {len(names)} device kernels, not 1")
+        del w, x
 
 
 def pad_params(params):
@@ -958,7 +1060,8 @@ def main():
     t0 = time.perf_counter()
     # the wgmma sources are built in any case, so that ptxas reports them
     # on a warm csrc/build/ too
-    logs = build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"), force=WGMMA_SOURCES)
+    logs = build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"),
+                         force=WGMMA_SOURCES + STREAM_SOURCES)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name in WGMMA_SOURCES:
         print(f"  ptxas, {name}.cu:")
@@ -974,8 +1077,20 @@ def main():
     if sorted(e["fmt"] for e in wide) != [1, 2, 3] or any(
             e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in wide):
         fail(f"gemm_plane MT=256 instantiations missing or spilling: {wide}")
+    # the streaming GEMVs: qsplit bf16/f16 at m = 1 and f32 at m = 1..8,
+    # pair and hsplit in three types at m = 1, int3/u16 at m = 1 and 2
+    stream = [dict(e, source=name) for name in STREAM_SOURCES
+              for e in stream_instantiations(logs[name])]
+    for e in stream:
+        print(f"  stream_kernel ({e['source']}.cu) {e['name']}: {e['regs']} registers, spill "
+              f"stores {e['spill_stores']} B, loads {e['spill_loads']} B")
+    if len(stream) != 10 + 6 + 2 or any(
+            e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in stream):
+        fail(f"stream_kernel instantiations missing or spilling: {stream}")
+    stream_blocks_check()
 
     rows = kernel_phase()
+    one_launch_phase()
     parity_phase()
     t0 = time.perf_counter()
     params = init_random_params(VICUNA, "q4bf16", seed=0, device="cuda")

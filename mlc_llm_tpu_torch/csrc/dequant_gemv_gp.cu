@@ -29,24 +29,20 @@
 // words, scales and minima; 0.75 with f32 scales), about 2 flops per byte
 // and row, far below the ridge.
 //
-// m = 1 runs a SIMT body on dequant_gemv_qs.cu's stream:
-//   * a block covers 64 columns x 4 chunks (a chunk = 16 word rows = 128 k);
-//     each warp owns one chunk and each lane two columns, so every row load
-//     is a coalesced 256-byte warp transaction along the contiguous N axis;
-//   * a lane issues its 16 row loads before any arithmetic (16 loads in
-//     flight per thread);
-//   * K is split over blockIdx.y, four chunks a block (so that the 3B
-//     width's wo, N = 2560 at K = 3072, still launches 240 blocks over the
-//     132 SMs); the split-K partials go to an f32 scratch and a second small
-//     kernel sums them in a fixed order;
-//   * the block's slice of x is staged once in shared memory as f32 (pair:
-//     128 consecutive k a chunk; hsplit: 64 of each half).
+// m = 1 runs GpStream, the pair/hsplit policy of the weight-streaming
+// mainloop of gemv_stream.cuh (see there for the design and what bounds
+// it): a stage is 16 word rows = 128 k = four whole groups (pair: groups
+// 4t .. 4t + 3, four rows each; hsplit: the stage's two groups of each
+// half, the low nibbles of rows 0-7 and 8-15, then the high nibbles), so
+// every group's P and fold finish inside the stage. A raw code q becomes
+// the f32 q exactly by bit assembly (gs::code_raw: 0x4B000000 | q, less
+// 2^23), then one FMA. One launch a call.
 //
 // 2 <= m <= 8 runs on the tensor cores, as policies of the wgmma mainloop
 // of dequant_wgmma.cuh at m tile 16 (the tokens are wgmma's N = 16
-// operand). The SIMT body redid the nibble extract, the int-to-float and an
-// fmaf for every weight and every row, so m = 8 cost eight times m = 1's
-// instructions over the same bytes. Here:
+// operand). A SIMT body redoes the nibble extract, the code's conversion
+// and an fmaf for every weight and every row, so m = 8 would cost eight
+// times m = 1's instructions over the same bytes. Here:
 //   * A = the raw codes 0-15, exact in bf16, f16 and TF32 (bf16/f16: the
 //     code pair bit assembly wg::codes2, no multiply); B = x in natural k
 //     order, so each order's k order of a step is chosen to make a thread's
@@ -72,8 +68,7 @@
 
 #include <type_traits>
 
-#include "dequant_wgmma.cuh"
-#include "int4_common.cuh"
+#include "gemv_stream.cuh"
 
 namespace {
 
@@ -82,147 +77,110 @@ using int4k::rnd;
 
 enum Layout { kPair = 0, kHsplit = 1 };
 
-constexpr int kWarps = 4;      // chunks per block, one per warp
-constexpr int kCols = 64;      // columns per block, two per lane
-constexpr int kRows = 16;      // word rows per chunk
-constexpr int kChunkK = 128;   // k per chunk
+constexpr int kRows = 16;      // word rows of a tensor-core stage
 constexpr int kMaxInt = 7;     // int4 sym: codes q - 7
 
-template <int L, typename T, int M>
-__global__ void __launch_bounds__(kWarps * 32)
-gemv_gp_kernel(const T* __restrict__ x, const int32_t* __restrict__ w, const T* __restrict__ s,
-               const T* __restrict__ z, float* __restrict__ partial, int rows, int K, int N,
-               int sym) {
-  // x slice [M][kWarps chunks][128] (zero past the `rows` real rows);
-  // reused for the warp reduction
-  __shared__ float smem[M * kWarps * kChunkK];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int C = K / kChunkK;
-  const int KH = K / 2, G = K / 32;
-  const int c0 = blockIdx.y * kWarps;
-  const int col = blockIdx.x * kCols + 2 * lane;
+// m = 1. Staged x of word row rr of stage t (value e): pair k = 128t +
+// 8rr + e (nibble e); hsplit the low nibble of byte e (k = 64t + 4rr + e)
+// for e < 4, the high nibble of byte e - 4 (k = K/2 + 64t + 4rr + e - 4)
+// above. Group j of the stage: pair rows 4j .. 4j + 3; hsplit half j / 2,
+// rows 8 (j % 2) .. + 7. A part's x is one chunk (pair) or one a half
+// (hsplit).
+template <int L, typename TT>
+struct GpStream {
+  using T = TT;
+  static constexpr int kWordBytes = 4, kGroups = 4, kStages = 2;
+  static constexpr int kScaleOffset = gs::kRows * gs::kCols * kWordBytes;
+  static constexpr int kStageBytes = kScaleOffset + 2 * kGroups * gs::kCols * sizeof(T);
+  static constexpr int kStageX = 128, kChunks = L == kPair ? 1 : 2;
 
-  for (int i = threadIdx.x; i < M * kWarps * kChunkK; i += blockDim.x) {
-    const int e = i % kChunkK, cl = (i / kChunkK) % kWarps, m = i / (kChunkK * kWarps);
-    const int c = c0 + cl;
-    // pair: k = 128c + e; hsplit: e < 64 the low half's 64c + e, else the
-    // high half's
-    const int k = L == kPair ? kChunkK * c + e : (e < 64 ? 64 * c + e : KH + 64 * c + e - 64);
-    smem[i] = c < C && m < rows ? Num<T>::to_f(x[(size_t)m * K + k]) : 0.f;
+  static __device__ __forceinline__ int scale_row(int t, int j, int G) {
+    return L == kPair ? 4 * t + j : (j / 2) * (G / 2) + 2 * t + j % 2;
   }
-  __syncthreads();
-
-  float acc[M][2];
+  static __device__ __forceinline__ int chunk_k(int c, int t0, int K) {
+    return L == kPair ? 128 * t0 : c * (K / 2) + 64 * t0;
+  }
+  static __device__ __forceinline__ int raw_index(int i, int rr, int e, int n) {
+    if (L == kPair) return 128 * i + 8 * rr + e;
+    return (e / 4) * 64 * n + 64 * i + 4 * rr + e % 4;
+  }
+  // pair: lane = element (row 4j + lane / 8, nibble lane % 8; k parity
+  // lane % 2): the even and odd sums each rounded to T, added in T;
+  // hsplit: one sum rounded once
+  static __device__ __forceinline__ float group_sum(const float* xst, int j, int m, int M,
+                                                    int lane) {
+    if (L == kPair) {
+      float v = xst[((4 * j + lane / 8) * M + m) * gs::kXRow + lane % 8];
 #pragma unroll
-  for (int m = 0; m < M; ++m) acc[m][0] = acc[m][1] = 0.f;
-
-  const int c = c0 + warp;
-  if (c < C) {
-    int2 wv[kRows];
-    const int32_t* wp = w + (size_t)(kRows * c) * N + col;
+      for (int o = 16; o > 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      const float even = rnd<T>(__shfl_sync(0xffffffffu, v, 0));
+      const float odd = rnd<T>(__shfl_sync(0xffffffffu, v, 1));
+      return rnd<T>(even + odd);
+    }
+    float v = xst[((8 * (j % 2) + lane / 4) * M + m) * gs::kXRow + 4 * (j / 2) + lane % 4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      wv[r] = __ldg(reinterpret_cast<const int2*>(wp + (size_t)r * N));
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return rnd<T>(v);
+  }
 
-    // four groups a chunk: pair j -> word rows 4j..4j+3; hsplit j < 2 ->
-    // the low nibbles of rows 8j..8j+7, j >= 2 -> the high nibbles of rows
-    // 8(j-2)..8(j-2)+7
+  template <int M>
+  static __device__ __forceinline__ void consume(const uint8_t* st, const float* xst,
+                                                 const float* sx, float (&acc)[M][gs::C],
+                                                 bool asym, int c) {
+    constexpr int C = gs::C;
+    float p[M][4][C];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int g = L == kPair ? 4 * c + j : (j < 2 ? 2 * c + j : G / 2 + 2 * c + j - 2);
-      const float2 s2 = Num<T>::load2(s + (size_t)g * N + col);
-      float2 z2 = make_float2(0.f, 0.f);
-      if (!sym) z2 = Num<T>::load2(z + (size_t)g * N + col);
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) p[m][j][cc] = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < gs::kRows; ++rr) {
+      uint32_t w[C];
+      gs::load_words(st + rr * gs::kCols * kWordBytes, c, w);
+      float q[C][8];
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          q[cc][e] = gs::code_raw(w[cc], L == kPair ? 4 * e : 8 * (e % 4) + 4 * (e / 4));
 #pragma unroll
       for (int m = 0; m < M; ++m) {
-        // the group's 32 x values start at xs[0]
-        const float* xs = smem + (m * kWarps + warp) * kChunkK + 32 * j;
-        float v = xs[lane];
-        float sx;
-        if (L == kPair) {
-          // offsets 16..2 keep the parity: lane 0 ends with the even sum,
-          // lane 1 with the odd one
+        const float4* xr = reinterpret_cast<const float4*>(xst + (rr * M + m) * gs::kXRow);
+        const float4 a = xr[0], b = xr[1];
+        const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-          for (int o = 16; o > 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-          const float even = rnd<T>(__shfl_sync(0xffffffffu, v, 0));
-          const float odd = rnd<T>(__shfl_sync(0xffffffffu, v, 1));
-          sx = rnd<T>(even + odd);
-        } else {
+        for (int e = 0; e < 8; ++e) {
+          const int j = L == kPair ? rr / 4 : 2 * (e / 4) + rr / 8;
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-          sx = rnd<T>(v);
-        }
-        float p0 = 0.f, p1 = 0.f;
-        if (L == kPair) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int wx = wv[4 * j + r].x, wy = wv[4 * j + r].y;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const float xa = xs[8 * r + i];
-              p0 = fmaf(xa, static_cast<float>((wx >> (4 * i)) & 0xF), p0);
-              p1 = fmaf(xa, static_cast<float>((wy >> (4 * i)) & 0xF), p1);
-            }
-          }
-        } else {
-          const int rb = 8 * (j & 1), sh = j < 2 ? 0 : 4;
-#pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            const int wx = wv[rb + r].x, wy = wv[rb + r].y;
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              const float xa = xs[4 * r + b];
-              p0 = fmaf(xa, static_cast<float>((wx >> (8 * b + sh)) & 0xF), p0);
-              p1 = fmaf(xa, static_cast<float>((wy >> (8 * b + sh)) & 0xF), p1);
-            }
-          }
-        }
-        if (sym) {
-          acc[m][0] += s2.x * (p0 - static_cast<float>(kMaxInt) * sx);
-          acc[m][1] += s2.y * (p1 - static_cast<float>(kMaxInt) * sx);
-        } else {
-          acc[m][0] += s2.x * p0 + z2.x * sx;
-          acc[m][1] += s2.y * p1 + z2.y * sx;
+          for (int cc = 0; cc < C; ++cc) p[m][j][cc] = fmaf(xv[e], q[cc][e], p[m][j][cc]);
         }
       }
     }
-  }
-  __syncthreads();  // the x slice is dead; reuse smem for the reduction
-
+    // y += s * P + z * sx (sym: s * (P - 7 sx)), f32 scales
+    const T* S = reinterpret_cast<const T*>(st + kScaleOffset);
+    const T* Z = S + kGroups * gs::kCols;
+    const float base = asym ? 0.f : static_cast<float>(kMaxInt);
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    smem[(warp * M + m) * kCols + 2 * lane] = acc[m][0];
-    smem[(warp * M + m) * kCols + 2 * lane + 1] = acc[m][1];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * kCols; i += blockDim.x) {
-    const int m = i / kCols, cc = i % kCols;
-    float t = 0.f;
+    for (int j = 0; j < 4; ++j) {
+      float s[C], z[C];
+      gs::load_cols(S + j * gs::kCols, c, s);
+      if (asym) {
+        gs::load_cols(Z + j * gs::kCols, c, z);
+      } else {
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) t += smem[(wi * M + m) * kCols + cc];
-    partial[((size_t)blockIdx.y * rows + m) * N + blockIdx.x * kCols + cc] = t;
+        for (int cc = 0; cc < C; ++cc) z[cc] = 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float v = sx[j * M + m];
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) acc[m][cc] += s[cc] * (p[m][j][cc] - base * v) + z[cc] * v;
+      }
+    }
   }
-}
-
-template <int L, typename T, int M>
-void launch(const void* x, const void* w, const void* s, const void* z, void* partial,
-            int rows, int K, int N, int sym, cudaStream_t st) {
-  const int C = K / kChunkK;
-  dim3 grid(N / kCols, (C + kWarps - 1) / kWarps);
-  gemv_gp_kernel<L, T, M><<<grid, kWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(w), static_cast<const T*>(s),
-      static_cast<const T*>(z), static_cast<float*>(partial), rows, K, N, sym);
-}
-
-// the SIMT body runs m = 1 (2 <= m <= 8 run the tensor-core policies below)
-template <int L, typename T>
-int launch_t(const void* x, const void* w, const void* s, const void* z, void* partial,
-             void* out, int M, int K, int N, int sym, int out_f32, int S, cudaStream_t st) {
-  if (M != 1) return static_cast<int>(cudaErrorInvalidValue);
-  launch<L, T, 1>(x, w, s, z, partial, M, K, N, sym, st);
-  int4k::launch_reduce<T>(static_cast<const float*>(partial), out, S, M * N, out_f32, st);
-  return 0;
-}
+};
 
 // ---- 2 <= m <= 8: the tensor-core policies ----
 
@@ -553,39 +511,51 @@ cudaError_t launch_tc_layout(int layout, const void* x, void* xt, const void* w,
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// Number of split-K slices: the caller sizes the f32 scratch [S, M, N].
-extern "C" int mlc_gemv_gp_splits(int K) {
-  return (K / kChunkK + kWarps - 1) / kWarps;
-}
-
-// The SIMT body, M = 1. layout: 0 pair, 1 hsplit; dtype: int4k::DType of
-// x, s and z. x [M, K]; w int32 words [K/8, N] (a layer's block); s, z
-// [K/32, N] (z unused when sym); partial f32 [splits, M, N]; out [M, N] in
-// the compute type (out_f32 = 0) or f32. Needs K % 128 == 0, N % 64 == 0.
-// Returns cudaGetLastError() after the launches.
-extern "C" int mlc_gemv_gp(int layout, int dtype, const void* x, const void* w, const void* s,
-                           const void* z, void* partial, void* out, int M, int K, int N,
-                           int sym, int out_f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int S = mlc_gemv_gp_splits(K);
+// Call f(gs::Body<GpStream<layout, T>, 1>()) on the streaming body of
+// (layout, dtype) (cudaErrorInvalidValue for another).
+template <class F>
+cudaError_t with_stream_body(int layout, int dtype, F f) {
   auto go = [&](auto tag) {
     using T = decltype(tag);
-    if (layout == kPair)
-      return launch_t<kPair, T>(x, w, s, z, partial, out, M, K, N, sym, out_f32, S, st);
-    if (layout == kHsplit)
-      return launch_t<kHsplit, T>(x, w, s, z, partial, out, M, K, N, sym, out_f32, S, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return layout == kPair ? f(gs::Body<GpStream<kPair, T>, 1>())
+                           : f(gs::Body<GpStream<kHsplit, T>, 1>());
   };
-  int err;
+  if (layout != kPair && layout != kHsplit) return cudaErrorInvalidValue;
   switch (dtype) {
-    case int4k::kBF16: err = go(__nv_bfloat16()); break;
-    case int4k::kF16: err = go(__half()); break;
-    case int4k::kF32: err = go(0.f); break;
-    default: err = static_cast<int>(cudaErrorInvalidValue);
+    case int4k::kBF16: return go(__nv_bfloat16());
+    case int4k::kF16: return go(__half());
+    case int4k::kF32: return go(0.f);
   }
-  return err ? err : static_cast<int>(cudaGetLastError());
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The streaming body, M = 1. layout: 0 pair, 1 hsplit; dtype:
+// int4k::DType of x, s and z. x [1, K]; w int32 words [K/8, N] (a layer's
+// block); s, z [K/32, N] (z null when sym); `parts` split-K parts of `per`
+// 128-k stages (at most gs::kMaxPer), with partial f32 [parts, 1, N] and
+// tickets int32 [ceil(N / 256)], zero, when parts > 1 (else null); out
+// [1, N] in the compute type (out_f32 = 0) or f32. Needs K % 128 == 0, N %
+// 8 == 0 and 16-byte aligned bases. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a refused plan).
+extern "C" int mlc_gemv_gp(int layout, int dtype, const void* x, const void* w, const void* s,
+                           const void* z, void* partial, void* tickets, void* out, int M, int K,
+                           int N, int out_f32, int parts, int per, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const gs::Params p{x, static_cast<const uint8_t*>(w), static_cast<const uint8_t*>(s),
+                     static_cast<const uint8_t*>(z), static_cast<float*>(partial),
+                     static_cast<int*>(tickets), out, K, N, K / 32, K / 128, per, parts,
+                     out_f32};
+  if (M != 1 || K % 128 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      with_stream_body(layout, dtype, [&](auto body) { return gs::launch(body, p, st); }));
+}
+
+// The blocks of the streaming body of (layout, dtype) an SM holds, into *n.
+extern "C" int mlc_gemv_gp_blocks(int layout, int dtype, int* n) {
+  return static_cast<int>(
+      with_stream_body(layout, dtype, [&](auto body) { return gs::blocks_per_sm(body, n); }));
 }
 
 // The tensor-core body, 2 <= M <= 8: the arguments of mlc_gemv_gp, with xt

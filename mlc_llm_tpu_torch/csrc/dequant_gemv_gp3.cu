@@ -14,196 +14,145 @@
 //
 // Bound on the H100: bytes. A weight is 3.2 bits of word plus 0.4 bits of
 // bf16 scale, ~1.3 flops per byte, far below the ~295 flops/byte ridge
-// (Vicuna-7B w_in, 51.9 MB stored: 15.5 us at 3.35 TB/s). The design streams
-// the words at full width and keeps the per-code work at three instructions:
-//   * a thread owns 8 neighbouring columns, so every word row is one 16-byte
-//     load and a warp reads 512 contiguous bytes of it;
-//   * a warp owns one group (8 rows) and issues its 8 row loads before any
-//     arithmetic; 8 warps per block cover 8 groups, so K is split over
-//     blockIdx.y at group boundaries (K = 11008 pads to 288 groups: 36 parts);
-//     w_in launches 88 x 16 blocks and even wo 16 x 16 across the 132 SMs;
-//   * 8 + q is assembled as f32 bits, 0x41000000 | q << 20 (exact; one shift
-//     and one mask per code, no int-to-float convert), then one FMA;
-//   * the block's x slice (8 groups x 40 x M) and its sx values are staged
-//     once in shared memory as f32;
-//   * the 8 warps' sums are added in shared memory in warp order and the K
-//     parts by a second small kernel in part order: deterministic, no atomics.
-// u16 words arrive as int16 tensors holding the same bits; they are read as
-// unsigned words, so no shift sign-extends.
+// (Vicuna-7B w_in, 51.9 MB stored: 15.5 us at 3.35 TB/s).
+//
+// Gp3Stream is the int3/u16 policy of the weight-streaming mainloop of
+// gemv_stream.cuh (see there for the design): a stage is 16 u16 word rows
+// = two groups (80 k); a consumer thread's two columns are one 4-byte
+// shared-memory read a row (the first column in the low halfword), each
+// of its ten codes 8 + q assembled as f32 bits, 0x41000000 | q << 20
+// (exact; one shift and one lop3), then one FMA per token. u16 words arrive as int16 tensors holding the same bits; they are
+// read as unsigned words, so no shift sign-extends. One launch a call.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemv_stream.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                // groups per block, one per warp
-constexpr int kColsPerLane = 8;          // one 16-byte load of u16 words
-constexpr int kCols = 32 * kColsPerLane; // 256 columns per block
-constexpr int kRows = 8;                 // u16 word rows per group
-constexpr int kFields = 5;               // codes per u16 word
-constexpr int kGroupK = kRows * kFields; // 40
-constexpr float kOffset = 11.f;          // 8 + max_int (int3 sym: 3)
+constexpr int kFields = 5;       // codes per u16 word
+constexpr float kOffset = 11.f;  // 8 + max_int (int3 sym: 3)
 
 // field at bit `sh` of a 32-bit pair of u16 words, moved to f32 mantissa
-// bits 20..22 (its value 8 + q once 0x41000000 is or-ed in)
+// bits 20..22 and or-ed into 0x41000000: 8 + q (one shift, one lop3)
 __device__ __forceinline__ float code_plus_8(uint32_t w, int sh) {
-  const uint32_t t = (sh <= 20 ? (w << (20 - sh)) : (w >> (sh - 20))) & 0x00700000u;
-  return __uint_as_float(0x41000000u | t);
+  const uint32_t t = sh <= 20 ? (w << (20 - sh)) : (w >> (sh - 20));
+  return __uint_as_float(gs::and_or(t, 0x00700000u, 0x41000000u));
 }
 
-template <int M>
-__global__ void __launch_bounds__(kWarps * 32)
-gemv_gp3_kernel(const __nv_bfloat16* __restrict__ x, const uint16_t* __restrict__ w,
-                const __nv_bfloat16* __restrict__ s, float* __restrict__ partial,
-                int G, int N) {
-  __shared__ float xs[M][kWarps * kGroupK];
-  __shared__ float sxs[M][kWarps];
-  __shared__ float red[kWarps][M][kCols];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int K = G * kGroupK;
-  const int g0 = blockIdx.y * kWarps;
+// staged x of word row rr of stage t: value e < 5 is k = 80t + 5rr + e
+// (values 5-7 are zero pads); group j of the stage: rows 8j .. 8j + 7; a
+// part's x is one chunk
+struct Gp3Stream {
+  using T = __nv_bfloat16;
+  static constexpr int kWordBytes = 2, kGroups = 2, kStages = 3;
+  static constexpr int kScaleOffset = gs::kRows * gs::kCols * kWordBytes;
+  static constexpr int kStageBytes = kScaleOffset + 2 * kGroups * gs::kCols * sizeof(T);
+  static constexpr int kStageX = 80, kChunks = 1;
 
-  for (int i = threadIdx.x; i < M * kWarps * kGroupK; i += blockDim.x) {
-    const int m = i / (kWarps * kGroupK), e = i % (kWarps * kGroupK);
-    const int k = g0 * kGroupK + e;
-    xs[m][e] = k < K ? __bfloat162float(x[(size_t)m * K + k]) : 0.f;
+  static __device__ __forceinline__ int scale_row(int t, int j, int) { return 2 * t + j; }
+  static __device__ __forceinline__ int chunk_k(int, int t0, int) { return 80 * t0; }
+  static __device__ __forceinline__ int raw_index(int i, int rr, int e, int) {
+    return e < kFields ? 80 * i + kFields * rr + e : -1;
   }
-  __syncthreads();
-  if (threadIdx.x < M * kWarps) {
-    const int m = threadIdx.x / kWarps, gl = threadIdx.x % kWarps;
-    const float* xg = &xs[m][gl * kGroupK];
+  // lane r < 8 (and its copies r + 8, ...) holds row 8j + r; each field's
+  // 8-row sum rounded to bf16, the five added in f32
+  static __device__ __forceinline__ float group_sum(const float* xst, int j, int m, int M,
+                                                    int lane) {
+    const float* xr = xst + ((8 * j + lane % 8) * M + m) * gs::kXRow;
     float t = 0.f;
 #pragma unroll
     for (int i = 0; i < kFields; ++i) {
-      float f = 0.f;
+      float v = xr[i];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) f += xg[kFields * r + i];
-      t += __bfloat162float(__float2bfloat16(f));
+      for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      t += __bfloat162float(__float2bfloat16(v));
     }
-    sxs[m][gl] = t;
+    return t;
   }
-  __syncthreads();
 
-  const int col = blockIdx.x * kCols + lane * kColsPerLane;
-  const int g = g0 + warp;
-  float acc[M][kColsPerLane];
+  template <int M>
+  static __device__ __forceinline__ void consume(const uint8_t* st, const float* xst,
+                                                 const float* sx, float (&acc)[M][gs::C], bool,
+                                                 int c) {
+    constexpr int C = gs::C;
+    const __nv_bfloat16* S = reinterpret_cast<const __nv_bfloat16*>(st + kScaleOffset);
 #pragma unroll
-  for (int m = 0; m < M; ++m)
+    for (int j = 0; j < kGroups; ++j) {
+      float p[M][C];
 #pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) acc[m][c] = 0.f;
-
-  if (g < G && col < N) {
-    uint4 wv[kRows];
-    const uint16_t* wp = w + (size_t)g * kRows * N + col;
+      for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      wv[r] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)r * N));
-    const float* xg = &xs[0][warp * kGroupK];
+        for (int cc = 0; cc < C; ++cc) p[m][cc] = 0.f;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const uint32_t wd[4] = {wv[r].x, wv[r].y, wv[r].z, wv[r].w};
+      for (int r = 0; r < 8; ++r) {
+        const int rr = 8 * j + r;
+        // the thread's u16 words: one (zero-extended) or two in one 32-bit
+        // word, column C c in the low half
+        static_assert(C <= 2, "at most two u16 columns a thread");
+        const uint8_t* row = st + rr * gs::kCols * kWordBytes;
+        const uint32_t w = C == 2 ? reinterpret_cast<const uint32_t*>(row)[c]
+                                  : reinterpret_cast<const uint16_t*>(row)[c];
+        float q[C][kFields];
 #pragma unroll
-      for (int i = 0; i < kFields; ++i) {
-        float xv[M];
+        for (int cc = 0; cc < C; ++cc)
 #pragma unroll
-        for (int m = 0; m < M; ++m) xv[m] = xg[m * kWarps * kGroupK + kFields * r + i];
+          for (int i = 0; i < kFields; ++i) q[cc][i] = code_plus_8(w, 16 * cc + 3 * i);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // column 2j in the low halfword, 2j + 1 in the high one
-          const float lo = code_plus_8(wd[j], 3 * i);
-          const float hi = code_plus_8(wd[j], 16 + 3 * i);
+        for (int m = 0; m < M; ++m) {
+          const float4* xr = reinterpret_cast<const float4*>(xst + (rr * M + m) * gs::kXRow);
+          const float4 a = xr[0], b = xr[1];
+          const float xv[kFields] = {a.x, a.y, a.z, a.w, b.x};
 #pragma unroll
-          for (int m = 0; m < M; ++m) {
-            acc[m][2 * j] = fmaf(xv[m], lo, acc[m][2 * j]);
-            acc[m][2 * j + 1] = fmaf(xv[m], hi, acc[m][2 * j + 1]);
-          }
+          for (int i = 0; i < kFields; ++i)
+#pragma unroll
+            for (int cc = 0; cc < C; ++cc) p[m][cc] = fmaf(xv[i], q[cc][i], p[m][cc]);
         }
       }
-    }
-    const uint4 sv = __ldg(reinterpret_cast<const uint4*>(s + (size_t)g * N + col));
-    const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&sv);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float s0 = __low2float(s2[j]), s1 = __high2float(s2[j]);
+      float s[C];
+      gs::load_cols(S + j * gs::kCols, c, s);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
-        const float off = kOffset * sxs[m][warp];
-        acc[m][2 * j] = s0 * (acc[m][2 * j] - off);
-        acc[m][2 * j + 1] = s1 * (acc[m][2 * j + 1] - off);
+        const float off = kOffset * sx[j * M + m];
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) acc[m][cc] += s[cc] * (p[m][cc] - off);
       }
     }
   }
+};
 
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) red[warp][m][lane * kColsPerLane + c] = acc[m][c];
-  __syncthreads();
-  for (int i = threadIdx.x; i < M * kCols; i += blockDim.x) {
-    const int m = i / kCols, cc = i % kCols;
-    const int n = blockIdx.x * kCols + cc;
-    if (n >= N) continue;
-    float t = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) t += red[wi][m][cc];
-    partial[((size_t)blockIdx.y * M + m) * N + n] = t;
+// Call f(gs::Body<Gp3Stream, M>()) at 1 <= M <= 2 (cudaErrorInvalidValue
+// for another M).
+template <class F>
+cudaError_t with_stream_body(int M, F f) {
+  switch (M) {
+    case 1: return f(gs::Body<Gp3Stream, 1>());
+    case 2: return f(gs::Body<Gp3Stream, 2>());
   }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// out[i] = sum over the S split-K parts, in part order.
-template <typename T>
-__global__ void reduce_kernel(const float* __restrict__ partial, T* __restrict__ out,
-                              int S, int MN) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float t = 0.f;
-  for (int sl = 0; sl < S; ++sl) t += partial[(size_t)sl * MN + i];
-  out[i] = from_float<T>(t);
-}
-
-template <int M>
-void launch(const void* x, const void* w, const void* s, void* partial, int G, int N,
-            cudaStream_t st) {
-  dim3 grid((N + kCols - 1) / kCols, (G + kWarps - 1) / kWarps);
-  gemv_gp3_kernel<M><<<grid, kWarps * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint16_t*>(w),
-      static_cast<const __nv_bfloat16*>(s), static_cast<float*>(partial), G, N);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Number of split-K parts: the caller sizes the f32 scratch [S, M, N].
-extern "C" int mlc_gemv_gp3_splits(int G) { return (G + kWarps - 1) / kWarps; }
-
 // x [M, 40G] bf16; w u16 words [8G, N] (a layer's block); s [G, N] bf16;
-// partial f32 [splits, M, N]; out [M, N] in bf16 (out_f32 = 0) or f32.
-// Needs 1 <= M <= 2, G % 8 == 0, N % 8 == 0, 16-byte aligned w and s rows.
-// Returns cudaGetLastError() after the launches.
+// `parts` split-K parts of `per` 80-k stages (at most gs::kMaxPer), with
+// partial f32 [parts, M, N] and tickets int32 [ceil(N / 256)], zero, when
+// parts > 1 (else null); out [M, N] in bf16 (out_f32 = 0) or f32. Needs 1
+// <= M <= 2, G % 2 == 0, N % 8 == 0, 16-byte aligned w and s bases.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// refused plan).
 extern "C" int mlc_gemv_gp3(const void* x, const void* w, const void* s, void* partial,
-                            void* out, int M, int G, int N, int out_f32, void* stream) {
+                            void* tickets, void* out, int M, int G, int N, int out_f32,
+                            int parts, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 1: launch<1>(x, w, s, partial, G, N, st); break;
-    case 2: launch<2>(x, w, s, partial, G, N, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int MN = M * N, S = mlc_gemv_gp3_splits(G);
-  const int threads = 256, blocks = (MN + threads - 1) / threads;
-  if (out_f32)
-    reduce_kernel<float><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(partial), static_cast<float*>(out), S, MN);
-  else
-    reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out), S, MN);
-  return static_cast<int>(cudaGetLastError());
+  const gs::Params p{x, static_cast<const uint8_t*>(w), static_cast<const uint8_t*>(s), nullptr,
+                     static_cast<float*>(partial), static_cast<int*>(tickets), out, 40 * G, N,
+                     G, G / 2, per, parts, out_f32};
+  if (G % 2 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      with_stream_body(M, [&](auto body) { return gs::launch(body, p, st); }));
+}
+
+// The blocks of the streaming body at M an SM holds, into *n.
+extern "C" int mlc_gemv_gp3_blocks(int M, int* n) {
+  return static_cast<int>(
+      with_stream_body(M, [&](auto body) { return gs::blocks_per_sm(body, n); }));
 }

@@ -14,29 +14,18 @@
 // rows make one group per field f, group index f*(G/4) + r/16. K is the
 // stored (group-padded) K; x is padded to it by the caller.
 //
-// Bound on the H100: weight bytes (0.625 bytes per weight for q4 asym bf16),
-// about 2 flops per byte, far below the ~295 flops/byte ridge. The design
-// therefore only has to stream the words at full width:
-//   * a block covers 64 columns x 8 chunks (a chunk = 16 word rows = 128 k);
-//     each warp owns one chunk and each lane two columns, so every row load
-//     is a coalesced 256-byte warp transaction along the contiguous N axis;
-//   * a lane issues its 16 row loads before any arithmetic (16 loads in
-//     flight per thread);
-//   * K is split over blockIdx.y so even wo (N = 4096) launches 256 blocks
-//     across the 132 SMs; the split-K partials go to an f32 scratch and a
-//     second small kernel sums them in a fixed order (deterministic);
-//   * the block's slice of x is staged once in shared memory as f32, and the
-//     per-group sum of x is one warp shuffle reduction (lane = element).
-//
-// Compute type T (x, s, z) is bf16, f16 or f32 (the q4bf16, q4f16 and
-// qsplit f32 weights); sx is rounded to T (not at all in f32) and the
-// output is T or f32. This SIMT body runs m = 1 (bf16, f16, f32) and f32
-// at every m.
+// m = 1 (bf16, f16, f32) and f32 at every m <= 8 run QsStream, the
+// qsplit policy of the weight-streaming mainloop of gemv_stream.cuh (see
+// there for the design and what bounds it): a word of a thread's column
+// gives 8 codes, each 16 + q as f32 bits (gs::code16: one shift, one
+// lop3), one FMA each into the partial of its quarter's group; a stage
+// (16 word rows) is one group of each quarter, so P and the fold of every
+// group finish inside the stage. One launch a call.
 //
 // bf16 and f16 at 2 <= m <= 8 run on the tensor cores (GpPolicy, a policy
-// of the wgmma mainloop of dequant_wgmma.cuh, m tile 16). The SIMT body
-// redoes the nibble extract, the int->float conversion of 16 + q and an
-// fmaf for every weight and every row: ~40 instructions a weight at m = 8,
+// of the wgmma mainloop of dequant_wgmma.cuh, m tile 16). A SIMT body
+// redoes the nibble extract, the code's conversion and an fmaf for every
+// weight and every row: ~40 instructions a weight at m = 8,
 // bound by instructions, not bytes. On the tensor cores the tokens are
 // wgmma's N = 16 operand:
 //   * A = the exact codes 16 + q as T x 2 bits (the qsplit bit assembly of
@@ -52,137 +41,121 @@
 //   * split K, the m tile and the epilogue are the mainloop's (the plan
 //     from ops/dequant_matmul.py gemm_tiles at GEMV_STAGE_K = 128).
 
-#include "dequant_wgmma.cuh"
-#include "int4_common.cuh"
+#include "gemv_stream.cuh"
 
 namespace {
 
 using int4k::Num;
 using int4k::rnd;
 
-constexpr int kWarps = 8;      // chunks per block, one per warp
-constexpr int kCols = 64;      // columns per block, two per lane
-constexpr int kRows = 16;      // word rows per chunk
+// m = 1 (and f32 at m <= 8): stage t holds group t of each quarter f, word
+// row rr the quarter's elements 2 rr (bits 4f) and 2 rr + 1 (bits 16 + 4f);
+// staged x of a row: value e = 2f + h is quarter f's element 2 rr + h. A
+// part's x is four chunks, one a quarter.
+template <typename TT>
+struct QsStream {
+  using T = TT;
+  static constexpr int kWordBytes = 4, kGroups = 4, kStages = 2;
+  static constexpr int kScaleOffset = gs::kRows * gs::kCols * kWordBytes;
+  static constexpr int kStageBytes = kScaleOffset + 2 * kGroups * gs::kCols * sizeof(T);
+  static constexpr int kStageX = 128, kChunks = 4;
 
-template <typename T, int M>
-__global__ void __launch_bounds__(kWarps * 32)
-gemv_qs_kernel(const T* __restrict__ x, const int32_t* __restrict__ w, const T* __restrict__ s,
-               const T* __restrict__ z, float* __restrict__ partial, int K, int N, int sym) {
-  // x slice [M][4 fields][kWarps chunks][32]; reused for the warp reduction
-  __shared__ float smem[M * 4 * kWarps * 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int C = K / 128;  // chunks == groups per field quarter
-  const int KQ = K / 4;
-  const int c0 = blockIdx.y * kWarps;
-  const int col = blockIdx.x * kCols + 2 * lane;
-
-  for (int i = threadIdx.x; i < M * 4 * kWarps * 32; i += blockDim.x) {
-    const int e = i % 32, cl = (i / 32) % kWarps;
-    const int f = (i / (32 * kWarps)) % 4, m = i / (32 * kWarps * 4);
-    const int c = c0 + cl;
-    smem[i] = c < C ? Num<T>::to_f(x[(size_t)m * K + f * KQ + 32 * c + e]) : 0.f;
+  static __device__ __forceinline__ int scale_row(int t, int j, int G) { return j * (G / 4) + t; }
+  static __device__ __forceinline__ int chunk_k(int c, int t0, int K) {
+    return c * (K / 4) + 32 * t0;
   }
-  __syncthreads();
-
-  float acc[M][2];
+  static __device__ __forceinline__ int raw_index(int i, int rr, int e, int n) {
+    return (e / 2) * 32 * n + 32 * i + 2 * rr + e % 2;
+  }
+  // quarter j's group: lane = element (row lane / 2, half lane % 2); one
+  // f32 sum rounded to T
+  static __device__ __forceinline__ float group_sum(const float* xst, int j, int m, int M,
+                                                    int lane) {
+    float v = xst[((lane / 2) * M + m) * gs::kXRow + 2 * j + lane % 2];
 #pragma unroll
-  for (int m = 0; m < M; ++m) acc[m][0] = acc[m][1] = 0.f;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return rnd<T>(v);
+  }
 
-  const int c = c0 + warp;
-  if (c < C) {
-    int2 wv[kRows];
-    const int32_t* wp = w + (size_t)(kRows * c) * N + col;
+  template <int M>
+  static __device__ __forceinline__ void consume(const uint8_t* st, const float* xst,
+                                                 const float* sx, float (&acc)[M][gs::C],
+                                                 bool asym, int c) {
+    constexpr int C = gs::C;
+    float p[M][4][C];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      wv[r] = __ldg(reinterpret_cast<const int2*>(wp + (size_t)r * N));
-
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) p[m][f][cc] = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < gs::kRows; ++rr) {
+      uint32_t w[C];
+      gs::load_words(st + rr * gs::kCols * kWordBytes, c, w);
+      float q[C][8];
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) q[cc][e] = gs::code16(w[cc], 4 * (e / 2) + 16 * (e % 2));
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float4* xr = reinterpret_cast<const float4*>(xst + (rr * M + m) * gs::kXRow);
+        const float4 a = xr[0], b = xr[1];
+        const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int cc = 0; cc < C; ++cc)
+            p[m][e / 2][cc] = fmaf(xv[e], q[cc][e], p[m][e / 2][cc]);
+      }
+    }
+    // y += s * (P - 16 sx) + z * sx (sym: s * (P - 23 sx)), f32 scales
+    const T* S = reinterpret_cast<const T*>(st + kScaleOffset);
+    const T* Z = S + kGroups * gs::kCols;
+    const float base = asym ? 16.f : 23.f;
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
-      const int g = f * C + c;
-      const float2 s2 = Num<T>::load2(s + (size_t)g * N + col);
-      const float s0 = s2.x, s1 = s2.y;
-      float z0 = 0.f, z1 = 0.f;
-      if (!sym) {
-        const float2 z2 = Num<T>::load2(z + (size_t)g * N + col);
-        z0 = z2.x;
-        z1 = z2.y;
+      float s[C], z[C];
+      gs::load_cols(S + f * gs::kCols, c, s);
+      if (asym) {
+        gs::load_cols(Z + f * gs::kCols, c, z);
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) z[cc] = 0.f;
       }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
-        const float* xs = smem + ((m * 4 + f) * kWarps + warp) * 32;
-        float sx = xs[lane];
+        const float v = sx[f * M + m];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sx += __shfl_xor_sync(0xffffffffu, sx, o);
-        sx = rnd<T>(sx);
-        float p0 = 0.f, p1 = 0.f;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float xa = xs[2 * r], xb = xs[2 * r + 1];
-          const int lo = 4 * f, hi = 16 + 4 * f;
-          p0 = fmaf(xa, 16.f + ((wv[r].x >> lo) & 0xF), p0);
-          p0 = fmaf(xb, 16.f + ((wv[r].x >> hi) & 0xF), p0);
-          p1 = fmaf(xa, 16.f + ((wv[r].y >> lo) & 0xF), p1);
-          p1 = fmaf(xb, 16.f + ((wv[r].y >> hi) & 0xF), p1);
-        }
-        if (sym) {
-          acc[m][0] += s0 * (p0 - 23.f * sx);  // 16 + max_int
-          acc[m][1] += s1 * (p1 - 23.f * sx);
-        } else {
-          acc[m][0] += s0 * (p0 - 16.f * sx) + z0 * sx;
-          acc[m][1] += s1 * (p1 - 16.f * sx) + z1 * sx;
-        }
+        for (int cc = 0; cc < C; ++cc) acc[m][cc] += s[cc] * (p[m][f][cc] - base * v) + z[cc] * v;
       }
     }
   }
-  __syncthreads();  // the x slice is dead; reuse smem for the reduction
+};
 
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    smem[(warp * M + m) * kCols + 2 * lane] = acc[m][0];
-    smem[(warp * M + m) * kCols + 2 * lane + 1] = acc[m][1];
+// Call f(gs::Body<P, M>()) on the streaming body of (dtype, M): bf16 and
+// f16 at M = 1, f32 at 1 <= M <= 8 (cudaErrorInvalidValue for another).
+template <class F>
+cudaError_t with_stream_body(int dtype, int M, F f) {
+  switch (dtype) {
+    case int4k::kBF16:
+      return M == 1 ? f(gs::Body<QsStream<__nv_bfloat16>, 1>()) : cudaErrorInvalidValue;
+    case int4k::kF16:
+      return M == 1 ? f(gs::Body<QsStream<__half>, 1>()) : cudaErrorInvalidValue;
+    case int4k::kF32:
+      switch (M) {
+        case 1: return f(gs::Body<QsStream<float>, 1>());
+        case 2: return f(gs::Body<QsStream<float>, 2>());
+        case 3: return f(gs::Body<QsStream<float>, 3>());
+        case 4: return f(gs::Body<QsStream<float>, 4>());
+        case 5: return f(gs::Body<QsStream<float>, 5>());
+        case 6: return f(gs::Body<QsStream<float>, 6>());
+        case 7: return f(gs::Body<QsStream<float>, 7>());
+        case 8: return f(gs::Body<QsStream<float>, 8>());
+      }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < M * kCols; i += blockDim.x) {
-    const int m = i / kCols, cc = i % kCols;
-    float t = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) t += smem[(wi * M + m) * kCols + cc];
-    partial[((size_t)blockIdx.y * M + m) * N + blockIdx.x * kCols + cc] = t;
-  }
-}
-
-template <typename T, int M>
-void launch(const void* x, const void* w, const void* s, const void* z, void* partial,
-            int K, int N, int sym, cudaStream_t st) {
-  const int C = K / 128;
-  dim3 grid(N / kCols, (C + kWarps - 1) / kWarps);
-  gemv_qs_kernel<T, M><<<grid, kWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(w), static_cast<const T*>(s),
-      static_cast<const T*>(z), static_cast<float*>(partial), K, N, sym);
-}
-
-// the SIMT body: bf16 and f16 at m = 1 only (above it they run GpPolicy)
-template <typename T>
-int launch_m(const void* x, const void* w, const void* s, const void* z, void* partial,
-             int M, int K, int N, int sym, cudaStream_t st) {
-  if constexpr (!std::is_same<T, float>::value) {
-    if (M != 1) return static_cast<int>(cudaErrorInvalidValue);
-    launch<T, 1>(x, w, s, z, partial, K, N, sym, st);
-    return 0;
-  } else {
-    switch (M) {
-      case 1: launch<T, 1>(x, w, s, z, partial, K, N, sym, st); break;
-      case 2: launch<T, 2>(x, w, s, z, partial, K, N, sym, st); break;
-      case 3: launch<T, 3>(x, w, s, z, partial, K, N, sym, st); break;
-      case 4: launch<T, 4>(x, w, s, z, partial, K, N, sym, st); break;
-      case 5: launch<T, 5>(x, w, s, z, partial, K, N, sym, st); break;
-      case 6: launch<T, 6>(x, w, s, z, partial, K, N, sym, st); break;
-      case 7: launch<T, 7>(x, w, s, z, partial, K, N, sym, st); break;
-      case 8: launch<T, 8>(x, w, s, z, partial, K, N, sym, st); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return 0;
-  }
+  return cudaErrorInvalidValue;
 }
 
 // ---- bf16 and f16 at 2 <= m <= 8: the tensor-core body ----
@@ -315,38 +288,31 @@ cudaError_t launch_tc(const void* x, const void* w, const void* s, const void* z
 
 }  // namespace
 
-// Number of split-K slices of the SIMT body: the caller sizes the f32
-// scratch [S, M, N].
-extern "C" int mlc_gemv_qs_splits(int K) { return (K / 128 + kWarps - 1) / kWarps; }
-
-// dtype: int4k::DType of x, s and z. x [M, K]; w int32 words [K/8, N] (a
-// layer's block); s, z [K/32, N] (z unused when sym); partial f32
-// [splits, M, N]; out [M, N] in the compute type (out_f32 = 0) or f32.
-// The SIMT body: M = 1, or f32 at 1 <= M <= 8. Needs K % 128 == 0, N % 64
-// == 0. Returns cudaGetLastError() after the launches.
+// The streaming body. dtype: int4k::DType of x, s and z. x [M, K]; w
+// int32 words [K/8, N] (a layer's block); s, z [K/32, N] (z null when
+// sym); `parts` split-K parts of `per` 128-k stages (at most gs::kMaxPer),
+// with partial f32 [parts, M, N] and tickets int32 [ceil(N / 256)], zero,
+// when parts > 1 (else null); out [M, N] in the compute type (out_f32 = 0)
+// or f32. M = 1, or f32 at 1 <= M <= 8. Needs K % 128 == 0, N % 8 == 0 and
+// 16-byte aligned bases. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a refused plan).
 extern "C" int mlc_gemv_qs(int dtype, const void* x, const void* w, const void* s,
-                           const void* z, void* partial, void* out, int M, int K, int N,
-                           int sym, int out_f32, void* stream) {
+                           const void* z, void* partial, void* tickets, void* out, int M, int K,
+                           int N, int out_f32, int parts, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* part = static_cast<const float*>(partial);
-  const int MN = M * N, S = mlc_gemv_qs_splits(K);
-  int err;
-  switch (dtype) {
-    case int4k::kBF16:
-      err = launch_m<__nv_bfloat16>(x, w, s, z, partial, M, K, N, sym, st);
-      if (!err) int4k::launch_reduce<__nv_bfloat16>(part, out, S, MN, out_f32, st);
-      break;
-    case int4k::kF16:
-      err = launch_m<__half>(x, w, s, z, partial, M, K, N, sym, st);
-      if (!err) int4k::launch_reduce<__half>(part, out, S, MN, out_f32, st);
-      break;
-    case int4k::kF32:
-      err = launch_m<float>(x, w, s, z, partial, M, K, N, sym, st);
-      if (!err) int4k::launch_reduce<float>(part, out, S, MN, out_f32, st);
-      break;
-    default: err = static_cast<int>(cudaErrorInvalidValue);
-  }
-  return err ? err : static_cast<int>(cudaGetLastError());
+  const gs::Params p{x, static_cast<const uint8_t*>(w), static_cast<const uint8_t*>(s),
+                     static_cast<const uint8_t*>(z), static_cast<float*>(partial),
+                     static_cast<int*>(tickets), out, K, N, K / 32, K / 128, per, parts,
+                     out_f32};
+  if (K % 128 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      with_stream_body(dtype, M, [&](auto body) { return gs::launch(body, p, st); }));
+}
+
+// The blocks of the streaming body of (dtype, M) an SM holds, into *n.
+extern "C" int mlc_gemv_qs_blocks(int dtype, int M, int* n) {
+  return static_cast<int>(
+      with_stream_body(dtype, M, [&](auto body) { return gs::blocks_per_sm(body, n); }));
 }
 
 // The tensor-core body: bf16/f16 (dtype) at 2 <= M <= 8; the arguments of

@@ -7,7 +7,8 @@ PyTorch version, on CUDA tensors it launches the kernel or raises.
 
 Kernels live in ``csrc/<name>.cu`` with a plain C interface (the int4
 kernels share ``csrc/int4_common.cuh``; the wgmma GEMMs and the
-tensor-core GEMVs share the Hopper mainloop ``csrc/dequant_wgmma.cuh``).
+tensor-core GEMVs share the Hopper mainloop ``csrc/dequant_wgmma.cuh``;
+the m = 1 GEMVs the weight-streaming mainloop ``csrc/gemv_stream.cuh``).
 Each is compiled at first use
 by ``nvcc`` into ``csrc/build/<name>.so`` (rebuilt when the source or a
 header is newer) and loaded with ``ctypes``. A failed build raises;
@@ -35,6 +36,8 @@ KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp", "dequant_gem
            "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the kernels' ticket buffers, by device and stream: see zeroed_tickets
+_TICKETS: Dict[tuple, torch.Tensor] = {}
 
 
 def resolve_device(device) -> torch.device:
@@ -129,3 +132,20 @@ def check_launch(err: int, name: str) -> None:
     """Raise when a kernel entry returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def zeroed_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n zeroed int32 tickets for launches on `stream` (a CUDA
+    stream handle) of `device`, one cached buffer each. A kernel that
+    combines its split parts in the same launch (kernel 7, the streaming
+    GEMVs) takes one ticket per output tile and puts it back to 0, so the
+    buffer is zero between launches; launches on one stream run one at a
+    time, so they share it, and a launch on another stream gets another
+    buffer. It is allocated (zeroed) anew only when a call needs more
+    tickets."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t

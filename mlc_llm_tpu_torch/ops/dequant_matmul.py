@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -65,7 +66,7 @@ from ..quant.groupwise import (
     words_per_group,
 )
 from ..quant.spec import QUANT_PRESETS, QuantSpec
-from . import check_launch, load_kernel
+from . import check_launch, load_kernel, zeroed_tickets
 
 GEMV_MAX_M = 8       # gp_matmul_supported: m <= 8
 GP3_MAX_M = 2        # gp3_matmul_supported: m <= 2
@@ -73,15 +74,16 @@ GEMM_MAX_M = 2048    # matmul.py prefill_kernel_max_m()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_GEMV_ARGS = {"mlc_gemv_qs_splits": [_I],
-              "mlc_gemv_qs": [_I] + [_P] * 6 + [_I] * 5 + [_P],
-              "mlc_gemv_qs_tc": [_I] + [_P] * 6 + [_I] * 7 + [_P]}
+_GEMV_ARGS = {"mlc_gemv_qs": [_I] + [_P] * 7 + [_I] * 6 + [_P],
+              "mlc_gemv_qs_tc": [_I] + [_P] * 6 + [_I] * 7 + [_P],
+              "mlc_gemv_qs_blocks": [_I] * 2 + [_P]}
 _GEMM_ARGS = {"mlc_gemm_qs": [_I] + [_P] * 7 + [_I] * 8 + [_P]}
-_GP_ARGS = {"mlc_gemv_gp_splits": [_I],
-            "mlc_gemv_gp": [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
-            "mlc_gemv_gp_tc": [_I] * 2 + [_P] * 7 + [_I] * 7 + [_P]}
+_GP_ARGS = {"mlc_gemv_gp": [_I] * 2 + [_P] * 7 + [_I] * 6 + [_P],
+            "mlc_gemv_gp_tc": [_I] * 2 + [_P] * 7 + [_I] * 7 + [_P],
+            "mlc_gemv_gp_blocks": [_I] * 2 + [_P]}
 _PAIRS_ARGS = {"mlc_gemm_pairs": [_I] * 2 + [_P] * 7 + [_I] * 8 + [_P]}
-_GP3_ARGS = {"mlc_gemv_gp3_splits": [_I], "mlc_gemv_gp3": [_P] * 5 + [_I] * 4 + [_P]}
+_GP3_ARGS = {"mlc_gemv_gp3": [_P] * 6 + [_I] * 6 + [_P],
+             "mlc_gemv_gp3_blocks": [_I, _P]}
 _PLANE_ARGS = {"mlc_gemm_plane": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
 _QSPLIT = QUANT_PRESETS["q4bf16"]
 _Q3S16 = QUANT_PRESETS["q3bf16_s16"]
@@ -168,6 +170,81 @@ GEMV_MAX_SPLITS = 4
 # plan it picks is the sweep's fastest at every swept shape (a cap of 4
 # parts, gemv_qs's, ran the N = 2560 shapes up to 27% slower)
 GP_GEMV_TIMES = (0.3, 0.0, 16)
+# The m = 1 GEMVs (and the f32 qsplit GEMV at every m; csrc/gemv_stream.cuh):
+# a block streams STREAM_COLS output columns over a contiguous range of at
+# most STREAM_MAX_PER K stages (the x slice it stages in shared memory); a
+# stage is 16 word rows, STREAM_STAGE_K k by order. The last part of a
+# column tile to finish sums the f32 parts in the same launch.
+STREAM_COLS = 256
+STREAM_MAX_PER = 16
+STREAM_MAX_PARTS = 64
+STREAM_STAGE_K = {"qsplit": 128, "pair": 128, "hsplit": 128, "int3": 80}
+# the blocks an SM holds of each stream_kernel instantiation (its shared
+# memory bounds them), by (word kind, compute dtype bytes, m): chip_smoke.py
+# holds each against cudaOccupancyMaxActiveBlocksPerMultiprocessor of the
+# built kernel
+STREAM_BLOCKS = {("int4", 2, 1): 4, ("int3", 2, 1): 5, ("int3", 2, 2): 4,
+                 **{("int4", 4, m): b for m, b in zip(range(1, 9), (3, 2, 2, 1, 1, 1, 1, 1))}}
+# stream_plan's time model: (the HBM rate the streaming blocks share, B/µs;
+# one block's own streaming rate, B/µs; a block's fixed cost, µs), fitted
+# to scripts/torch_plan_sweep.py on an H100 (700 W)
+STREAM_TIMES = (2.6e6, 1.0e4, 6.0)
+
+
+# cached: every decode step asks again for the same shapes, and b1 decode
+# is bound by the host (the loop below costs tens of µs of Python a call)
+@functools.lru_cache(maxsize=None)
+def stream_plan(order: str, m: int, K: int, N: int, itemsize: int = 2):
+    """The streaming GEMV's launch plan for an [m, n] output over the
+    stored K of a weight in `order` ("qsplit", "pair", "hsplit" or
+    "int3") and a compute dtype of `itemsize` bytes, for which a kernel
+    is built (STREAM_BLOCKS; else ValueError): (columns a block,
+    split-K parts, stages a part). Part p covers stages [p * per, min(steps,
+    (p + 1) * per)): none is empty, none longer than STREAM_MAX_PER. Each
+    split count is priced on STREAM_TIMES: the resident blocks (at most
+    the SMs times STREAM_BLOCKS; more make waves) share the HBM
+    rate, each at most its own rate, so a stage takes max(stage bytes *
+    resident blocks / HBM rate, stage bytes / a block's rate); a wave
+    costs per stages and a block's fixed cost; when split, the f32 parts'
+    bytes (written, then read by the last part) at the HBM rate. A count
+    with more parts is taken only when it is at least 5% cheaper. Reads no
+    tensor."""
+    int3 = order == "int3"
+    slots = STREAM_BLOCKS.get(("int3" if int3 else "int4", itemsize, m))
+    if slots is None:
+        raise ValueError(f"stream_plan: no streaming body for {order} at m = {m} "
+                         f"with {itemsize}-byte compute")
+    # a stage: 16 word rows of the block's columns, and its groups' scales
+    # (int4: and minima)
+    stage_bytes = STREAM_COLS * (16 * (2 if int3 else 4) + (2 if int3 else 8) * itemsize)
+    steps = K // STREAM_STAGE_K[order]
+    tiles = -(-N // STREAM_COLS)
+    hbm, rate, block_us = STREAM_TIMES
+    cap = H100_SMS * slots
+    best = None
+    for s in range(-(-steps // STREAM_MAX_PER), min(steps, STREAM_MAX_PARTS) + 1):
+        per = -(-steps // s)
+        parts = -(-steps // per)
+        blocks = tiles * parts
+        stage_us = max(stage_bytes * min(blocks, cap) / hbm, stage_bytes / rate)
+        cost = -(-blocks // cap) * (per * stage_us + block_us)
+        if parts > 1:
+            cost += parts * m * N * 8 / HBM_BYTES_PER_US
+        if best is None or cost < 0.95 * best[0]:
+            best = (cost, parts, per)
+    if best is None:
+        raise ValueError(f"stream_plan: K = {K} needs more than {STREAM_MAX_PARTS} parts")
+    return STREAM_COLS, best[1], best[2]
+
+
+def _stream_scratch(x, m: int, N: int, parts: int, stream: int):
+    """The streaming GEMV's split-K scratch: the f32 parts [parts, m, N]
+    and the column tiles' zeroed tickets on `stream`, or (None, None)
+    unsplit."""
+    if parts == 1:
+        return None, None
+    return (torch.empty((parts, m, N), dtype=torch.float32, device=x.device),
+            zeroed_tickets(x.device, stream, -(-N // STREAM_COLS)))
 
 
 def plane_tiles(fmt: int, m: int, n: int, rows: int):
@@ -484,8 +561,8 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     bf16, f16 or f32; data int32 [KW, N] or [L, KW, N] (then pass
     `layer`); scale/zero like data with G = K/32 rows, in x's dtype; zero
     None for sym. Returns [m, N] in out_dtype (x's or f32). bf16 and f16
-    at m >= 2 run the tensor-core body (N % 128 == 0), the rest the SIMT
-    body; one launch counter."""
+    at m >= 2 run the tensor-core body (N % 128 == 0), the rest the
+    streaming body (one launch a call); one launch counter."""
     if x.device.type == "cpu":
         return gemv_qs_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                              _layer_view(zero, layer), out_dtype)
@@ -498,10 +575,10 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     sym, out_f32 = int(zero is None), int(out_dtype == torch.float32)
+    _check_tma("gemv_qs", x.data_ptr(), wp, sp, zp)
     if m >= 2 and x.dtype != torch.float32:  # the tensor-core body
         if N % TILE_N:
             raise ValueError(f"gemv_qs: N={N} is not a multiple of {TILE_N} at m={m}")
-        _check_tma("gemv_qs", x.data_ptr(), wp, sp, zp)
         _, splits, per = gemm_tiles(m, N, K // GEMV_STAGE_K, GEMV_WIDTHS,
                                      max_splits=GEMV_MAX_SPLITS)
         partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
@@ -511,11 +588,14 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
             None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, sym,
             out_f32, splits, per, _stream(x))
     else:
-        splits = lib.mlc_gemv_qs_splits(K)
-        partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+        _, parts, per = stream_plan("qsplit", m, K, N, x.element_size())
+        st = _stream(x)
+        partial, tickets = _stream_scratch(x, m, N, parts, st)
         err = lib.mlc_gemv_qs(
-            DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp, partial.data_ptr(), out.data_ptr(),
-            m, K, N, sym, out_f32, _stream(x))
+            DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp,
+            None if partial is None else partial.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), out.data_ptr(), m, K, N, out_f32,
+            parts, per, st)
     check_launch(err, "gemv_qs")
     gemv_qs.launches += 1
     return out
@@ -526,8 +606,9 @@ gemv_qs.launches = 0
 
 def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloat16):
     """Group-partial dequant GEMV for the pair and hsplit orders; the
-    arguments of gemv_qs, plus the weight's `layout`. m = 1 runs the SIMT
-    body; 2 <= m <= 8 the tensor-core body (N % 128 == 0) in every compute
+    arguments of gemv_qs, plus the weight's `layout`. m = 1 runs the
+    streaming body (one launch a call); 2 <= m <= 8 the tensor-core body
+    (N % 128 == 0) in every compute
     dtype, f32 with a prologue that splits x into TF32 planes and sums its
     groups (scratch [2*m*K + m*G] f32); one launch counter."""
     if x.device.type == "cpu":
@@ -542,10 +623,10 @@ def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloa
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     sym, out_f32 = int(zero is None), int(out_dtype == torch.float32)
+    _check_tma("gemv_gp", x.data_ptr(), wp, sp, zp)
     if m >= 2:  # the tensor-core body
         if N % TILE_N:
             raise ValueError(f"gemv_gp: N={N} is not a multiple of {TILE_N} at m={m}")
-        _check_tma("gemv_gp", x.data_ptr(), wp, sp, zp)
         _, splits, per = gemm_tiles(m, N, K // GEMV_STAGE_K, GEMV_WIDTHS,
                                      times=GP_GEMV_TIMES)
         partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
@@ -558,11 +639,14 @@ def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloa
             None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, sym,
             out_f32, splits, per, _stream(x))
     else:
-        splits = lib.mlc_gemv_gp_splits(K)
-        partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+        _, parts, per = stream_plan(layout, m, K, N, x.element_size())
+        st = _stream(x)
+        partial, tickets = _stream_scratch(x, m, N, parts, st)
         err = lib.mlc_gemv_gp(
             LAYOUT_IDS[layout], DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp, zp,
-            partial.data_ptr(), out.data_ptr(), m, K, N, sym, out_f32, _stream(x))
+            None if partial is None else partial.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), out.data_ptr(), m, K, N, out_f32,
+            parts, per, st)
     check_launch(err, "gemv_gp")
     gemv_gp.launches += 1
     return out
@@ -671,12 +755,15 @@ def gemv_gp3(x, data, scale, layer=None, out_dtype=torch.bfloat16):
     if not 1 <= m <= GP3_MAX_M:
         raise ValueError(f"gemv_gp3: m={m} outside 1..{GP3_MAX_M}")
     lib = load_kernel("dequant_gemv_gp3", _GP3_ARGS)
-    splits = lib.mlc_gemv_gp3_splits(G)
-    partial = torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
-    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     wp, sp, _ = _ptrs(data, scale, None, layer)
-    err = lib.mlc_gemv_gp3(x.data_ptr(), wp, sp, partial.data_ptr(), out.data_ptr(), m, G, N,
-                           int(out_dtype == torch.float32), _stream(x))
+    _check_tma("gemv_gp3", x.data_ptr(), wp, sp)
+    _, parts, per = stream_plan("int3", m, x.shape[1], N)
+    st = _stream(x)
+    partial, tickets = _stream_scratch(x, m, N, parts, st)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    err = lib.mlc_gemv_gp3(x.data_ptr(), wp, sp, None if partial is None else partial.data_ptr(),
+                           None if tickets is None else tickets.data_ptr(), out.data_ptr(), m, G,
+                           N, int(out_dtype == torch.float32), parts, per, st)
     check_launch(err, "gemv_gp3")
     gemv_gp3.launches += 1
     return out

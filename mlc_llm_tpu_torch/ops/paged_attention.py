@@ -40,11 +40,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
-from . import check_launch, load_kernel
+from . import check_launch, load_kernel, zeroed_tickets
 
 NEG_INF = -1e30
 # the head dims the kernel's lane layouts take: 8 elements a lane (80 on 10
@@ -248,10 +248,11 @@ def paged_flash_decode(q, k_pages, v_pages, k_scale, v_scale, page_table, length
     hb = hbD // D
     pps, nsplit = launch_plan(q, k_pages, page_table, num_pages_window)
     part = ml = tickets = None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     if nsplit > 1:
         part = torch.empty((nsplit, B * Hq, D), dtype=torch.float32, device=q.device)
         ml = torch.empty((nsplit, B * Hq, 2), dtype=torch.float32, device=q.device)
-        tickets = _tickets(q.device, B * Hq)
+        tickets = zeroed_tickets(q.device, stream, B * Hq)
     lib = load_kernel("paged_flash_decode", _ARGS)
     out = torch.empty((B, Hq, 1, D), dtype=q.dtype, device=q.device)
     err = lib.mlc_paged_flash_decode(
@@ -261,22 +262,10 @@ def paged_flash_decode(q, k_pages, v_pages, k_scale, v_scale, page_table, length
         B, Hq, G, L, P, ps, hb, D, maxp, np_, layer, PAGE_TYPES[k_pages.dtype],
         Q_TYPES[q.dtype], nsplit, pps, None if part is None else part.data_ptr(),
         None if ml is None else ml.data_ptr(), None if tickets is None else tickets.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream)
     check_launch(err, "paged_flash_decode")
     paged_flash_decode.launches += 1
     return out
 
 
 paged_flash_decode.launches = 0
-
-# the split-KV tickets, one zeroed int32 buffer per device, grown (zeroed
-# anew) only when a call needs more cells; each launch leaves it zero
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t

@@ -3,6 +3,7 @@ ablation.
 
     python scripts/torch_ablation.py --kernel gemv_gp
     python scripts/torch_ablation.py --kernel gemm_plane
+    python scripts/torch_ablation.py --kernel gemv_stream
 
 Builds variants of this tree's kernel, each with one part of its stage
 taken out by a source edit, all with one nvcc each started together, and
@@ -35,10 +36,30 @@ fp4bf16 and q8bf16 at w_in, m = 2048:
   word or scale loads, no bit assembly);
 - ring: neither: the TMA ring, its barriers and the loop alone.
 
+--kernel gemv_stream: the weight-streaming mainloop of the m = 1 GEMVs
+(csrc/gemv_stream.cuh, the qsplit policy QsStream of
+csrc/dequant_gemv_qs.cu), bf16, m = 1, through `mlc_gemv_qs` at the
+Vicuna-7B shapes (stored K), under the wrapper's plan (`stream_plan`) and
+with twice its parts:
+- base: the kernel as it is;
+- no_codes: a code is the word or-ed into 0x41800000 (no shift, no lop3
+  per code; one a word);
+- no_math: no codes and no FMAs (the words and x still read from shared
+  memory, one add a row);
+- ring: no stage consumed (the ring, its barriers, the x staging and the
+  combine alone);
+- no_stage_x: ring and math as base, no x slice staged or summed;
+- no_combine: the parts write their partials, no ticket, no combine;
+- empty: the kernel returns at once (the launch and timing floor);
+- stages3, stages4: a ring of 3 or 4 stages (2 as built);
+- cols1: one column a consumer thread (two as built; eight consumer warps
+  a block instead of four).
+
 Times are CUDA-event means with the 50 MB L2 flushed before each launch,
 as chip_smoke.py times them. Prints one JSON line per case, then the
 card's name and power limit. The variants are built under
-csrc/build/ablation/<kernel>/.
+csrc/build/ablation/<kernel>/. An edit is (old, new) in the kernel's
+edited file, or (file, old, new).
 """
 
 from __future__ import annotations
@@ -111,6 +132,71 @@ PLANE_NO_DEQUANT = [(PLANE_DEQUANT, """          a[k % 2][0] = a[k % 2][1] = a[k
 PLANE_NO_MMA = [(PLANE_MMA, """          asm volatile("" ::"r"(a[k % 2][0]), "r"(a[k % 2][1]), "r"(a[k % 2][2]),
                        "r"(a[k % 2][3]));
 """)]
+
+
+# ---- gemv_stream: edits of csrc/dequant_gemv_qs.cu (QsStream) and csrc/gemv_stream.cuh
+QS_CODES = """        for (int e = 0; e < 8; ++e) q[cc][e] = gs::code16(w[cc], 4 * (e / 2) + 16 * (e % 2));"""
+QS_FMAS = """            p[m][e / 2][cc] = fmaf(xv[e], q[cc][e], p[m][e / 2][cc]);"""
+STREAM_NO_CODES = [(QS_CODES, """        for (int e = 0; e < 8; ++e) q[cc][e] = __uint_as_float(w[cc] | 0x41800000u);""")]
+STREAM_NO_MATH = STREAM_NO_CODES + [(QS_FMAS, """            if (e == 0) p[m][0][cc] += q[cc][0] + xv[0];""")]
+STREAM_COLS1 = [("gemv_stream.cuh", "constexpr int kColsPerThread = 2; ",
+                 "constexpr int kColsPerThread = 1; ")]
+STREAM_CONSUME = """    P::template consume<M>(smem + slot * P::kStageBytes, xs + i * kRows * M * kXRow,
+                           sxs + i * P::kGroups * M, acc, asym, tid);"""
+STREAM_RING = [("gemv_stream.cuh", STREAM_CONSUME, """    acc[0][0] += sxs[i];""")]
+STREAM_NO_STAGE_X = [("gemv_stream.cuh", """  wg::mbar_wait(&xbar, 0);
+""", ""), ("gemv_stream.cuh",
+           """    xs[idx] = r >= 0 ? Num<T>::to_f(xraw[m * slice + r]) : 0.f;""",
+           """    xs[idx] = 0.f * r;"""),
+                     ("gemv_stream.cuh",
+                      """    const float v = P::group_sum(xs + i * kRows * M * kXRow, j, m, M, lane);""",
+                      """    const float v = 0.f * lane;""")]
+STREAM_NO_COMBINE = [("gemv_stream.cuh", """  if (tid == 0) last = ticket_acq_rel""",
+                      """  if (M > 0) return;
+  if (tid == 0) last = ticket_acq_rel""")]
+STREAM_EMPTY = [("gemv_stream.cuh", """  const bool asym = p.z != nullptr;
+""", """  const bool asym = p.z != nullptr;
+  if (p.K > 0) return;
+""")]
+QS_STAGES = "  static constexpr int kWordBytes = 4, kGroups = 4, kStages = 2;"
+STREAM_STAGES = {r: [(QS_STAGES, QS_STAGES.replace("kStages = 2", f"kStages = {r}"))]
+                 for r in (3, 4)}
+
+VICUNA_STORED = ((4096, 12288), (4096, 4096), (4096, 22016), (11264, 4096), (4096, 32000))
+
+
+def _qs_inputs(gen, K, N):
+    w = torch.randint(-2**31, 2**31 - 1, (K // 8, N), generator=gen, device="cuda",
+                      dtype=torch.int64).to(torch.int32)
+    s = (torch.rand((K // 32, N), generator=gen, device="cuda") * 0.01).bfloat16()
+    z = (torch.rand((K // 32, N), generator=gen, device="cuda") * -0.05).bfloat16()
+    x = torch.randn((1, K), generator=gen, device="cuda").bfloat16()
+    return x, w, s, z
+
+
+def gemv_stream_cases(gen):
+    """(row, launch(lib)) for the bf16 qsplit stream at m = 1, the wrapper's
+    plan and twice its parts."""
+    for K, N in VICUNA_STORED:
+        x, w, s, z = _qs_inputs(gen, K, N)
+        out = torch.empty((1, N), dtype=torch.bfloat16, device="cuda")
+        steps = K // 128
+        _, planned, _ = dm.stream_plan("qsplit", 1, K, N)
+        for want in sorted({planned, min(steps, 2 * planned)}):
+            per = -(-steps // want)
+            parts = -(-steps // per)
+            if per > dm.STREAM_MAX_PER:
+                continue
+            part = torch.empty((parts, 1, N), dtype=torch.float32, device="cuda")
+            tickets = torch.zeros(-(-N // 256), dtype=torch.int32, device="cuda")
+
+            def launch(lib, part=part, tickets=tickets, parts=parts, per=per):
+                return lib.mlc_gemv_qs(0, x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                                       z.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                                       out.data_ptr(), 1, K, N, 0, parts, per,
+                                       torch.cuda.current_stream().cuda_stream)
+            yield dict(k=K, n=N, m=1, dtype="bfloat16", parts=parts, per=per,
+                       planned=parts == planned), launch
 
 
 def gemv_gp_cases(gen):
@@ -191,30 +277,44 @@ KERNELS = {
         variants={"base": [], "no_mma": PLANE_NO_MMA, "no_dequant": PLANE_NO_DEQUANT,
                   "ring": PLANE_NO_DEQUANT + PLANE_NO_MMA},
         cases=gemm_plane_cases, reps=10),
+    "gemv_stream": dict(
+        source="dequant_gemv_qs.cu", edited="dequant_gemv_qs.cu", entry="mlc_gemv_qs",
+        argtypes=dm._GEMV_ARGS["mlc_gemv_qs"],
+        variants={"base": [], "no_codes": STREAM_NO_CODES, "no_math": STREAM_NO_MATH,
+                  "ring": STREAM_RING, "no_stage_x": STREAM_NO_STAGE_X,
+                  "no_combine": STREAM_NO_COMBINE, "empty": STREAM_EMPTY,
+                  "stages3": STREAM_STAGES[3], "stages4": STREAM_STAGES[4],
+                  "cols1": STREAM_COLS1},
+        cases=gemv_stream_cases, reps=30),
 }
 
 
-def variant_source(src: str, edits, edited: str) -> str:
-    for old, new in edits:
+def apply_edits(d: str, edits, edited: str):
+    """Apply each edit, (old, new) in `edited` or (file, old, new), to the
+    sources copied into d."""
+    for edit in edits:
+        fname, old, new = edit if len(edit) == 3 else (edited, *edit)
+        path = os.path.join(d, fname)
+        src = open(path).read()
         if old not in src:
-            raise SystemExit(f"csrc/{edited} changed: an ablation edit no longer applies")
-        src = src.replace(old, new, 1)
-    return src
+            raise SystemExit(f"csrc/{fname} changed: an ablation edit no longer applies")
+        with open(path, "w") as f:
+            f.write(src.replace(old, new, 1))
 
 
 def build(kernel: str):
     """One nvcc per variant, all started together; the loaded libraries."""
     spec = KERNELS[kernel]
-    src = open(os.path.join(CSRC, spec["edited"])).read()
     procs = []
     for name, edits in spec["variants"].items():
         d = os.path.join(OUT, kernel, name)
         os.makedirs(d, exist_ok=True)
+        for f in os.listdir(d):
+            os.remove(os.path.join(d, f))
         for f in os.listdir(CSRC):
             if f.endswith(".cuh") or f == spec["source"]:
                 shutil.copy(os.path.join(CSRC, f), d)
-        with open(os.path.join(d, spec["edited"]), "w") as f:
-            f.write(variant_source(src, edits, spec["edited"]))
+        apply_edits(d, edits, spec["edited"])
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, "variant.so"),
                os.path.join(d, spec["source"])]
         procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -7,11 +7,12 @@ Imports `mlc_llm_tpu_torch` from DIR (default: this checkout), builds its
 kernels, and times, at the Vicuna-7B shapes: `gemm_qs` on q4bf16 at m =
 128 and 2048, `gemm_plane` on q3bf16_s16 at m = 8, 128 and 2048 (and on
 q3bf16, fp4bf16 and q8bf16 at w_in), `gemv_qs`
-on q4bf16 at m = 3 and 8, and `gemm_pairs` in bf16 (q4bf16_pair,
-q4bf16_hs) at w_in, m = 128; at the GPT-NeoX 3B shapes: `gemm_pairs` on
-q4f32 (pair, f32) and q4f16_hs (hsplit, f16; the lm head in f32) at m =
-128 and, on w_in, 2048, `gemv_gp` on the same two presets at m = 3 and 8,
-and `gemm_qs` in f16 and f32 (qsplit) at m = 128; and
+on q4bf16 at m = 1, 3 and 8, `gemv_gp3` on q3bf16_s16 at m = 1 and 2, and
+`gemm_pairs` in bf16 (q4bf16_pair, q4bf16_hs) at w_in, m = 128; at the
+GPT-NeoX 3B shapes: `gemm_pairs` on q4f32 (pair, f32) and q4f16_hs
+(hsplit, f16; the lm head in f32) at m = 128 and, on w_in, 2048,
+`gemv_gp` on the same two presets at m = 1, 3 and 8, `gemv_qs` in f16
+and f32 (qsplit) at w_in, m = 1, and `gemm_qs` in f16 and f32 at m = 128; and
 `paged_flash_decode` at the serve pool's layout (hb 8, page 128, a
 16-page window) at b8 over mixed lengths, at b8 x 1024 and at b1 x 255,
 256, 1023 and 2047: Vicuna-7B (D
@@ -22,7 +23,9 @@ and read at layer 1; the lm head is flat with f32 out, at m <= 128 only.
 Each kernel
 result is held against its plain version (1e-2; f32 atol 1e-4, rtol 1e-3)
 before it is timed. Times are CUDA-event means with the 50 MB L2 flushed
-before each launch, as chip_smoke.py times them; the library call is
+before each launch, as chip_smoke.py times them; `host_us` is the median
+host time of one wrapper call (its Python, plan, scratch and launch API
+calls; the device idle before each call); the library call is
 torch.matmul on the weight dequantized once (f32: TF32 off). --only keeps
 the named kernels. Prints one JSON line per row, then the card's name and
 power limit. To compare a parent tree, unpack it with `git archive` into
@@ -35,8 +38,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [("wqkv", 4096, 12288), ("wo", 4096, 4096), ("w_in", 4096, 22016),
@@ -49,13 +54,16 @@ CASES = [("q4bf16", "gemm_qs", SHAPES, {"*": (128, 2048)}, False),
          ("q3bf16", "gemm_plane", SHAPES, {"w_in": (8, 128, 2048)}, False),
          ("fp4bf16", "gemm_plane", SHAPES, {"w_in": (8, 128, 2048)}, False),
          ("q8bf16", "gemm_plane", SHAPES, {"w_in": (8, 128, 2048)}, False),
-         ("q4bf16", "gemv_qs", SHAPES, {"*": (3, 8)}, False),
+         ("q4bf16", "gemv_qs", SHAPES, {"*": (1, 3, 8)}, False),
+         ("q3bf16_s16", "gemv_gp3", SHAPES, {"*": (1, 2)}, False),
          ("q4bf16_pair", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
          ("q4bf16_hs", "gemm_pairs", SHAPES, {"w_in": (128,)}, False),
          ("q4f32", "gemm_pairs", SHAPES_3B, {"*": (128,), "w_in": (128, 2048)}, True),
          ("q4f16_hs", "gemm_pairs", SHAPES_3B, {"*": (128,), "w_in": (128, 2048)}, True),
-         ("q4f32", "gemv_gp", SHAPES_3B, {"*": (3, 8)}, True),
-         ("q4f16_hs", "gemv_gp", SHAPES_3B, {"*": (3, 8)}, True),
+         ("q4f32", "gemv_gp", SHAPES_3B, {"*": (1, 3, 8)}, True),
+         ("q4f16_hs", "gemv_gp", SHAPES_3B, {"*": (1, 3, 8)}, True),
+         ("q4f16", "gemv_qs", SHAPES_3B, {"w_in": (1,)}, True),
+         ("q4f32:qsplit", "gemv_qs", SHAPES_3B, {"w_in": (1,)}, True),
          ("q4f16", "gemm_qs", SHAPES_3B, {"*": (128,)}, True),
          ("q4f32:qsplit", "gemm_qs", SHAPES_3B, {"*": (128,)}, True)]
 # kernel 7: (label, kv-heads, query heads, head dim, q dtype, page dtypes)
@@ -79,6 +87,18 @@ def time_ms(torch, fn, flush, reps):
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+def host_us(torch, fn, reps=200):
+    """The median host time of one call, µs, each started on an idle device."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def paged_rows(torch, label, gen, flush):
@@ -197,6 +217,9 @@ def main():
             out_dtype = torch.float32 if flat else cd
             extra = ((spec,) if kname == "gemm_plane"
                      else (spec.layout,) if kname in ("gemm_pairs", "gemv_gp") else ())
+            # gemv_gp3 takes no minima (sym)
+            zarg = () if kname == "gemv_gp3" else (zero,)
+            zone = () if kname == "gemv_gp3" else (one.zero,)
             tol = (dict(atol=1e-4, rtol=1e-3) if cd == torch.float32
                    else dict(atol=1e-2, rtol=1e-2))
             for m in ms:
@@ -206,10 +229,10 @@ def main():
                 x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(cd)
 
                 def run():
-                    return fn(x, data, scale, zero, *extra, layer=layer, out_dtype=out_dtype)
+                    return fn(x, data, scale, *zarg, *extra, layer=layer, out_dtype=out_dtype)
 
                 got = run()
-                want = plain(x, one.data, one.scale, one.zero, *extra, out_dtype)
+                want = plain(x, one.data, one.scale, *zone, *extra, out_dtype)
                 ok = torch.allclose(got.float(), want.float(), **tol)
                 reps = 20 if m <= 128 else 5
                 t = time_ms(torch, run, flush, reps)
@@ -217,7 +240,8 @@ def main():
                 print(json.dumps(dict(tree=args.label, kernel=kname, quant=quant,
                                       dtype=str(cd).replace("torch.", ""), shape=name,
                                       m=m, k=K, n=N, ms=t, library_ms=lib, ratio=t / lib,
-                                      tflops=2 * m * K * N / (t * 1e-3) / 1e12, ok=ok)),
+                                      tflops=2 * m * K * N / (t * 1e-3) / 1e12, ok=ok,
+                                      host_us=host_us(torch, run))),
                       flush=True)
             del data, scale, zero, dense, qts
             torch.cuda.empty_cache()

@@ -8,9 +8,13 @@ NeoX and Vicuna prefills and the b8 decode steps run; `gemm_qs` in bf16 at
 the Vicuna-7B shapes at m = 128 and 2048, in f16 and f32 at the 3B shapes
 at m = 128; `gemv_gp` at m = 8 at the 3B shapes, hsplit f16 and pair f32
 with their f32 lm heads; `gemm_plane` on q3bf16_s16 at the Vicuna-7B
-shapes at m = 8, 128 and 2048 and on q3bf16, fp4bf16 and q8bf16 at w_in),
+shapes at m = 8, 128 and 2048 and on q3bf16, fp4bf16 and q8bf16 at w_in;
+the streaming m = 1 GEMVs: `gemv_qs` q4bf16 and `gemv_gp3` q3bf16_s16 at
+the Vicuna-7B shapes, `gemv_gp` q4f32 and q4f16_hs at the 3B shapes, the
+lm heads in f32 where the model's is),
 forces each distinct plan (m tile, split-K parts, stages per part) in
-place of `gemm_tiles`' choice, holds the result against the plain version
+place of `gemm_tiles`' choice (the streaming GEMVs: columns a block,
+parts, stages per part, in place of `stream_plan`'s), holds the result against the plain version
 (1e-2; f32 atol 1e-4, rtol 1e-3) and times it as chip_smoke.py does (CUDA
 events, the L2 flushed before each launch). Prints one JSON line per
 (case, plan) with the plan the wrapper picks marked. Then kernel 7
@@ -23,6 +27,15 @@ each held against the plain version under the same split (1e-2), one JSON
 line each with `split_pages`' pick marked. Last, the card's name and power
 limit. --only keeps the named kernels (or kernel:preset pairs); --reps
 sets the timed launches of each plan (default 20).
+
+    python scripts/torch_plan_sweep.py --score SWEEP_OUTPUT
+
+needs no GPU: it reads an earlier run's lines and prices, for each
+streaming GEMV case, `stream_plan`'s pick and the one-constant fill rule
+(the fewest parts whose tiles x parts reach a target count of blocks,
+every target from 1 to 4 blocks an SM) against the case's fastest plan:
+one JSON line per case, then the geometric mean, the worst and the cases
+over 3% and 10% of each rule, the model's and the best target's.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,6 +79,11 @@ CASES += [("gemm_plane", "q3bf16_s16", k, n, m) for m in (8, 128, 2048) for k, n
           if m == 8 or n != 32000]
 CASES += [("gemm_plane", preset, 4096, 22016, m) for preset in ("q3bf16", "fp4bf16", "q8bf16")
           for m in (8, 128, 2048)]
+# the streaming GEMVs at m = 1 (gemv_gp3 also at m = 2)
+CASES += [("gemv_qs", "q4bf16", k, n, 1) for k, n in VICUNA]
+CASES += [("gemv_gp3", "q3bf16_s16", k, n, m) for m in (1, 2) for k, n in VICUNA]
+CASES += [("gemv_gp", preset + (":f32" if n == 50432 and preset == "q4f16_hs" else ""), k, n, 1)
+          for preset in ("q4f16_hs", "q4f32") for k, n in NEOX_3B]
 # kernel 7: (label, kv-heads, query heads, head dim, q dtype, page dtypes)
 PAGED = [("vicuna", 32, 32, 128, "bfloat16", ("bfloat16", "int8")),
          ("neox-3b", 32, 32, 80, "float32", ("bfloat16", "int8")),
@@ -156,6 +175,23 @@ def time_paged(pa, gen, flush, reps):
             torch.cuda.empty_cache()
 
 
+def streamed(kernel, m, cd):
+    """Whether the case runs the streaming GEMV (csrc/gemv_stream.cuh)."""
+    return (kernel == "gemv_gp3" or (kernel == "gemv_gp" and m == 1)
+            or (kernel == "gemv_qs" and (m == 1 or cd == torch.float32)))
+
+
+def stream_plans(steps):
+    """Every distinct (columns, parts, per) the streaming kernel takes."""
+    out = []
+    for s in range(-(-steps // dm.STREAM_MAX_PER), min(steps, dm.STREAM_MAX_PARTS) + 1):
+        per = -(-steps // s)
+        plan = (dm.STREAM_COLS, -(-steps // per), per)
+        if plan not in out:
+            out.append(plan)
+    return out
+
+
 def plans(m, steps, widths):
     out = []
     for mt in widths:
@@ -171,11 +207,55 @@ def plans(m, steps, widths):
     return out
 
 
+def score(path):
+    """stream_plan and the fill rule against the fastest plan of each
+    streaming case in a sweep's output (see the module docstring)."""
+    cases = {}
+    for line in open(path):
+        if line.startswith('{"kernel": "gemv'):
+            r = json.loads(line)
+            cases.setdefault((r["kernel"], r["quant"], r["k"], r["n"], r["m"]), []).append(r)
+    rules = {"stream_plan": []}
+    rules.update({f"fill {b / 4:.2f} blocks an SM": [] for b in range(4, 17)})
+    for (kernel, quant, K, N, m), rows in cases.items():
+        spec = resolve_spec(quant.split(":")[0])
+        cd = torch.float32 if quant.endswith(":f32") else torch_dtype(spec.dtype)
+        if not streamed(kernel, m, cd):
+            continue
+        order = ("int3" if kernel == "gemv_gp3" else "qsplit" if kernel == "gemv_qs"
+                 else spec.layout)
+        rows.sort(key=lambda r: r["parts"])
+        best = min(r["ms"] for r in rows)
+        _, parts, _ = dm.stream_plan(order, m, K, N, cd.itemsize)
+        picks = {"stream_plan": next(r for r in rows if r["parts"] == parts)}
+        tiles = -(-N // dm.STREAM_COLS)
+        for b in range(4, 17):
+            target = b / 4 * dm.H100_SMS
+            picks[f"fill {b / 4:.2f} blocks an SM"] = next(
+                (r for r in rows if tiles * r["parts"] >= target), rows[-1])
+        for rule, r in picks.items():
+            rules[rule].append(r["ms"] / best)
+        print(json.dumps(dict(kernel=kernel, quant=quant, k=K, n=N, m=m, best_ms=best,
+                              stream_plan_parts=parts,
+                              stream_plan_ratio=picks["stream_plan"]["ms"] / best)))
+    summary = {rule: dict(geomean=math.exp(sum(map(math.log, v)) / len(v)), worst=max(v),
+                          over_3pct=sum(x > 1.03 for x in v), over_10pct=sum(x > 1.10 for x in v),
+                          cases=len(v))
+               for rule, v in rules.items()}
+    fill = min((r for r in summary if r != "stream_plan"), key=lambda r: summary[r]["geomean"])
+    for rule in ("stream_plan", fill):
+        print(json.dumps(dict(rule=rule, **summary[rule])))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="", help="comma-separated kernel or kernel:preset names")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--score", metavar="SWEEP_OUTPUT",
+                    help="price the stream plans of an earlier run's output (no GPU)")
     args = ap.parse_args()
+    if args.score:
+        return score(args.score)
     only = set(filter(None, args.only.split(",")))
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
@@ -205,10 +285,18 @@ def main():
         fn, plain = getattr(dm, kernel), getattr(dm, kernel + "_plain")
         extra = ((spec,) if kernel == "gemm_plane"
                  else (spec.layout,) if kernel in ("gemm_pairs", "gemv_gp") else ())
-        want = plain(x, one.data, one.scale, one.zero, *extra, cd)
+        # gemv_gp3 takes no minima (sym)
+        zarg, zone = ((), ()) if kernel == "gemv_gp3" else ((zero,), (one.zero,))
+        want = plain(x, one.data, one.scale, *zone, *extra, cd)
         tol = (dict(atol=1e-4, rtol=1e-3) if cd == torch.float32
                else dict(atol=1e-2, rtol=1e-2))
-        if kernel == "gemm_plane":
+        planner = "gemm_tiles"
+        if streamed(kernel, m, cd):
+            order = "int3" if kernel == "gemv_gp3" else spec.layout
+            candidates = stream_plans(K // dm.STREAM_STAGE_K[order])
+            pick = dm.stream_plan(order, m, K, N, x.element_size())
+            planner = "stream_plan"
+        elif kernel == "gemm_plane":
             fmt = plane_fmt(spec)
             widths = dm.PLANE_WIDTHS[fmt]
             steps = -(-rows // dm.PLANE_STAGE_ROWS[fmt])
@@ -217,16 +305,19 @@ def main():
             stage_k, widths, kwargs = geometry(kernel, spec, cd)
             steps = K // stage_k
             pick = chosen_tiles(m, N, steps, widths, **kwargs)
-        for plan in plans(m, steps, widths):
-            dm.gemm_tiles = lambda *a, _p=plan, **kw: _p
+        if planner == "gemm_tiles":
+            candidates = plans(m, steps, widths)
+        chosen = getattr(dm, planner)
+        for plan in candidates:
+            setattr(dm, planner, lambda *a, _p=plan, **kw: _p)
             try:
                 def run():
-                    return fn(x, data, scale, zero, *extra, layer=1, out_dtype=cd)
+                    return fn(x, data, scale, *zarg, *extra, layer=1, out_dtype=cd)
 
                 ok = torch.allclose(run().float(), want.float(), **tol)
                 t = time_ms(run, flush, args.reps)
             finally:
-                dm.gemm_tiles = chosen_tiles
+                setattr(dm, planner, chosen)
             print(json.dumps(dict(kernel=kernel, quant=preset, k=K, n=N, m=m, mt=plan[0],
                                   parts=plan[1], per=plan[2], ms=t, ok=ok,
                                   picked=plan == pick)), flush=True)

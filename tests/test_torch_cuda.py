@@ -682,3 +682,79 @@ def test_cuda_paged_flash_decode_split(D, hkv, rep, hb, qdt, pdt, batch, forced,
                                            pages_per_split=pps)
         tol = F32_TOL if qdt == pdt == torch.float32 else PAGED_SPLIT_TOL
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# The streaming GEMVs (csrc/gemv_stream.cuh): every m = 1 body (gp3 also at
+# m = 2) at every main-path shape, stacked (layer 1 of 2) or, for the lm
+# heads, flat with an f32 out (f32 compute where the model's head is f32);
+# sym and asym; ragged N (a part-filled 256-column tile). One launch
+# counter tick a call; two calls bit-equal (the parts are summed in part
+# order); the tickets left zero.
+VICUNA_MM = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)]
+NEOX_3B_MM = [(2560, 7680), (2560, 2560), (2560, 10240), (10240, 2560), (2560, 50432)]
+STREAM_CASES = ([("q4bf16", "qsplit", k, n) for k, n in VICUNA_MM]
+                + [("q4f32", "pair", k, n) for k, n in NEOX_3B_MM]
+                + [("q4f16_hs", "hsplit", k, n) for k, n in NEOX_3B_MM]
+                + [("q4f16", "qsplit", 2560, 10240), ("q4f32", "qsplit", 2560, 10240),
+                   ("q4bf16_pair", "pair", 4096, 22016), ("q4bf16_hs", "hsplit", 4096, 22016),
+                   ("q4bf16_sym", "qsplit", 4096, 4096), ("q4bf16_sym", "pair", 2560, 2560),
+                   ("q4bf16_sym", "hsplit", 2560, 2560), ("q4bf16", "qsplit", 4096, 320),
+                   ("q4f32", "pair", 2560, 320), ("q4f16_hs", "hsplit", 2560, 320)])
+
+
+def _tickets_zero():
+    from mlc_llm_tpu_torch.ops import _TICKETS
+
+    return all(int(t.abs().sum()) == 0 for t in _TICKETS.values())
+
+
+def _stream_call(counted, call, want, tol):
+    """Two calls of `call` (one launch of the `counted` wrapper each):
+    bit-equal, the tickets zero after, and close to `want`."""
+    before = counted.launches
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert counted.launches == before + 2
+    assert torch.equal(got, again)  # deterministic: the parts in part order
+    assert _tickets_zero()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,order,k,n", STREAM_CASES)
+def test_cuda_stream_gemv_matches_plain(preset, order, k, n):
+    _need_gpu()
+    spec = dataclasses.replace(QUANT_PRESETS[preset], layout=order)
+    head = n in (32000, 50432)
+    if head and order != "qsplit":
+        spec = dataclasses.replace(spec, dtype="float32")  # the 3B models' f32 heads
+    qts, (data, scale, zero) = _stacked(spec, k, n)
+    one = qts[1]
+    x = _x_for(one, 1).to(getattr(torch, spec.dtype))
+    layer, out_dtype = (None, torch.float32) if head else (1, x.dtype)
+    if head:
+        data, scale, zero = one.data, one.scale, one.zero
+    fn, plain = ((dm.gemv_qs, dm.gemv_qs_plain) if order == "qsplit"
+                 else (dm.gemv_gp, dm.gemv_gp_plain))
+    extra = () if order == "qsplit" else (order,)
+    assert dm.route(one.spec, one.scale.shape[0], 1) == fn.__name__
+    want = plain(x, one.data, one.scale, one.zero, *extra, out_dtype)
+    _stream_call(fn, lambda: fn(x, data, scale, zero, *extra, layer=layer, out_dtype=out_dtype),
+                 want, F32_TOL if x.dtype == torch.float32 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("k,n", VICUNA_MM + [(4096, 264)])
+def test_cuda_stream_gemv_gp3_matches_plain(k, n, m):
+    _need_gpu()
+    qts, (data, scale, _) = _stacked("q3bf16_s16", k, n)
+    one = qts[1]
+    x = _x_for(one, m)
+    head = n == 32000
+    layer, out_dtype = (None, torch.float32) if head else (1, torch.bfloat16)
+    if head:
+        data, scale = one.data, one.scale
+    want = dm.gemv_gp3_plain(x, one.data, one.scale, out_dtype)
+    _stream_call(dm.gemv_gp3,
+                 lambda: dm.gemv_gp3(x, data, scale, layer=layer, out_dtype=out_dtype), want, TOL)
