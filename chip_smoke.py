@@ -19,8 +19,10 @@ Phases (any failed check exits non-zero before the last line):
    GEMV at m=1, 3 and 8, GEMM at m=128 and m=2048 and on the flat lm head at
    m=128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
    2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1, 128
-   and 2048; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128); at
-   the GPT-NeoX 3B shapes q4f32 (pair, f32) and q4f16_hs (hsplit, f16, the
+   and 2048; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128);
+   the flat lm head GEMM at m=512 (ppl's); at moss-moon-003-sft's shapes
+   q4bf16 (qsplit GEMV at m=1 and 8, GEMM at m=128; the lm head's N =
+   107008); at the GPT-NeoX 3B shapes q4f32 (pair, f32) and q4f16_hs (hsplit, f16, the
    lm head in f32): GEMV at m=1, 3 and 8 and GEMM at m=128 on all five
    shapes and at m=2048 on w_in; the qsplit GEMM in f16 and f32 on all five
    3B shapes, the qsplit GEMV in f16 and f32 at w_in and the qsplit f32
@@ -41,25 +43,37 @@ Phases (any failed check exits non-zero before the last line):
    q4f16_hs and in q4bf16; then on the card (Vicuna q4bf16, RedPajama
    q4f32, dolly q4f16_hs), 8 slots of mixed prompt lengths, the paged cache
    against the slot cache (bf16) and int8 paged KV against bf16 paged KV,
-   for a prefill and 4 decode steps;
-4. chat phase: full-depth Vicuna-7B q4bf16 on random weights through
-   InferenceEngine and ChatSession (slot cache, batch 1), 3 greedy turns
-   of 32 new tokens, with the launch counters held to the counts the path
-   implies;
-5. serve phase: the same model behind SchedulerServer
+   for a prefill and 4 decode steps; then HF-layout f16 state dicts drawn
+   from a seed (2 layers at Vicuna-7B's and moss-moon-003-sft's widths)
+   through models.hf_loader.params_from_hf on the card and on the CPU,
+   every leaf bit-equal; debug.compare.compare_paths on the Vicuna model
+   (q4bf16 and q4f32); MOSS's logits card vs CPU and its paged cache vs
+   its slot cache (kernel 7 at D = 256);
+4. checkpoint phase: `build --random --device cuda` writes Vicuna-7B
+   q4bf16 at full depth into a temporary directory, `load_params(device=
+   "cuda")` reads it back, every leaf on the card and bit-equal to
+   init_random_params(seed=0) (bytes, build and load seconds, GB/s);
+5. chat phase: the loaded Vicuna-7B q4bf16 through InferenceEngine and
+   ChatSession (slot cache, batch 1), 3 greedy turns of 32 new tokens,
+   with the launch counters held to the counts the path implies; then on
+   the checkpoint, in process: the CLI with --weights (one-shot), ppl
+   (window 512, stride 256, 2048 tokens: every window's layer matmuls and
+   its lm head at m = 512 on gemm_qs, launches held) and evaluate
+   --profile;
+6. serve phase: the same model behind SchedulerServer
    (ContinuousBatchingScheduler over InferenceEngine(kv_layout="paged",
    max_batch=8, max_seq_len=2048, page_size=128)); 16 requests from a
    seed submitted by RemoteScheduler over localhost, with TTFT, decode
    rates, step wall and launch counts; then a shorter in-process run
    with int8 KV under kv_layout="auto", which must resolve to paged;
-6. q3 chat phase: the q4 params are freed; full-depth Vicuna-7B
+7. q3 chat phase: the q4 params are freed; full-depth Vicuna-7B
    q3bf16_s16 (random weights quantized on the card) with int8 slot KV at
    batch 1, 3 greedy turns of 32 new tokens through ChatSession: every
    decode matmul on the int3 GEMV, every prefill layer matmul on the plane
    GEMM, launch counts held to the path's;
-7. q3 scheduler run: 8 requests in process, int8 KV under
+8. q3 scheduler run: 8 requests in process, int8 KV under
    kv_layout="auto" (paged), b8 decode through the plane GEMM and kernel 7;
-8. GPT-NeoX chat phases: the q3 params are freed; full-depth
+9. GPT-NeoX chat phases: the q3 params are freed; full-depth
    RedPajama-INCITE-Chat-3B-v1 in q4f32, then full-depth dolly-v2-3b in
    q4f16_hs (random weights quantized on the card), bf16 slot KV, batch 1,
    3 greedy turns of 32 new tokens with the dolly template: every decode
@@ -72,7 +86,14 @@ Phases (any failed check exits non-zero before the last line):
    pair/hsplit GEMV at m = 8, admission prefill on the pair/hsplit GEMM,
    kernel 7 at D = 80 (f32 q for RedPajama, f16 q for dolly) once a layer
    a decode forward;
-9. one JSON line of kernels, the card line, and the final ok line.
+10. MOSS phase: the NeoX params are freed; full-depth moss-moon-003-sft
+   q4bf16 (random weights quantized on the card), a b1 chat on bf16 slot
+   KV (3 greedy turns of at most 32 tokens, the moss template) and 8
+   requests through the paged b8 scheduler (kernel 7 at D = 256), launch
+   counts held, then the same requests under torch.profiler for the
+   device idle share;
+11. one JSON line of stats, one of kernels, the card line, and the final
+   ok line.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; launches made to compare a kernel with its plain version do
@@ -81,20 +102,26 @@ not count. Needs a CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
+from mlc_llm_tpu_torch import build, cli, evaluate, ppl
+from mlc_llm_tpu_torch.debug.compare import compare_paths
 from mlc_llm_tpu_torch.engine import GenerationConfig, InferenceEngine
 from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
 from mlc_llm_tpu_torch.engine.session import ChatConfig, ChatSession
@@ -105,9 +132,11 @@ from mlc_llm_tpu_torch.models import (
     init_paged_kv_cache,
     init_random_params,
 )
-from mlc_llm_tpu_torch.models.transformer import tree_map
+from mlc_llm_tpu_torch.models.hf_loader import params_from_hf
+from mlc_llm_tpu_torch.models.transformer import pad_params, param_bytes, tree_map
 from mlc_llm_tpu_torch.ops import KERNELS, build_kernels, load_kernel
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
+from mlc_llm_tpu_torch.ops import matmul as mm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
 from mlc_llm_tpu_torch.parallel.wire import RemoteScheduler, SchedulerServer
 from mlc_llm_tpu_torch.quant import (
@@ -119,6 +148,7 @@ from mlc_llm_tpu_torch.quant import (
 )
 from mlc_llm_tpu_torch.quant.groupwise import dequantize, torch_dtype
 from mlc_llm_tpu_torch.tokenizer import ByteTokenizer
+from mlc_llm_tpu_torch.utils.checkpoint import load_params
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, and the operation rate
 # each kernel computes at: bf16/f16 tensor cores, f32 FMAs on the CUDA
@@ -177,6 +207,14 @@ SHAPES_3B = [
     ("w_out", 10240, 2560),
     ("lm_head", 2560, 50432),
 ]
+# moss-moon-003-sft (hidden 6144, FFN 24576; every group count divisible by 4)
+SHAPES_MOSS = [
+    ("wqkv", 6144, 18432),
+    ("wo", 6144, 6144),
+    ("w_in", 6144, 24576),
+    ("w_out", 24576, 6144),
+    ("lm_head", 6144, 107008),
+]
 SOURCES = {
     "gemv_qs": ("mlc_llm_tpu_torch/csrc/dequant_gemv_qs.cu",
                 "mlc_llm_tpu/ops/pallas/dequant_matmul.py:1430"),
@@ -203,7 +241,10 @@ QSPLIT_F32 = dataclasses.replace(QUANT_PRESETS["q4f32"], layout="qsplit")
 # and read at layer 1 (out in the compute dtype)
 MATMUL_CASES = [
     ("q4bf16", "q4bf16", SHAPES, False,
-     [("gemv_qs", {"*": (1, 3, 8)}), ("gemm_qs", {"*": (128, 2048), "lm_head": (128,)})]),
+     [("gemv_qs", {"*": (1, 3, 8)}), ("gemm_qs", {"*": (128, 2048), "lm_head": (128, 512)})]),
+    # moss-moon-003-sft: its decode and serve GEMVs and its prefill GEMM
+    ("q4bf16 moss", "q4bf16", SHAPES_MOSS, False,
+     [("gemv_qs", {"*": (1, 8)}), ("gemm_qs", {"*": (128,)})]),
     ("q3bf16_s16", "q3bf16_s16", SHAPES, False,
      [("gemv_gp3", {"*": (1, 2)}), ("gemm_plane", {"*": (8, 128, 2048)})]),
     # the other plane formats once each, at their decode and prefill widths
@@ -692,11 +733,6 @@ def one_launch_phase():
         del w, x
 
 
-def pad_params(params):
-    return tree_map(lambda x: pad_quantized_groups(x) if isinstance(x, QuantizedTensor)
-                    else x, params)
-
-
 def card_vs_cpu(cfg, params, rtol=LOGIT_RTOL):
     cpu = tree_map(lambda x: x.map(lambda t: t.cpu()) if isinstance(x, QuantizedTensor)
                    else x.cpu(), params)
@@ -795,6 +831,136 @@ def parity_phase():
         torch.cuda.empty_cache()
 
 
+def hf_state_dict(cfg, seed: int):
+    """An HF-layout state dict of cfg (Llama's or MOSS's names; MOSS's
+    fused qkv_proj), f16 on the card, from a seed: weights N(0, 0.02),
+    norm weights 1 + N(0, 0.1), biases N(0, 0.02)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def rand(*shape, center=0.0, std=0.02):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + center).half()
+
+    def norm(n):
+        return rand(n, center=1.0, std=0.1)
+
+    if cfg.family == "llama":
+        sd = {"model.embed_tokens.weight": rand(V, H), "model.norm.weight": norm(H),
+              "lm_head.weight": rand(V, H)}
+        for i in range(cfg.num_layers):
+            p = f"model.layers.{i}"
+            sd.update({f"{p}.self_attn.{x}_proj.weight": rand(H, H) for x in "qkvo"})
+            sd.update({f"{p}.mlp.gate_proj.weight": rand(F, H),
+                       f"{p}.mlp.up_proj.weight": rand(F, H),
+                       f"{p}.mlp.down_proj.weight": rand(H, F),
+                       f"{p}.input_layernorm.weight": norm(H),
+                       f"{p}.post_attention_layernorm.weight": norm(H)})
+        return sd
+    sd = {"transformer.wte.weight": rand(V, H), "transformer.ln_f.weight": norm(H),
+          "transformer.ln_f.bias": rand(H), "lm_head.weight": rand(V, H), "lm_head.bias": rand(V)}
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}"
+        sd.update({f"{p}.ln_1.weight": norm(H), f"{p}.ln_1.bias": rand(H),
+                   f"{p}.attn.qkv_proj.weight": rand(3 * H, H),
+                   f"{p}.attn.out_proj.weight": rand(H, H),
+                   f"{p}.mlp.fc_in.weight": rand(F, H), f"{p}.mlp.fc_in.bias": rand(F),
+                   f"{p}.mlp.fc_out.weight": rand(H, F), f"{p}.mlp.fc_out.bias": rand(H)})
+    return sd
+
+
+def flat_leaves(tree, prefix=""):
+    """key -> tensor of every leaf (a QuantizedTensor's data, scale, zero),
+    and key/spec -> (spec, logical shape) of every QuantizedTensor."""
+    out = {}
+    for k, node in tree.items():
+        key = prefix + k
+        if isinstance(node, dict):
+            out.update(flat_leaves(node, key + "/"))
+        elif isinstance(node, QuantizedTensor):
+            out[f"{key}/spec"] = (node.spec, node.shape)
+            out.update({f"{key}/{f}": t for f, t in (("data", node.data), ("scale", node.scale),
+                                                     ("zero", node.zero)) if t is not None})
+        else:
+            out[key] = node
+    return out
+
+
+def unequal_leaves(a, b):
+    """Keys of the leaves that differ between two param trees (in dtype,
+    shape or any bit), or that only one of them has."""
+    fa, fb = flat_leaves(a), flat_leaves(b)
+    bad = sorted(set(fa) ^ set(fb))
+    for k in set(fa) & set(fb):
+        x, y = fa[k], fb[k]
+        if isinstance(x, tuple):
+            same = x == y
+        else:
+            same = x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device))
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def compare_phase(cfg, q4bf16, q4f32):
+    """debug.compare.compare_paths, card against CPU, at the JAX tool's
+    atol 1e-2 / rtol 1e-3 on the JAX tool's 8 tokens. q4bf16: every matmul
+    row must pass; its logits row is printed only, since bf16 activations
+    between ops at full width move the logits further (a bf16 rounding
+    tipped by an f32 sum in another order, amplified by the random layers;
+    card_vs_cpu holds them to LOGIT_RTOL of the largest |logit|). q4f32
+    (the same weights, f32 activations): every row must pass."""
+    for quant, params in (("q4bf16", q4bf16), ("q4f32", pad_params(q4f32))):
+        rows = compare_paths(cfg, params, [[1, 2, 3, 4, 5, 6, 7, 8]])
+        for name, max_abs, ok in rows:
+            print(f"  compare_paths {quant} {'OK ' if ok else 'DIFF'} {name}: "
+                  f"max |diff| {max_abs:.3e}")
+        held = rows if quant == "q4f32" else [r for r in rows if r[0].startswith("qmatmul")]
+        if not all(ok for _, _, ok in held):
+            fail(f"debug.compare.compare_paths {quant}: a row differs beyond its tolerance")
+
+
+def hf_parity_phase():
+    """HF-layout weights at full width, 2 layers: params_from_hf on the
+    card and on the CPU must give bit-equal leaves (the quantizer on the
+    card; build --device cuda relies on it). Then each model's logits card
+    vs CPU, MOSS's paged cache vs its slot cache (kernel 7 at D = 256), and
+    debug.compare on the Vicuna model (compare_phase)."""
+    for cfg, seed in ((VICUNA.replace(num_layers=2), 11), (MOSS.replace(num_layers=2), 12)):
+        print(f"== parity phase: HF-layout 2-layer {cfg.name}, q4bf16 from f16 weights")
+        sd = hf_state_dict(cfg, seed)
+        t0 = time.perf_counter()
+        card = params_from_hf(sd, cfg, "q4bf16", device="cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        sd_cpu = {k: v.cpu() for k, v in sd.items()}
+        t0 = time.perf_counter()
+        cpu = params_from_hf(sd_cpu, cfg, "q4bf16", device="cpu")
+        t_cpu = time.perf_counter() - t0
+        del sd_cpu
+        leaves = flat_leaves(card)
+        bad = unequal_leaves(card, cpu)
+        del cpu
+        gc.collect()
+        print(f"  params_from_hf: card {t_card:.2f} s, CPU {t_cpu:.2f} s; {len(leaves)} leaves, "
+              f"{param_bytes(card)} bytes; unequal card vs CPU: {bad}")
+        if bad or not all(t.device.type == "cuda" for k, t in leaves.items()
+                          if not k.endswith("/spec")):
+            fail(f"{cfg.name}: params_from_hf on the card differs from the CPU's: {bad}")
+        card = pad_params(card)
+        card_vs_cpu(cfg, card)
+        if cfg.family == "moss":
+            del sd
+            paged_vs_slot(cfg, card)
+        else:
+            q4f32 = params_from_hf(sd, cfg, "q4f32", device="cuda")
+            del sd
+            compare_phase(cfg, card, q4f32)
+            del q4f32
+        del card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # the kernel of each quantized matmul on the main paths, by preset: the
 # layer matmuls of a prefill (m = the bucket), every matmul at m = 1 (b1
 # decode, and the lm head of a prefill, which runs at its last position
@@ -817,13 +983,6 @@ def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0
     want[k["m8"]] += (4 * L + 1) * b8_forwards
     want["paged_flash_decode"] += L * b8_forwards
     return want
-
-
-def param_bytes(params) -> int:
-    sizes = []
-    tree_map(lambda x: sizes.append(x.nbytes() if isinstance(x, QuantizedTensor)
-                                    else x.numel() * x.element_size()), params)
-    return sum(sizes)
 
 
 def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA):
@@ -864,6 +1023,96 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA):
     if steps == 0 or launches != want:
         fail("launch counts do not match the chat path")
     return launches, stats
+
+
+def checkpoint_phase(tmp):
+    """build --random on the card into `tmp`, then load_params onto the
+    card: every leaf on the card and bit-equal to the seed-0 draw. Returns
+    the loaded params and the phase's numbers."""
+    print(f"== checkpoint phase: {VICUNA.name} q4bf16, build --random --device cuda, "
+          f"load_params(device='cuda')")
+    du = shutil.disk_usage(tmp)
+    print(f"  {tmp}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
+    built = build.main(["--model", VICUNA.name, "--random", "--quantization", "q4bf16", "-o",
+                        tmp, "--device", "cuda"])
+    with open(f"{tmp}/manifest.json") as f:
+        nbytes = json.load(f)["total_bytes"]
+    t0 = time.perf_counter()
+    params, meta = load_params(tmp, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    leaves = flat_leaves(params)
+    if not all(t.device.type == "cuda" for k, t in leaves.items() if not k.endswith("/spec")):
+        fail("load_params(device='cuda') left a leaf off the card")
+    ref = init_random_params(VICUNA, "q4bf16", seed=0, device="cuda")
+    bad = unequal_leaves(params, ref)
+    del ref
+    torch.cuda.empty_cache()
+    stats = dict(bytes=nbytes, leaves=len(leaves), params_s=built["params_s"],
+                 write_s=built["write_s"], write_gb_s=nbytes / built["write_s"] / 1e9,
+                 load_s=t_load, load_gb_s=nbytes / t_load / 1e9, meta=meta)
+    print(f"  {json.dumps(stats)}")
+    print("  (params_s: the seed-0 draw and quantization on the card; write_s: each leaf "
+          "copied to the host and written)")
+    if bad or built["bytes"] != nbytes or meta.get("built_with") != "mlc_llm_tpu_torch.build":
+        fail(f"checkpoint: loaded leaves differ from init_random_params(seed=0): {bad}")
+    return params, stats
+
+
+def tools_phase(tmp):
+    """The entry points on the checkpoint: the CLI (--weights, one-shot),
+    ppl (its lm head at m = 512 on the flat gemm_qs) and evaluate
+    (--profile). Returns {path: launches} and ppl's result."""
+    paths = {}
+    print("== cli --weights (in process)")
+    out = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--model", VICUNA.name, "--weights", tmp, "--prompt", "hi", "--max-gen-len", "8",
+                  "--temperature", "0"])
+    paths["cli"] = read_counters()
+    print(f"  stdout {out.getvalue()!r}; launches {paths['cli']}")
+    # random weights mostly pick ids above the byte tokenizer's 256, which
+    # decode to nothing: the reply may be empty, its newline is printed
+    if not out.getvalue() or not paths["cli"]["gemv_qs"] or not paths["cli"]["gemm_qs"]:
+        fail("cli --weights printed nothing or ran no kernel")
+
+    print("== ppl --weights, window 512, stride 256, the 2048-token synthetic stream")
+    # the kernel and m of every flat (unstacked) quantized matmul: the lm head
+    flat = []
+    dequant = mm.dequant_matmul
+
+    def head_spy(x, w, out_dtype=None, layer=None):
+        if layer is None:
+            m = x.numel() // x.shape[-1]
+            flat.append((dm.route(w.spec, w.n_groups, m), m))
+        return dequant(x, w, out_dtype=out_dtype, layer=layer)
+
+    reset_counters()
+    mm.dequant_matmul = head_spy
+    try:
+        res = ppl.main(["--model", VICUNA.name, "--weights", tmp, "--window", "512",
+                        "--stride", "256"])
+    finally:
+        mm.dequant_matmul = dequant
+    paths["ppl"] = read_counters()
+    windows = len(range(0, 2048 - 1, 256))
+    want = dict.fromkeys(COUNTED, 0)
+    want["gemm_qs"] = windows * (4 * VICUNA.num_layers + 1)
+    print(f"  launches {paths['ppl']} (want {want}); flat matmuls (kernel, m): {flat}")
+    if (not math.isfinite(res["perplexity"]) or paths["ppl"] != want
+            or flat != [("gemm_qs", 512)] * windows):
+        fail("ppl: perplexity not finite, or the launches are not the path's")
+
+    print("== evaluate --weights --prompt-len 128 --gen-len 32 --profile")
+    reset_counters()
+    evaluate.main(["--model", VICUNA.name, "--weights", tmp, "--prompt-len", "128",
+                   "--gen-len", "32", "--profile"])
+    paths["evaluate"] = read_counters()
+    print(f"  launches {paths['evaluate']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, res
 
 
 def serve_requests(n=16, vocab=VICUNA.vocab_size, sampled=lambda i: i % 4 == 3):
@@ -985,14 +1234,30 @@ def int8_auto_phase(params, quant="q4bf16"):
     return launches, stats
 
 
-def neox_serve_phase(params, cfg, quant):
-    """The paged continuous-batching server on a GPT-NeoX model: 8
+def device_busy_ms(fn) -> float:
+    """Device time of fn's CUDA kernels (the sum of their self times
+    under torch.profiler, CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+          for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sum(us) / 1e3
+
+
+def model_serve_phase(params, cfg, quant, idle_share=False):
+    """The paged continuous-batching server on a NeoX or MOSS model: 8
     requests in process (one sampled) through ContinuousBatchingScheduler
     over InferenceEngine(kv_layout="paged"), bf16 pages. Every b8 decode
-    forward runs its 4L layer matmuls and the f32 lm head through gemv_gp
-    at m = 8 and kernel 7 once a layer (D = 80, q in the model's type);
-    every admission its layer matmuls through gemm_pairs and its lm head
-    through gemv_gp at m = 1."""
+    forward runs its 4L layer matmuls and the lm head through the preset's
+    GEMV at m = 8 (gemv_gp for pair/hsplit, gemv_qs for qsplit) and kernel
+    7 once a layer (D = 80 for the NeoX 3B, 256 for MOSS; q in the model's
+    type); every admission its layer matmuls through the preset's GEMM
+    and its lm head through the GEMV at m = 1. With idle_share, the same
+    requests run once more under torch.profiler: the device idle share is
+    1 - their kernels' device time over the first (unprofiled) run's wall."""
     print(f"== {cfg.name} {quant} serve: paged KV (page {PAGE_SIZE}), max_batch {SERVE_BATCH}, "
           f"max_seq_len {SERVE_SEQ}, in-process scheduler, 8 requests")
     engine = InferenceEngine(cfg, params, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
@@ -1008,14 +1273,15 @@ def neox_serve_phase(params, cfg, quant):
         return prefill_slot(*a, **kw)
 
     engine._prefill_slot = counted_prefill
-    # the m of every matmul routed to gemv_gp (route is a pure function of
+    # the m of every matmul routed to the GEMV (route is a pure function of
     # the weight's format and m; the wrapper keeps its own launch count)
+    gemv = PATH_KERNELS[quant]["m8"]
     gp_rows = []
     route = dm.route
 
     def route_rows(spec, n_groups, m):
         kind = route(spec, n_groups, m)
-        if kind == "gemv_gp":
+        if kind == gemv:
             gp_rows.append(m)
         return kind
 
@@ -1039,14 +1305,26 @@ def neox_serve_phase(params, cfg, quant):
                  admissions=n_pre, prefill_s=engine.stats.prefill_time)
     print(f"  {json.dumps(stats)}")
     m8, m1 = gp_rows.count(SERVE_BATCH), gp_rows.count(1)
-    print(f"  launches: {launches} (want {want}); routed to gemv_gp at m = 8: {m8} "
+    print(f"  launches: {launches} (want {want}); routed to {gemv} at m = 8: {m8} "
           f"(want {(4 * L + 1) * forwards}), at m = 1: {m1} (want {n_pre})")
     if not all(r.done and r.output for r in reqs) or min(lens) < 1:
         fail(f"{cfg.name} serve: bad completions {lens}")
     if forwards == 0 or launches != want:
         fail(f"{cfg.name} serve: launch counts do not match the path")
     if m8 != (4 * L + 1) * forwards or m1 != n_pre or len(gp_rows) != m8 + m1:
-        fail(f"{cfg.name} serve: gemv_gp was routed m = {sorted(set(gp_rows))}, not the path's")
+        fail(f"{cfg.name} serve: {gemv} was routed m = {sorted(set(gp_rows))}, not the path's")
+    if idle_share:
+        again = ContinuousBatchingScheduler(engine, seed=0)
+
+        def rerun():
+            for p, g in work:
+                again.submit(p, g)
+            again.run()
+
+        stats["device_ms"] = device_busy_ms(rerun)
+        stats["device_idle_share"] = 1 - stats["device_ms"] / (wall * 1e3)
+        print(f"  the same requests under torch.profiler: {stats['device_ms']:.1f} ms of kernels "
+              f"-> device idle share {stats['device_idle_share']:.4f} of the {wall:.2f} s wall")
     return launches, stats
 
 
@@ -1092,14 +1370,19 @@ def main():
     rows = kernel_phase()
     one_launch_phase()
     parity_phase()
-    t0 = time.perf_counter()
-    params = init_random_params(VICUNA, "q4bf16", seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"full-depth params in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    hf_parity_phase()
     paths = {}
-    paths["chat"], chat_stats = chat_phase(params)
-    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        params, ckpt_stats = checkpoint_phase(tmp)
+        print(f"full-depth params loaded, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated")
+        paths["chat"], chat_stats = chat_phase(params)
+        torch.cuda.empty_cache()
+        tool_paths, ppl_res = tools_phase(tmp)
+        paths.update(tool_paths)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     paths["serve"], serve_stats = serve_phase(params)
     torch.cuda.empty_cache()
     paths["int8_auto"], _ = int8_auto_phase(params)
@@ -1129,10 +1412,26 @@ def main():
         paths[path], neox_stats[path] = chat_phase(params, quant, cfg=cfg)
         torch.cuda.empty_cache()
         serve_path = path.replace("chat", "serve")
-        paths[serve_path], neox_stats[serve_path] = neox_serve_phase(params, cfg, quant)
+        paths[serve_path], neox_stats[serve_path] = model_serve_phase(params, cfg, quant)
         del params
         gc.collect()
         torch.cuda.empty_cache()
+
+    # MOSS: full depth, q4bf16 (every tensor qsplit), random weights
+    # quantized on the card; b1 chat on bf16 slot KV, then the paged server
+    # (kernel 7 at D = 256)
+    t0 = time.perf_counter()
+    params = init_random_params(MOSS, "q4bf16", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"full-depth {MOSS.name} q4bf16 params in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    paths["moss_chat"], moss_chat_stats = chat_phase(params, "q4bf16", cfg=MOSS)
+    torch.cuda.empty_cache()
+    paths["moss_serve"], moss_serve_stats = model_serve_phase(params, MOSS, "q4bf16",
+                                                              idle_share=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # per kernel: its main-path shape (GEMVs: w_in at decode m=1; GEMMs: w_in
     # at prefill m=128; paged: bf16 KV at b8); every shape is in "shapes".
@@ -1167,8 +1466,10 @@ def main():
                     for r in mine]))
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels):
         fail("a kernel time is not finite or a kernel never ran on its path")
-    print(json.dumps({"chat": chat_stats, "serve": serve_stats, "q3_chat": q3_chat_stats,
-                      "q3_serve": q3_serve_stats, **neox_stats}))
+    print(json.dumps({"checkpoint": ckpt_stats, "chat": chat_stats, "ppl": ppl_res,
+                      "serve": serve_stats, "q3_chat": q3_chat_stats,
+                      "q3_serve": q3_serve_stats, **neox_stats, "moss_chat": moss_chat_stats,
+                      "moss_serve": moss_serve_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,14 @@
 """Streaming chat CLI, the counterpart of ``mlc_llm_tpu/cli.py``.
 
-REPL with /help, /exit, /stats, /reset and streamed token output, on
-random weights (``--random-weights``). ``--device`` replaces the JAX
-CLI's ``--platform`` and defaults to ``cuda``.
+REPL with /help, /exit, /stats, /reset and streamed token output. The
+weights come from a checkpoint directory (``--weights``, written by
+``python -m mlc_llm_tpu_torch.build`` or the JAX package's build; without
+it the CLI searches ``dist/<model>*``) or are random
+(``--random-weights``). ``--device`` replaces the JAX CLI's
+``--platform`` and defaults to ``cuda``.
 
 Usage:
+  python -m mlc_llm_tpu_torch.cli --model vicuna-v1-7b --weights dist/vicuna-v1-7b-q4bf16
   python -m mlc_llm_tpu_torch.cli --model vicuna-v1-7b --random-weights
   python -m mlc_llm_tpu_torch.cli --model tiny-llama --random-weights \
       --prompt hi --temperature 0 --device cpu
@@ -13,7 +17,34 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
+
+
+def find_artifacts(model: str, quantization: str):
+    """Search the conventional checkpoint locations for a built model:
+    ``dist/<model>-<quantization>``, ``dist/<model>/<quantization>``,
+    ``dist/<model>``. A candidate whose manifest records another
+    quantization than the one requested is skipped with a warning on
+    stderr. Returns a directory or None."""
+    for cand in (f"dist/{model}-{quantization}", f"dist/{model}/{quantization}",
+                 f"dist/{model}"):
+        mf = os.path.join(cand, "manifest.json")
+        if not os.path.isfile(mf):
+            continue
+        try:
+            with open(mf) as f:
+                meta = json.load(f).get("meta", {})
+        except (OSError, ValueError):
+            continue
+        built_quant = meta.get("quantization")
+        if built_quant and built_quant != quantization:
+            print(f"skipping {cand}: built as {built_quant}, requested {quantization}",
+                  file=sys.stderr)
+            continue
+        return cand
+    return None
 
 
 def build_session(args):
@@ -21,15 +52,22 @@ def build_session(args):
     from .engine.session import ChatConfig, ChatSession
     from .models import get_config, init_random_params
     from .tokenizer import load_tokenizer
+    from .utils.checkpoint import load_model_params
 
     cfg = get_config(args.model)
-    if args.weights:
-        raise SystemExit("checkpoint loading is not ported yet (ROADMAP queue 1)")
-    if not args.random_weights:
-        raise SystemExit("need --random-weights (checkpoint loading is not ported yet, "
-                         "ROADMAP queue 1)")
-    params = init_random_params(cfg, args.quantization, seed=0, fabricate=args.fabricate,
-                                device=args.device)
+    if not args.random_weights and not args.weights:
+        found = find_artifacts(args.model, args.quantization)
+        if found:
+            print(f"using checkpoint {found}", file=sys.stderr)
+            args.weights = found
+    if args.random_weights:
+        params = init_random_params(cfg, args.quantization, seed=0, fabricate=args.fabricate,
+                                    device=args.device)
+    elif args.weights:
+        params, _ = load_model_params(args.weights, cfg.name, device=args.device)
+    else:
+        raise SystemExit(f"need --weights DIR or --random-weights (searched dist/{args.model}*; "
+                         "build one with `python -m mlc_llm_tpu_torch.build`)")
     engine = InferenceEngine(
         cfg, params, max_batch=1,
         max_seq_len=min(cfg.max_seq_len, args.max_window_size * 2),
@@ -57,7 +95,7 @@ HELP = """Commands:
 def main(argv=None):
     ap = argparse.ArgumentParser("mlc_llm_tpu_torch.cli")
     ap.add_argument("--model", default="vicuna-v1-7b")
-    ap.add_argument("--weights", default=None, help="checkpoint directory (not ported yet)")
+    ap.add_argument("--weights", default=None, help="checkpoint directory")
     ap.add_argument("--tokenizer", default=None, help="HF tokenizer path (default: byte tokenizer)")
     ap.add_argument("--quantization", default="q4bf16")
     ap.add_argument("--random-weights", action="store_true")

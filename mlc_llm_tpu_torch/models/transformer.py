@@ -31,6 +31,7 @@ from ..ops.paged_attention import paged_flash_decode
 from ..quant.groupwise import (
     QuantizedTensor,
     pad_cols,
+    pad_quantized_groups,
     quantize,
     take_dequantize,
     torch_dtype,
@@ -116,6 +117,24 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def pad_params(params):
+    """Every word-packed quantized leaf zero-padded to a multiple of 32
+    groups (``pad_quantized_groups``, exact), as the engine does at init,
+    so that every matmul routes to its kernel; checkpoints hold the
+    unpadded params."""
+    return tree_map(lambda x: pad_quantized_groups(x) if isinstance(x, QuantizedTensor) else x,
+                    params)
+
+
+def param_bytes(params) -> int:
+    """Stored bytes of a param tree: words or planes, scales, minima and
+    dense leaves."""
+    sizes = []
+    tree_map(lambda x: sizes.append(x.nbytes() if isinstance(x, QuantizedTensor)
+                                    else x.numel() * x.element_size()), params)
+    return sum(sizes)
 
 
 def _norm(x, w, b, cfg: ModelConfig):

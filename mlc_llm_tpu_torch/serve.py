@@ -6,8 +6,8 @@ InferenceEngine + scheduler is served over the wire protocol
 (``parallel/wire.py``); the client mode submits token ids and streams
 the generation back.
 
-  # server (the paged KV pool, as on the H100)
-  python -m mlc_llm_tpu_torch.serve --model vicuna-v1-7b --random-weights \\
+  # server (the paged KV pool, as on the H100), on a built checkpoint
+  python -m mlc_llm_tpu_torch.serve --model vicuna-v1-7b --weights dist/v7b \\
       --port 8100 --max-batch 8 --paged
 
   # on the CPU, at a tiny size
@@ -17,8 +17,7 @@ the generation back.
   # anywhere else: submit token ids and stream the generation back
   python -m mlc_llm_tpu_torch.serve --connect HOST:8100 --prompt-ids 1,2,3
 
-Checkpoints are not loadable yet (``--weights`` raises, ROADMAP.md queue
-1, item 1); ``--speculative`` raises (item 5); ``--precompile`` is the
+``--speculative`` raises (ROADMAP.md queue 1); ``--precompile`` is the
 engine's no-op (PyTorch runs eagerly, kernels build at first use).
 """
 
@@ -41,14 +40,16 @@ def _multi_step_arg(v: str):
 def build_engine(args):
     from .engine import InferenceEngine
     from .models import get_config, init_random_params
+    from .utils.checkpoint import load_model_params
 
     cfg = get_config(args.model)
-    if args.weights:
-        raise SystemExit("checkpoint loading is not ported yet (ROADMAP queue 1, item 1)")
-    if not args.random_weights:
-        raise SystemExit("need --random-weights (checkpoint loading is not ported yet)")
-    params = init_random_params(cfg, args.quantization, seed=0, fabricate=args.fabricate,
-                                device=args.device)
+    if args.random_weights:
+        params = init_random_params(cfg, args.quantization, seed=0, fabricate=args.fabricate,
+                                    device=args.device)
+    elif args.weights:
+        params, _ = load_model_params(args.weights, cfg.name, device=args.device)
+    else:
+        raise SystemExit("need --weights DIR or --random-weights")
     kwargs = {}
     if args.paged:
         kwargs.update(kv_layout="paged", page_size=args.page_size,
@@ -107,7 +108,7 @@ def run_client(args) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser("mlc_llm_tpu_torch.serve")
     ap.add_argument("--model", default="vicuna-v1-7b")
-    ap.add_argument("--weights", default=None, help="checkpoint directory (not ported yet)")
+    ap.add_argument("--weights", default=None, help="checkpoint directory")
     ap.add_argument("--quantization", default="q4bf16")
     ap.add_argument("--random-weights", action="store_true")
     ap.add_argument("--fabricate", action="store_true")

@@ -1,5 +1,7 @@
 """The port stands alone: no module of mlc_llm_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package."""
+chip_smoke.py, imports jax or anything of the JAX package; importing
+the port's modules loads neither transformers (its loaders import it
+inside the function that needs it) nor safetensors or ml_dtypes."""
 
 import os
 import pkgutil
@@ -28,14 +30,17 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     new = {"mlc_llm_tpu_torch.models.paged_cache", "mlc_llm_tpu_torch.ops.paged_attention",
            "mlc_llm_tpu_torch.engine.scheduler", "mlc_llm_tpu_torch.parallel.wire",
-           "mlc_llm_tpu_torch.serve"}
+           "mlc_llm_tpu_torch.serve", "mlc_llm_tpu_torch.version",
+           "mlc_llm_tpu_torch.utils.checkpoint", "mlc_llm_tpu_torch.models.hf_loader",
+           "mlc_llm_tpu_torch.build", "mlc_llm_tpu_torch.ppl", "mlc_llm_tpu_torch.evaluate",
+           "mlc_llm_tpu_torch.debug.compare"}
     assert "mlc_llm_tpu_torch.ops.dequant_matmul" in mods and new <= set(mods)
-    assert len(mods) >= 26
+    assert len(mods) >= 35
+    banned = ("jax", "mlc_llm_tpu", "transformers", "safetensors", "ml_dtypes")
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'mlc_llm_tpu' or m.startswith('mlc_llm_tpu.'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {banned!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
