@@ -10,16 +10,20 @@ Phases (any failed check exits non-zero before the last line):
    spills and performance notes of the five sources on the wgmma
    mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp; then
    each gemm_plane instantiation's registers, spills and C7512 notes: the
-   m tile of 256 must be there for int3/u16, fp4 and int8, without spills;
-   and each instantiation of the weight-streaming mainloop of the m = 1
-   GEMVs, csrc/gemv_stream.cuh: all 18 must be there, without spills);
+   m tile of 256 must be there for int3/u16, fp4 and int8, in bf16 and in
+   f16, without spills; and each instantiation of the weight-streaming
+   mainloop of the m = 1 GEMVs, csrc/gemv_stream.cuh: all 20 must be
+   there, without spills);
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
    plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
    GEMV at m=1, 3 and 8, GEMM at m=128 and m=2048 and on the flat lm head at
    m=128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
    2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1, 128
-   and 2048; the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128);
+   and 2048; the f16 bodies: q3f16_s16's int3 GEMV at m=1 and 2 on w_in
+   and the lm head, and the plane GEMM on q3f16_s16, q3f16, fp4f16 and
+   q8f16 at w_in, m=1, 8, 128 and 2048 (q3f16_s16 also on the flat lm
+   head at m=8, the b8 decode's); the pair and hsplit GEMV and GEMM in bf16 at w_in (m=1, 128);
    the flat lm head GEMM at m=512 (ppl's); at moss-moon-003-sft's shapes
    q4bf16 (qsplit GEMV at m=1 and 8, GEMM at m=128; the lm head's N =
    107008); at the GPT-NeoX 3B shapes q4f32 (pair, f32) and q4f16_hs (hsplit, f16, the
@@ -33,17 +37,20 @@ Phases (any failed check exits non-zero before the last line):
    split-KV plan (printed), held against the plain version under the same
    plan; each row prints its TFLOP/s and its time over the library call's;
    then one m = 1 call of each streaming GEMV body (qsplit bf16, f16 and
-   f32; pair and hsplit in bf16, f16 and f32; int3/u16 at m = 1 and 2), at
+   f32; pair and hsplit in bf16, f16 and f32; int3/u16 in bf16 and f16 at
+   m = 1 and 2), at
    a w_in shape whose plan splits K, counted with torch.profiler: each must
    be one device kernel (the split parts combined in the same launch);
 3. parity phase: 2-layer models at full width, the same params through
    forward on the card (kernels) and on the CPU (plain versions), logits
-   compared for a 64-token prefill and 4 decode steps: Vicuna-7B in q4bf16
-   and q3bf16_s16, RedPajama-INCITE-Chat-3B-v1 in q4f32, dolly-v2-3b in
-   q4f16_hs and in q4bf16; then on the card (Vicuna q4bf16, RedPajama
-   q4f32, dolly q4f16_hs), 8 slots of mixed prompt lengths, the paged cache
-   against the slot cache (bf16) and int8 paged KV against bf16 paged KV,
-   for a prefill and 4 decode steps; then HF-layout f16 state dicts drawn
+   compared for a 64-token prefill and 4 decode steps: Vicuna-7B in q4bf16,
+   q3bf16_s16 and the f16 presets q3f16_s16, q3f16, fp4f16 and q8f16 (the
+   last three, plane GEMM only, for a prefill and 2 decode steps),
+   RedPajama-INCITE-Chat-3B-v1 in q4f32, dolly-v2-3b in q4f16_hs and in
+   q4bf16; then on the card (Vicuna q4bf16 and q3f16_s16, RedPajama q4f32,
+   dolly q4f16_hs), 8 slots of mixed prompt lengths, the paged cache
+   against the slot cache (bf16; f16 for q3f16_s16) and int8 paged KV
+   against the 16-bit paged KV, for a prefill and 4 decode steps; then HF-layout f16 state dicts drawn
    from a seed (2 layers at Vicuna-7B's and moss-moon-003-sft's widths)
    through models.hf_loader.params_from_hf on the card and on the CPU,
    every leaf bit-equal; debug.compare.compare_paths on the Vicuna model
@@ -73,6 +80,16 @@ Phases (any failed check exits non-zero before the last line):
    GEMM, launch counts held to the path's;
 8. q3 scheduler run: 8 requests in process, int8 KV under
    kv_layout="auto" (paged), b8 decode through the plane GEMM and kernel 7;
+8b. q3f16 phases: the q3bf16 params are freed; full-depth Vicuna-7B
+   q3f16_s16 (the f16 bodies) with f16 slot KV at batch 1, 3 greedy turns
+   through ChatSession (decode on the f16 int3 GEMV, prefill on the f16
+   plane GEMM), then 8 requests through the paged b8 scheduler with f16
+   pages (b8 decode and the flat lm head on the f16 plane GEMM at m = 8,
+   kernel 7 with f16 q and f16 pages at D = 128); launch counts held, the
+   logits of every forward finite, and each run's device idle share
+   (the same work again under torch.profiler; the chat's first turn).
+   Every chat and paged-server phase holds the logits of every forward
+   finite;
 9. GPT-NeoX chat phases: the q3 params are freed; full-depth
    RedPajama-INCITE-Chat-3B-v1 in q4f32, then full-depth dolly-v2-3b in
    q4f16_hs (random weights quantized on the card), bf16 slot KV, batch 1,
@@ -93,7 +110,7 @@ Phases (any failed check exits non-zero before the last line):
    counts held, then the same requests under torch.profiler for the
    device idle share;
 11. one JSON line of stats, one of kernels, the card line, and the final
-   ok line.
+   ok line. Each phase prints its seconds.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; launches made to compare a kernel with its plain version do
@@ -252,6 +269,14 @@ MATMUL_CASES = [
     ("q3bf16", "q3bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128, 2048)})]),
     ("fp4bf16", "fp4bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128, 2048)})]),
     ("q8bf16", "q8bf16", SHAPES, False, [("gemm_plane", {"w_in": (1, 128, 2048)})]),
+    # the f16 bodies of rows 4-6: q3f16_s16's decode GEMV (b1 decode and a
+    # prefill's lm head), its plane GEMM (prefill, b8 decode and the b8 lm
+    # head), and the other three f16 plane presets at w_in
+    ("q3f16_s16", "q3f16_s16", SHAPES, False,
+     [("gemv_gp3", {"w_in": (1, 2), "lm_head": (1, 2)}),
+      ("gemm_plane", {"w_in": (1, 8, 128, 2048), "lm_head": (8,)})]),
+    *[(p, p, SHAPES, False, [("gemm_plane", {"w_in": (1, 8, 128, 2048)})])
+      for p in ("q3f16", "fp4f16", "q8f16")],
     # the pair and hsplit bodies in bf16, beside the qsplit rows
     ("q4bf16_pair", "q4bf16_pair", SHAPES, False,
      [("gemv_gp", {"w_in": (1,)}), ("gemm_pairs", {"w_in": (128,)})]),
@@ -336,11 +361,14 @@ def ptxas_entries(log: str, pattern: str):
 
 def plane_instantiations(log: str):
     """gemm_plane's mainloop instantiations in ptxas's report: (format id,
-    m tile, registers, spill store bytes, spill load bytes, C7512 notes),
-    from the mangled name gemm_kernel<PlanePolicy<F>, MT>."""
-    out = ptxas_entries(log, r"\S*PlanePolicyILi(\d)EEELi(\d+)EE\S*")
+    compute type, m tile, registers, spill store bytes, spill load bytes,
+    C7512 notes), from the mangled name gemm_kernel<PlanePolicy<F, T>, MT>
+    (T: __nv_bfloat16 or __half)."""
+    out = ptxas_entries(log, r"\S*PlanePolicyILi(\d)E(\S*?)EELi(\d+)EE\S*")
     for e in out:  # ptxas names the function in each note
-        e["fmt"], e["mt"] = map(int, e.pop("groups"))
+        fmt, typ, mt = e.pop("groups")
+        e["fmt"], e["mt"] = int(fmt), int(mt)
+        e["dtype"] = "f16" if "half" in typ else "bf16" if "bfloat16" in typ else typ
         e["c7512"] = sum("C7512" in line and e["name"] in line for line in log.splitlines())
     return out
 
@@ -366,8 +394,9 @@ def stream_blocks_check():
               + [(f"{lay} {names[d]} m=1", ("int4", 4 if d == 2 else 2, 1),
                   lambda n, d=d, i=i: gp.mlc_gemv_gp_blocks(i, d, n))
                  for lay, i in dm.LAYOUT_IDS.items() for d in range(3)]
-              + [(f"int3 bfloat16 m={m}", ("int3", 2, m),
-                  lambda n, m=m: gp3.mlc_gemv_gp3_blocks(m, n)) for m in (1, 2)])
+              + [(f"int3 {names[d]} m={m}", ("int3", 2, m),
+                  lambda n, d=d, m=m: gp3.mlc_gemv_gp3_blocks(d, m, n))
+                 for d in (0, 1) for m in (1, 2)])
     wrong = []
     for label, key, query in bodies:
         n = ctypes.c_int(0)
@@ -695,6 +724,8 @@ ONE_LAUNCH_CASES = [
        2560, 10240, 1) for lay in ("pair", "hsplit") for dt in ("bfloat16", "float16", "float32")],
     ("gemv_gp3 m=1", "q3bf16_s16", 4096, 22016, 1),
     ("gemv_gp3 m=2", "q3bf16_s16", 4096, 22016, 2),
+    ("gemv_gp3 f16 m=1", "q3f16_s16", 4096, 22016, 1),
+    ("gemv_gp3 f16 m=2", "q3f16_s16", 4096, 22016, 2),
 ]
 
 
@@ -733,13 +764,15 @@ def one_launch_phase():
         del w, x
 
 
-def card_vs_cpu(cfg, params, rtol=LOGIT_RTOL):
+def card_vs_cpu(cfg, params, rtol=LOGIT_RTOL, steps=5):
+    """A 64-token prefill and steps - 1 decode steps, the logits on the
+    card (kernels) against the CPU's (plain versions)."""
     cpu = tree_map(lambda x: x.map(lambda t: t.cpu()) if isinstance(x, QuantizedTensor)
                    else x.cpu(), params)
     toks = torch.randint(3, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(1))
     caches = {"cuda": init_kv_cache(cfg, 1, 128, device="cuda"),
               "cpu": init_kv_cache(cfg, 1, 128, device="cpu")}
-    for step in range(5):
+    for step in range(steps):
         logits = {}
         for dev, p in (("cuda", params), ("cpu", cpu)):
             lg, caches[dev] = forward(p, cfg, toks.to(dev), caches[dev], attn_window=128)
@@ -759,13 +792,14 @@ def card_vs_cpu(cfg, params, rtol=LOGIT_RTOL):
         caches["cpu"].v.copy_(caches["cuda"].v)
 
 
-def paged_vs_slot(cfg, params):
+def paged_vs_slot(cfg, params, dtype=torch.bfloat16):
     """8 slots of mixed prompt lengths, prefill + 4 decode steps, on the
-    card: bf16 paged logits against slot logits (LOGIT_RTOL: the paged
-    decode rounds its probabilities to bf16 for bf16 pages, the slot path
-    to the activations' type), int8 paged against bf16 paged
-    (INT8_LOGIT_RTOL). The paged decode runs kernel 7."""
-    print(f"  paged vs slot: {cfg.name}, D = {cfg.head_dim}")
+    card: paged logits against slot logits, both caches in `dtype` (bf16
+    or f16; LOGIT_RTOL: the paged decode rounds its probabilities to the
+    pages' type, the slot path to the activations' type), int8 paged
+    against the `dtype` paged (INT8_LOGIT_RTOL). The paged decode runs
+    kernel 7."""
+    print(f"  paged vs slot: {cfg.name}, D = {cfg.head_dim}, {dtype} KV")
     B, ps = SERVE_BATCH, PAGE_SIZE
     lens = [5, 100, 127, 128, 129, 300, 700, 1000]
     S = 1024  # the prefill bucket
@@ -774,8 +808,8 @@ def paged_vs_slot(cfg, params):
     for b, n in enumerate(lens):
         toks[b, :n] = rng.integers(3, cfg.vocab_size, n)
     table = np.arange(1, B * PAGED_WINDOW + 1, dtype=np.int32).reshape(B, PAGED_WINDOW)
-    caches = {"slot": init_kv_cache(cfg, B, SERVE_SEQ, device="cuda")}
-    for name, dt in (("paged", torch.bfloat16), ("paged int8", torch.int8)):
+    caches = {"slot": init_kv_cache(cfg, B, SERVE_SEQ, dtype=dtype, device="cuda")}
+    for name, dt in (("paged", dtype), ("paged int8", torch.int8)):
         c = init_paged_kv_cache(cfg, B, B * PAGED_WINDOW + 1, ps, PAGED_WINDOW, dtype=dt,
                                 device="cuda")
         c.set_page_table(table)
@@ -808,12 +842,17 @@ def paged_vs_slot(cfg, params):
 
 def parity_phase():
     cfg = VICUNA.replace(num_layers=2)
-    for quant in ("q4bf16", "q3bf16_s16"):
+    # the f16 presets (rows 4-6's f16 bodies) are held like q3bf16_s16: f16
+    # rounds at 1/2048, within the bf16 share; q3f16_s16's paged decode
+    # runs kernel 7 with f16 q over f16 pages. q3f16, fp4f16 and q8f16 (the
+    # plane GEMM at every m) take the prefill and 2 decode steps: the CPU
+    # side dequantizes every weight again at each step
+    for quant in ("q4bf16", "q3bf16_s16", "q3f16_s16", "q3f16", "fp4f16", "q8f16"):
         print(f"== parity phase: 2-layer Vicuna-7B width, {quant}")
         params = pad_params(init_random_params(cfg, quant, seed=1, device="cuda"))
-        card_vs_cpu(cfg, params)
-        if quant == "q4bf16":
-            paged_vs_slot(cfg, params)
+        card_vs_cpu(cfg, params, steps=3 if quant in ("q3f16", "fp4f16", "q8f16") else 5)
+        if quant in ("q4bf16", "q3f16_s16"):
+            paged_vs_slot(cfg, params, torch_dtype(resolve_spec(quant).dtype))
         del params
         torch.cuda.empty_cache()
     # GPT-NeoX at the 3B width: pair f32 layers and head; hsplit f16 layers
@@ -967,6 +1006,7 @@ def hf_parity_phase():
 # only), and every matmul of a b8 decode step (m = 8)
 PATH_KERNELS = {"q4bf16": {"prefill": "gemm_qs", "m1": "gemv_qs", "m8": "gemv_qs"},
                 "q3bf16_s16": {"prefill": "gemm_plane", "m1": "gemv_gp3", "m8": "gemm_plane"},
+                "q3f16_s16": {"prefill": "gemm_plane", "m1": "gemv_gp3", "m8": "gemm_plane"},
                 "q4f32": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"},
                 "q4f16_hs": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"}}
 
@@ -985,8 +1025,51 @@ def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0
     return want
 
 
-def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA):
-    kv = "int8" if cache_dtype == torch.int8 else "bf16"
+KV_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.int8: "int8"}
+
+
+@contextlib.contextmanager
+def finite_logits(label):
+    """Hold the logits of every forward the engine runs inside to be
+    finite: each forward's count of non-finite logits is added up on the
+    card (no host sync a step) and read once at the end."""
+    from mlc_llm_tpu_torch.engine import engine as engine_mod
+
+    fwd = engine_mod.forward
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    calls = []
+
+    def checked(*a, **kw):
+        logits, cache = fwd(*a, **kw)
+        bad.add_((~torch.isfinite(logits)).sum())
+        calls.append(1)
+        return logits, cache
+
+    engine_mod.forward = checked
+    try:
+        yield
+    finally:
+        engine_mod.forward = fwd
+    print(f"  {label}: {len(calls)} forwards, {int(bad)} non-finite logits")
+    if int(bad) or not calls:
+        fail(f"{label}: logits not finite")
+
+
+@contextlib.contextmanager
+def phase_seconds(name):
+    t0 = time.perf_counter()
+    yield
+    print(f"-- {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
+               idle_share=False):
+    """b1 chat: 3 greedy turns through ChatSession on the slot cache in
+    cache_dtype, launch counts held to the path's and the logits of every
+    forward finite. idle_share runs the first turn once
+    more under torch.profiler: the device idle share is 1 - its kernels'
+    device time over the first run's wall of that turn."""
+    kv = KV_NAMES[cache_dtype]
     print(f"== chat phase: {cfg.name} {quant}, {cfg.num_layers} layers, {kv} slot cache, "
           f"batch 1, {cfg.conv_template} template")
     engine = InferenceEngine(cfg, params, max_batch=1, cache_dtype=cache_dtype,
@@ -1005,16 +1088,22 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA):
                           ChatConfig(temperature=0.0, max_gen_len=32, max_window_size=768))
     prompts = ["Hello! Who are you?", "Name three colors.", "Thanks, bye."]
     reset_counters()
-    ttft = []
-    for prompt in prompts:
-        before = engine.stats.prefill_time
-        reply = session.ask(prompt)
-        ttft.append((engine.stats.prefill_time - before) * 1e3)
-        print(f"  USER: {prompt!r} -> {len(reply)} chars")
+    ttft, turn_s = [], []
+    t0 = time.perf_counter()
+    with finite_logits(f"{cfg.name} {quant} chat"):
+        for prompt in prompts:
+            before = engine.stats.prefill_time
+            t_turn = time.perf_counter()
+            reply = session.ask(prompt)
+            turn_s.append(time.perf_counter() - t_turn)
+            ttft.append((engine.stats.prefill_time - before) * 1e3)
+            print(f"  USER: {prompt!r} -> {len(reply)} chars")
+    wall = time.perf_counter() - t0
     launches = read_counters()
     steps = engine.stats.decode_tokens
     stats = dict(model=cfg.name, quant=quant, kv=kv, param_bytes=nbytes, prefill_ms=ttft,
-                 decode_tok_s=engine.stats.decode_tps, decode_steps=steps)
+                 decode_tok_s=engine.stats.decode_tps, decode_steps=steps,
+                 step_wall_ms=engine.stats.decode_time / max(steps, 1) * 1e3, wall_s=wall)
     print(f"  prefill ms per turn (TTFT less sampling): {[round(t, 2) for t in ttft]}; "
           f"decode {engine.stats.decode_tps:.2f} tok/s over {steps} steps")
     want = expected_launches(quant, layers=cfg.num_layers, b1_steps=steps,
@@ -1022,6 +1111,15 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA):
     print(f"  launches: {launches} (want {want})")
     if steps == 0 or launches != want:
         fail("launch counts do not match the chat path")
+    if idle_share:
+        engine.reset()
+        again = ChatSession(engine, ByteTokenizer(), cfg,
+                            ChatConfig(temperature=0.0, max_gen_len=32, max_window_size=768))
+        stats["device_ms"] = device_busy_ms(lambda: again.ask(prompts[0]))
+        stats["device_idle_share"] = 1 - stats["device_ms"] / (turn_s[0] * 1e3)
+        print(f"  the first turn again under torch.profiler: {stats['device_ms']:.1f} ms of "
+              f"kernels -> device idle share {stats['device_idle_share']:.4f} of its "
+              f"{turn_s[0]:.2f} s wall")
     return launches, stats
 
 
@@ -1247,22 +1345,25 @@ def device_busy_ms(fn) -> float:
     return sum(us) / 1e3
 
 
-def model_serve_phase(params, cfg, quant, idle_share=False):
-    """The paged continuous-batching server on a NeoX or MOSS model: 8
-    requests in process (one sampled) through ContinuousBatchingScheduler
-    over InferenceEngine(kv_layout="paged"), bf16 pages. Every b8 decode
-    forward runs its 4L layer matmuls and the lm head through the preset's
-    GEMV at m = 8 (gemv_gp for pair/hsplit, gemv_qs for qsplit) and kernel
-    7 once a layer (D = 80 for the NeoX 3B, 256 for MOSS; q in the model's
-    type); every admission its layer matmuls through the preset's GEMM
-    and its lm head through the GEMV at m = 1. With idle_share, the same
-    requests run once more under torch.profiler: the device idle share is
-    1 - their kernels' device time over the first (unprofiled) run's wall."""
-    print(f"== {cfg.name} {quant} serve: paged KV (page {PAGE_SIZE}), max_batch {SERVE_BATCH}, "
-          f"max_seq_len {SERVE_SEQ}, in-process scheduler, 8 requests")
+def model_serve_phase(params, cfg, quant, idle_share=False, page_dtype=torch.bfloat16):
+    """The paged continuous-batching server on a model: 8 requests in
+    process (one sampled) through ContinuousBatchingScheduler over
+    InferenceEngine(kv_layout="paged"), pages in page_dtype. Every b8
+    decode forward runs its 4L layer matmuls and the lm head through the
+    preset's kernel at m = 8 (gemv_gp for pair/hsplit, gemv_qs for qsplit,
+    gemm_plane for int3/u16) and kernel 7 once a layer (D = 80 for the
+    NeoX 3B, 128 for Vicuna, 256 for MOSS; q in the model's type); every
+    admission its layer matmuls through the preset's GEMM and its lm head
+    through its kernel at m = 1 (the GEMV; gemv_gp3 for int3/u16). The
+    logits of every forward are held finite. With idle_share, the same requests run once more under torch.profiler: the
+    device idle share is 1 - their kernels' device time over the first
+    (unprofiled) run's wall."""
+    print(f"== {cfg.name} {quant} serve: paged {KV_NAMES[page_dtype]} KV (page {PAGE_SIZE}), "
+          f"max_batch {SERVE_BATCH}, max_seq_len {SERVE_SEQ}, in-process scheduler, 8 requests")
     engine = InferenceEngine(cfg, params, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
-                             kv_layout="paged", page_size=PAGE_SIZE, device="cuda")
-    if engine.kv_layout != "paged" or engine.cache.k_pages.dtype != torch.bfloat16:
+                             cache_dtype=page_dtype, kv_layout="paged", page_size=PAGE_SIZE,
+                             device="cuda")
+    if engine.kv_layout != "paged" or engine.cache.k_pages.dtype != page_dtype:
         fail(f"{cfg.name} serve engine runs {engine.kv_layout} {engine.cache.k_pages.dtype} KV")
     sched = ContinuousBatchingScheduler(engine, seed=0)
     admitted = []
@@ -1273,26 +1374,26 @@ def model_serve_phase(params, cfg, quant, idle_share=False):
         return prefill_slot(*a, **kw)
 
     engine._prefill_slot = counted_prefill
-    # the m of every matmul routed to the GEMV (route is a pure function of
-    # the weight's format and m; the wrapper keeps its own launch count)
-    gemv = PATH_KERNELS[quant]["m8"]
-    gp_rows = []
+    # the (kernel, m) of every quantized matmul (route is a pure function
+    # of the weight's format and m; the wrapper keeps its own launch count)
+    kinds = PATH_KERNELS[quant]
+    routed = []
     route = dm.route
 
     def route_rows(spec, n_groups, m):
         kind = route(spec, n_groups, m)
-        if kind == gemv:
-            gp_rows.append(m)
+        routed.append((kind, m))
         return kind
 
     work = serve_requests(8, cfg.vocab_size, sampled=lambda i: i == 7)
     reset_counters()
     dm.route = route_rows
     try:
-        t0 = time.perf_counter()
-        reqs = [sched.submit(p, g) for p, g in work]
-        sched.run()
-        wall = time.perf_counter() - t0
+        with finite_logits(f"{cfg.name} {quant} serve"):
+            t0 = time.perf_counter()
+            reqs = [sched.submit(p, g) for p, g in work]
+            sched.run()
+            wall = time.perf_counter() - t0
     finally:
         dm.route = route
     launches = read_counters()
@@ -1304,15 +1405,19 @@ def model_serve_phase(params, cfg, quant, idle_share=False):
                  step_wall_ms=engine.stats.decode_time / max(forwards, 1) * 1e3,
                  admissions=n_pre, prefill_s=engine.stats.prefill_time)
     print(f"  {json.dumps(stats)}")
-    m8, m1 = gp_rows.count(SERVE_BATCH), gp_rows.count(1)
-    print(f"  launches: {launches} (want {want}); routed to {gemv} at m = 8: {m8} "
-          f"(want {(4 * L + 1) * forwards}), at m = 1: {m1} (want {n_pre})")
+    m8 = routed.count((kinds["m8"], SERVE_BATCH))
+    m1 = routed.count((kinds["m1"], 1))
+    # m = 8 is a b8 decode, m = 1 a prefill's lm head, any other m a prefill
+    stray = sorted({(k, m) for k, m in routed
+                    if k != {SERVE_BATCH: kinds["m8"], 1: kinds["m1"]}.get(m, kinds["prefill"])})
+    print(f"  launches: {launches} (want {want}); routed to {kinds['m8']} at m = 8: {m8} "
+          f"(want {(4 * L + 1) * forwards}), to {kinds['m1']} at m = 1: {m1} (want {n_pre})")
     if not all(r.done and r.output for r in reqs) or min(lens) < 1:
         fail(f"{cfg.name} serve: bad completions {lens}")
     if forwards == 0 or launches != want:
         fail(f"{cfg.name} serve: launch counts do not match the path")
-    if m8 != (4 * L + 1) * forwards or m1 != n_pre or len(gp_rows) != m8 + m1:
-        fail(f"{cfg.name} serve: {gemv} was routed m = {sorted(set(gp_rows))}, not the path's")
+    if m8 != (4 * L + 1) * forwards or m1 != n_pre or stray:
+        fail(f"{cfg.name} serve: matmuls routed off the path's kernels: {stray}")
     if idle_share:
         again = ContinuousBatchingScheduler(engine, seed=0)
 
@@ -1348,97 +1453,129 @@ def main():
     # the m tile of 256 (A streamed per k16 step) must not spill
     plane = plane_instantiations(logs["dequant_gemm_plane"])
     for e in plane:
-        print(f"  gemm_plane format {e['fmt']} MT={e['mt']}: {e['regs']} registers, spill "
-              f"stores {e['spill_stores']} B, loads {e['spill_loads']} B, C7512 notes "
-              f"{e['c7512']}")
+        print(f"  gemm_plane format {e['fmt']} {e['dtype']} MT={e['mt']}: {e['regs']} "
+              f"registers, spill stores {e['spill_stores']} B, loads {e['spill_loads']} B, "
+              f"C7512 notes {e['c7512']}")
     wide = [e for e in plane if e["mt"] == 256]
-    if sorted(e["fmt"] for e in wide) != [1, 2, 3] or any(
+    if sorted((e["fmt"], e["dtype"]) for e in wide) != [
+            (f, d) for f in (1, 2, 3) for d in ("bf16", "f16")] or any(
             e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in wide):
         fail(f"gemm_plane MT=256 instantiations missing or spilling: {wide}")
     # the streaming GEMVs: qsplit bf16/f16 at m = 1 and f32 at m = 1..8,
-    # pair and hsplit in three types at m = 1, int3/u16 at m = 1 and 2
+    # pair and hsplit in three types at m = 1, int3/u16 in bf16 and f16 at
+    # m = 1 and 2
     stream = [dict(e, source=name) for name in STREAM_SOURCES
               for e in stream_instantiations(logs[name])]
     for e in stream:
         print(f"  stream_kernel ({e['source']}.cu) {e['name']}: {e['regs']} registers, spill "
               f"stores {e['spill_stores']} B, loads {e['spill_loads']} B")
-    if len(stream) != 10 + 6 + 2 or any(
+    if len(stream) != 10 + 6 + 4 or any(
             e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in stream):
         fail(f"stream_kernel instantiations missing or spilling: {stream}")
     stream_blocks_check()
 
-    rows = kernel_phase()
-    one_launch_phase()
-    parity_phase()
-    hf_parity_phase()
+    with phase_seconds("kernel phase"):
+        rows = kernel_phase()
+    with phase_seconds("one-launch phase"):
+        one_launch_phase()
+    with phase_seconds("parity phase"):
+        parity_phase()
+    with phase_seconds("HF parity phase"):
+        hf_parity_phase()
     paths = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        params, ckpt_stats = checkpoint_phase(tmp)
+        with phase_seconds("checkpoint phase"):
+            params, ckpt_stats = checkpoint_phase(tmp)
         print(f"full-depth params loaded, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
               f"allocated")
-        paths["chat"], chat_stats = chat_phase(params)
+        with phase_seconds("chat phase"):
+            paths["chat"], chat_stats = chat_phase(params)
         torch.cuda.empty_cache()
-        tool_paths, ppl_res = tools_phase(tmp)
+        with phase_seconds("tools phase"):
+            tool_paths, ppl_res = tools_phase(tmp)
         paths.update(tool_paths)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    paths["serve"], serve_stats = serve_phase(params)
+    with phase_seconds("serve phase"):
+        paths["serve"], serve_stats = serve_phase(params)
     torch.cuda.empty_cache()
-    paths["int8_auto"], _ = int8_auto_phase(params)
+    with phase_seconds("int8 auto phase"):
+        paths["int8_auto"], _ = int8_auto_phase(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    params = init_random_params(VICUNA, "q3bf16_s16", seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"full-depth q3bf16_s16 params in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    paths["q3_chat"], q3_chat_stats = chat_phase(params, "q3bf16_s16", torch.int8)
-    torch.cuda.empty_cache()
-    paths["q3_serve"], q3_serve_stats = int8_auto_phase(params, "q3bf16_s16")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    neox_stats = {}
-    for path, cfg, quant in (("rp_chat", REDPAJAMA, "q4f32"), ("dolly_chat", DOLLY, "q4f16_hs")):
+    with phase_seconds("q3 phases"):
         t0 = time.perf_counter()
-        params = init_random_params(cfg, quant, seed=0, device="cuda")
+        params = init_random_params(VICUNA, "q3bf16_s16", seed=0, device="cuda")
         torch.cuda.synchronize()
-        print(f"full-depth {cfg.name} {quant} params in {time.perf_counter() - t0:.1f} s, "
+        print(f"full-depth q3bf16_s16 params in {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        paths[path], neox_stats[path] = chat_phase(params, quant, cfg=cfg)
+        paths["q3_chat"], q3_chat_stats = chat_phase(params, "q3bf16_s16", torch.int8)
         torch.cuda.empty_cache()
-        serve_path = path.replace("chat", "serve")
-        paths[serve_path], neox_stats[serve_path] = model_serve_phase(params, cfg, quant)
+        paths["q3_serve"], q3_serve_stats = int8_auto_phase(params, "q3bf16_s16")
         del params
         gc.collect()
         torch.cuda.empty_cache()
 
+    # the f16 bodies at full depth: q3f16_s16 on f16 slot KV (b1 chat) and
+    # f16 pages (the b8 scheduler)
+    with phase_seconds("q3f16 phases"):
+        t0 = time.perf_counter()
+        params = init_random_params(VICUNA, "q3f16_s16", seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"full-depth q3f16_s16 params in {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        paths["q3f16_chat"], q3f16_chat_stats = chat_phase(
+            params, "q3f16_s16", torch.float16, idle_share=True)
+        torch.cuda.empty_cache()
+        paths["q3f16_serve"], q3f16_serve_stats = model_serve_phase(
+            params, VICUNA, "q3f16_s16", idle_share=True, page_dtype=torch.float16)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    neox_stats = {}
+    for path, cfg, quant in (("rp_chat", REDPAJAMA, "q4f32"), ("dolly_chat", DOLLY, "q4f16_hs")):
+        with phase_seconds(f"{cfg.name} {quant} phases"):
+            t0 = time.perf_counter()
+            params = init_random_params(cfg, quant, seed=0, device="cuda")
+            torch.cuda.synchronize()
+            print(f"full-depth {cfg.name} {quant} params in {time.perf_counter() - t0:.1f} s, "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+            paths[path], neox_stats[path] = chat_phase(params, quant, cfg=cfg)
+            torch.cuda.empty_cache()
+            serve_path = path.replace("chat", "serve")
+            paths[serve_path], neox_stats[serve_path] = model_serve_phase(params, cfg, quant)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+
     # MOSS: full depth, q4bf16 (every tensor qsplit), random weights
     # quantized on the card; b1 chat on bf16 slot KV, then the paged server
     # (kernel 7 at D = 256)
-    t0 = time.perf_counter()
-    params = init_random_params(MOSS, "q4bf16", seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"full-depth {MOSS.name} q4bf16 params in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    paths["moss_chat"], moss_chat_stats = chat_phase(params, "q4bf16", cfg=MOSS)
-    torch.cuda.empty_cache()
-    paths["moss_serve"], moss_serve_stats = model_serve_phase(params, MOSS, "q4bf16",
-                                                              idle_share=True)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    with phase_seconds("MOSS phases"):
+        t0 = time.perf_counter()
+        params = init_random_params(MOSS, "q4bf16", seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"full-depth {MOSS.name} q4bf16 params in {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        paths["moss_chat"], moss_chat_stats = chat_phase(params, "q4bf16", cfg=MOSS)
+        torch.cuda.empty_cache()
+        paths["moss_serve"], moss_serve_stats = model_serve_phase(params, MOSS, "q4bf16",
+                                                                  idle_share=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # per kernel: its main-path shape (GEMVs: w_in at decode m=1; GEMMs: w_in
     # at prefill m=128; paged: bf16 KV at b8); every shape is in "shapes".
     # launches: the count on the kernel's own slice's path (the q4 serve
     # phase for rows 1-3 and 7, the q3 chat phase for rows 4-6, the
     # RedPajama q4f32 chat for the pair/hsplit bodies), and each path's
-    # count in launches_by_path
+    # count in launches_by_path (q3f16_chat and q3f16_serve: the f16 bodies
+    # of rows 4-6)
     kernels = []
     tops = {"gemv_qs": ("q4bf16", "w_in", 1, "serve"),
             "gemm_qs": ("q4bf16", "w_in", 128, "serve"),
@@ -1468,7 +1605,9 @@ def main():
         fail("a kernel time is not finite or a kernel never ran on its path")
     print(json.dumps({"checkpoint": ckpt_stats, "chat": chat_stats, "ppl": ppl_res,
                       "serve": serve_stats, "q3_chat": q3_chat_stats,
-                      "q3_serve": q3_serve_stats, **neox_stats, "moss_chat": moss_chat_stats,
+                      "q3_serve": q3_serve_stats, "q3f16_chat": q3f16_chat_stats,
+                      "q3f16_serve": q3f16_serve_stats, **neox_stats,
+                      "moss_chat": moss_chat_stats,
                       "moss_serve": moss_serve_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)

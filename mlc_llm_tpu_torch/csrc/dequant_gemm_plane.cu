@@ -5,16 +5,17 @@
 // _kernel (the generic branch of _dequant_matmul_2d, flat weights) and
 // _kernel_stacked_generic (_dequant_matmul_stacked_generic_2d, layer-stacked
 // weights read in place): one templated kernel, the layer a pointer offset.
-// Same math, same rounding points:
+// Same math, same rounding points, in the compute type T (x's and the
+// scales': bf16 or f16):
 //   word kw holds k = kw * epw + i at bits i * nbit; each weight is rebuilt
-//   in bf16 as bf16(value(code) * s) (dequant_matmul.py:396), where value is
+//   in T as T(value(code) * s) (dequant_matmul.py:396), where value is
 //   the raw code for int3, +-2^(e-7) (0 when e == 0) for fp4, and the
-//   stored signed byte for int8; then acc += x @ w in f32; int3 adds the
-//   folded offset term (none for fp4 and int8):
-//     sum_kw bf16(sum_i x[kw * epw + i]) * off[g(kw)],  off = bf16(-max_int * s).
+//   stored signed byte for int8 (each exact in both types); then acc += x
+//   @ w in f32; int3 adds the folded offset term (none for fp4 and int8):
+//     sum_kw T(sum_i x[kw * epw + i]) * off[g(kw)],  off = T(-max_int * s).
 //
 // Bound on the H100: bytes at decode widths (m <= ~185 at 3.6 bits a weight
-// against the ~295 flops/byte ridge), the bf16 tensor-core rate above.
+// against the ~295 flops/byte ridge), the bf16/f16 tensor-core rate above.
 //
 // The Hopper mainloop of dequant_wgmma.cuh (wgmma, the weight as the
 // register A operand, a TMA ring), with A streamed one k16 step at a time
@@ -22,7 +23,7 @@
 // beside its accumulator and each warpgroup's dequant of a step overlaps
 // its own MMA of the step before). x arrives in the TPU wrapper's
 // plane-transposed order x_t[f, m, kw] = x[m, kw * epw + f] (+ for int3 one
-// more plane, the bf16 word sums of x), made by plane_x_kernel, a prologue
+// more plane, the word sums of x in T), made by plane_x_kernel, a prologue
 // launched by the same entry (int8 reads x itself as its one plane). A
 // stage is one chunk of 16 consecutive words (int8: four chunks of 16
 // rows): a k16 step is field f of the chunk's words, so the chunk's words
@@ -82,39 +83,50 @@ constexpr bool kOffset = F == kI3W32 || F == kI3W16;
 // words), and fp4, which fetches a chunk in two halves of four fields (a
 // word's bits 0-15, then 16-31), so that 4 registers hold a pair's codes
 // as for int3/u16, and the m64n256 accumulator still fits beside them
+template <typename T>
 struct PlaneChunk {
   uint32_t lo[4], hi[4];
-  __nv_bfloat162 sc[4];
+  typename wg::Vec2<T>::V sc[4];
 };
 
-// the bf16x2 bits of the unscaled values of field f of pair r (low half:
+// the T x 2 bits of the unscaled values of field f of pair r (low half:
 // the low word), exact
-template <int F>
-__device__ __forceinline__ uint32_t value_pair(const PlaneChunk& w, int r, int f) {
+template <int F, typename T>
+__device__ __forceinline__ uint32_t value_pair(const PlaneChunk<T>& w, int r, int f) {
   if constexpr (F == kI8) {
-    return wg::bits(__floats2bfloat162_rn(static_cast<float>(static_cast<int8_t>(w.lo[r])),
-                                          static_cast<float>(static_cast<int8_t>(w.hi[r]))));
+    return wg::bits(wg::Vec2<T>::pair(static_cast<float>(static_cast<int8_t>(w.lo[r])),
+                                      static_cast<float>(static_cast<int8_t>(w.hi[r]))));
   } else if constexpr (F == kF4W32) {
     // field f of the half: both codes at once, one a 16-bit lane;
-    // +-2^(e-7): exponent field e + 120, sign bit 15; 0 when e == 0
+    // +-2^(e-7): exponent field e + 120 (bf16, bit 7) or e + 8 (f16, bit
+    // 10), sign bit 15; 0 when e == 0 (f16 keeps 2^-6 normal: exact)
     const uint32_t t = (w.lo[r] >> (4 * f)) & 0x000F000Fu;
     const uint32_t e = t & 0x00070007u;
     const uint32_t nz = __vcmpne2(e, 0u);  // 0xFFFF a lane where e != 0
-    return ((((e + 0x00780078u) << 7) | ((t & 0x00080008u) << 12)) & nz);
+    const uint32_t ex = std::is_same<T, __nv_bfloat16>::value ? (e + 0x00780078u) << 7
+                                                               : (e + 0x00080008u) << 10;
+    return ((ex | ((t & 0x00080008u) << 12)) & nz);
   } else {
-    // int3: 128 + code exactly (bf16 128.0 is 0x4300, its ulp 1), less 128
+    // int3: 128 + code (bf16) or 1024 + code (f16), exact, less the same
     const uint32_t t =
-        F == kI3W16 ? ((w.lo[r] >> (3 * f)) & 0x00070007u) | 0x43004300u
-                    : ((w.lo[r] >> (3 * f)) & 7u) | (((w.hi[r] >> (3 * f)) & 7u) << 16) | 0x43004300u;
-    return wg::bits(__hsub2(wg::from_bits<__nv_bfloat162>(t), __float2bfloat162_rn(128.f)));
+        F == kI3W16 ? (w.lo[r] >> (3 * f)) & 0x00070007u
+                    : ((w.lo[r] >> (3 * f)) & 7u) | (((w.hi[r] >> (3 * f)) & 7u) << 16);
+    return wg::codes2<T>(t);
   }
 }
 
-template <int F>
+// the tensor-map element type of T
+template <typename T>
+constexpr CUtensorMapDataType kMapType = std::is_same<T, __nv_bfloat16>::value
+                                             ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+
+template <int F, typename T_>
 struct PlanePolicy {
-  using T = __nv_bfloat16;
+  using T = T_;
+  using V = typename wg::Vec2<T>::V;
   using Word = typename Fmt<F>::Word;
-  using Chunk = PlaneChunk;
+  using Chunk = PlaneChunk<T>;
   static constexpr int kEpw = Fmt<F>::kEpw, kWpg = Fmt<F>::kWpg, kChunks = Fmt<F>::kChunks;
   static constexpr int kPlanes = kEpw + (kOffset<F> ? 1 : 0);  // x_t planes
   static constexpr int kHalves = F == kF4W32 ? 2 : 1;  // fetches a chunk
@@ -153,7 +165,7 @@ struct PlanePolicy {
   static __device__ __forceinline__ Chunk fetch(const uint8_t* wt, const uint8_t* st, int ch,
                                                 int c, int j, const wg::Params&) {
     const Word* W = reinterpret_cast<const Word*>(wt);
-    const __nv_bfloat16* S = reinterpret_cast<const __nv_bfloat16*>(st);
+    const T* S = reinterpret_cast<const T*>(st);
     Chunk x;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -170,7 +182,8 @@ struct PlanePolicy {
         x.lo[r] = static_cast<uint32_t>(lo);
         x.hi[r] = static_cast<uint32_t>(hi);
       }
-      x.sc[r] = __bfloat162bfloat162(S[(row / kWpg) * wg::kBN + col]);
+      const T sv = S[(row / kWpg) * wg::kBN + col];
+      x.sc[r] = V(sv, sv);
     }
     return x;
   }
@@ -188,29 +201,29 @@ struct PlanePolicy {
     }
   }
 
-  // A of step f of a chunk: bf16(value * s) of field f (one __hmul2_rn),
-  // or for int3's offset step (f == epw) off = bf16(-max_int * s)
+  // A of step f of a chunk: T(value * s) of field f (one __hmul2_rn),
+  // or for int3's offset step (f == epw) off = T(-max_int * s)
   static __device__ __forceinline__ void dequant_step(int f, uint32_t (&a)[4], const Chunk& w,
                                                       const wg::Params& p) {
     if (kOffset<F> && f == kEpw) {
-      const __nv_bfloat162 neg_max = __float2bfloat162_rn(static_cast<float>(-p.max_int));
+      const V neg_max = wg::Vec2<T>::dup(static_cast<float>(-p.max_int));
 #pragma unroll
       for (int r = 0; r < 4; ++r) a[r] = wg::bits(__hmul2_rn(w.sc[r], neg_max));
     } else {
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        a[r] = wg::bits(
-            __hmul2_rn(wg::from_bits<__nv_bfloat162>(value_pair<F>(w, r, f)), w.sc[r]));
+        a[r] = wg::bits(__hmul2_rn(wg::from_bits<V>(value_pair<F, T>(w, r, f)), w.sc[r]));
     }
   }
 };
 
-// x [M][KW * epw] -> x_t [planes][M][KWp]: plane f < epw holds
-// x[m, kw * epw + f], int3's plane epw the bf16 word sum (f32, in field
-// order); zero for KW <= kw < KWp
-template <int F>
-__global__ void plane_x_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ xt,
-                               int M, int KW, int KWp) {
+// x [M][KW * epw] -> x_t [planes][M][KWp] in T: plane f < epw holds
+// x[m, kw * epw + f], int3's plane epw the word sum (f32, in field order)
+// rounded to T; zero for KW <= kw < KWp
+template <int F, typename T>
+__global__ void plane_x_kernel(const T* __restrict__ x, T* __restrict__ xt, int M, int KW,
+                               int KWp) {
+  using Num = int4k::Num<T>;
   constexpr int E = Fmt<F>::kEpw;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M * KWp) return;
@@ -218,82 +231,99 @@ __global__ void plane_x_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat1
   float sum = 0.f;
 #pragma unroll
   for (int f = 0; f < E; ++f) {
-    const __nv_bfloat16 v =
-        kw < KW ? x[static_cast<size_t>(m) * KW * E + kw * E + f] : __float2bfloat16(0.f);
+    const T v = kw < KW ? x[static_cast<size_t>(m) * KW * E + kw * E + f] : Num::from_f(0.f);
     xt[(static_cast<size_t>(f) * M + m) * KWp + kw] = v;
-    sum += __bfloat162float(v);
+    sum += Num::to_f(v);
   }
-  if constexpr (kOffset<F>) xt[(static_cast<size_t>(E) * M + m) * KWp + kw] = __float2bfloat16(sum);
+  if constexpr (kOffset<F>) xt[(static_cast<size_t>(E) * M + m) * KWp + kw] = Num::from_f(sum);
 }
 
-template <int F>
+template <int F, typename T>
 cudaError_t launch(const void* x, void* xt, const void* w, const void* s, float* partial,
                    void* out, int M, int G, int N, int mt, int splits, int per, int max_int,
                    int out_f32, cudaStream_t st) {
-  using P = PlanePolicy<F>;
+  using P = PlanePolicy<F, T>;
   const int rows = F == kI8 ? 32 * G : G * Fmt<F>::kWpg;  // stored word rows (int8: K)
   const int steps = (rows + P::kRows - 1) / P::kRows;
   if ((splits - 1) * per >= steps || splits * per < steps) return cudaErrorInvalidValue;
   wg::Maps maps;
   bool ok;
   if constexpr (F == kI8) {
-    ok = wg::map_3d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, rows, M, 1, rows * 2ull,
+    ok = wg::map_3d(&maps.x, kMapType<T>, x, rows, M, 1, rows * 2ull,
                     static_cast<size_t>(M) * rows * 2, 16, mt, 1, CU_TENSOR_MAP_SWIZZLE_32B);
   } else {
     const int kwp = (rows + 7) / 8 * 8;  // 16-byte rows of x_t
     const int threads = 256;
-    plane_x_kernel<F><<<(M * kwp + threads - 1) / threads, threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(xt), M, rows, kwp);
-    ok = wg::map_3d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xt, kwp, M, P::kPlanes,
+    plane_x_kernel<F, T><<<(M * kwp + threads - 1) / threads, threads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<T*>(xt), M, rows, kwp);
+    ok = wg::map_3d(&maps.x, kMapType<T>, xt, kwp, M, P::kPlanes,
                     kwp * 2ull, static_cast<size_t>(M) * kwp * 2, 16, mt, P::kPlanes,
                     CU_TENSOR_MAP_SWIZZLE_32B);
   }
   ok = ok &&
        wg::map_2d(&maps.w, Fmt<F>::kType, w, N, rows, static_cast<size_t>(N) * sizeof(typename Fmt<F>::Word),
                   wg::kBN, P::kRows) &&
-       wg::map_2d(&maps.s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s, N, G, N * 2ull, wg::kBN, P::kSRows);
+       wg::map_2d(&maps.s, kMapType<T>, s, N, G, N * 2ull, wg::kBN, P::kSRows);
   if (!ok) return cudaErrorInvalidValue;
   maps.z = maps.s;
   wg::Params p{M, N, rows, steps, per, 1, max_int, out_f32, partial, out};
   cudaError_t err = wg::launch_mt<P>(mt, maps, p, splits, st);
   if (err == cudaSuccess && partial != nullptr)
-    int4k::launch_reduce<__nv_bfloat16>(partial, out, splits, M * N, out_f32, st);
+    int4k::launch_reduce<T>(partial, out, splits, M * N, out_f32, st);
   return err;
+}
+
+template <typename T>
+cudaError_t launch_fmt(int fmt, const void* x, void* xt, const void* w, const void* s,
+                       float* partial, void* out, int M, int G, int N, int mt, int splits,
+                       int per, int max_int, int out_f32, cudaStream_t st) {
+  switch (fmt) {
+    case kI3W32:
+      return launch<kI3W32, T>(x, xt, w, s, partial, out, M, G, N, mt, splits, per, max_int,
+                               out_f32, st);
+    case kI3W16:
+      return launch<kI3W16, T>(x, xt, w, s, partial, out, M, G, N, mt, splits, per, max_int,
+                               out_f32, st);
+    case kF4W32:
+      return launch<kF4W32, T>(x, xt, w, s, partial, out, M, G, N, mt, splits, per, max_int,
+                               out_f32, st);
+    case kI8:
+      return launch<kI8, T>(x, xt, w, s, partial, out, M, G, N, mt, splits, per, max_int,
+                            out_f32, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// fmt: enum Format. x [M, K] bf16 with K = G * (k per group), 16-byte
-// aligned; xt bf16 scratch [planes, M, KWp] (planes = epw, + 1 for int3;
-// KWp = the word rows rounded up to 8; null for int8); w words [G * words
-// per group, N] (int8: [K, N]), a layer's block; s [G, N] bf16; out [M, N]
-// in bf16 (out_f32 = 0) or f32. The m tile mt in {16, 64, 128, 256} (not
+// fmt: enum Format; dtype: int4k::DType of x, xt and s (bf16 or f16). x
+// [M, K] with K = G * (k per group), 16-byte aligned; xt scratch [planes,
+// M, KWp] (planes = epw, + 1 for int3; KWp = the word rows rounded up to
+// 8; null for int8); w words [G * words per group, N] (int8: [K, N]), a
+// layer's block; s [G, N]; out [M, N] in x's type (out_f32 = 0) or f32. The m tile mt in {16, 64, 128, 256} (not
 // 256 for int3/u32), `splits`
 // split-K parts of `per` stages (16 word rows a stage; int8: 64 rows),
 // partial f32 [splits, M, N] when splits > 1, else null. Needs N % 128 ==
 // 0 and 16-byte aligned bases. Returns cudaGetLastError() after the
 // launches (cudaErrorInvalidValue for a refused tensor map or plan).
-extern "C" int mlc_gemm_plane(int fmt, const void* x, void* xt, const void* w, const void* s,
-                              void* partial, void* out, int M, int G, int N, int mt, int splits,
-                              int per, int max_int, int out_f32, void* stream) {
+extern "C" int mlc_gemm_plane(int fmt, int dtype, const void* x, void* xt, const void* w,
+                              const void* s, void* partial, void* out, int M, int G, int N,
+                              int mt, int splits, int per, int max_int, int out_f32,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
   if (splits < 1 || per < 1 || (splits > 1 && part == nullptr) ||
       (fmt != kI8 && xt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  switch (fmt) {
-    case kI3W32:
-      err = launch<kI3W32>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
+  switch (dtype) {
+    case int4k::kBF16:
+      err = launch_fmt<__nv_bfloat16>(fmt, x, xt, w, s, part, out, M, G, N, mt, splits, per,
+                                      max_int, out_f32, st);
       break;
-    case kI3W16:
-      err = launch<kI3W16>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
-      break;
-    case kF4W32:
-      err = launch<kF4W32>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
-      break;
-    case kI8:
-      err = launch<kI8>(x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int, out_f32, st);
+    case int4k::kF16:
+      err = launch_fmt<__half>(fmt, x, xt, w, s, part, out, M, G, N, mt, splits, per, max_int,
+                               out_f32, st);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

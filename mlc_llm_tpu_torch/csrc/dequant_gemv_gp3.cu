@@ -8,12 +8,15 @@
 //   8 words = 40 k (the natural order: the TPU's plane transpose and
 //   block-diagonal banding only feed its matrix unit);
 //   per group g:  P  = sum_k x[k] * (8 + q[k])                 (f32)
-//                 sx = sum_i bf16(sum_r x[5r + i])  (each field's 8-element
-//                      sum rounded to bf16, as the TPU's bf16 row sums)
+//                 sx = sum_i T(sum_r x[5r + i])  (each field's 8-element
+//                      sum rounded to the compute type T, x's: bf16 or
+//                      f16, as the TPU's row sums of its T x planes)
 //   y += s * (P - (8 + max_int) * sx)                          (f32 scales)
+// The codes 8 + q are exact in both types, so only the x staging, the
+// sums' rounding and the scales depend on T.
 //
 // Bound on the H100: bytes. A weight is 3.2 bits of word plus 0.4 bits of
-// bf16 scale, ~1.3 flops per byte, far below the ~295 flops/byte ridge
+// 16-bit scale, ~1.3 flops per byte, far below the ~295 flops/byte ridge
 // (Vicuna-7B w_in, 51.9 MB stored: 15.5 us at 3.35 TB/s).
 //
 // Gp3Stream is the int3/u16 policy of the weight-streaming mainloop of
@@ -41,8 +44,9 @@ __device__ __forceinline__ float code_plus_8(uint32_t w, int sh) {
 // staged x of word row rr of stage t: value e < 5 is k = 80t + 5rr + e
 // (values 5-7 are zero pads); group j of the stage: rows 8j .. 8j + 7; a
 // part's x is one chunk
+template <typename T_>
 struct Gp3Stream {
-  using T = __nv_bfloat16;
+  using T = T_;
   static constexpr int kWordBytes = 2, kGroups = 2, kStages = 3;
   static constexpr int kScaleOffset = gs::kRows * gs::kCols * kWordBytes;
   static constexpr int kStageBytes = kScaleOffset + 2 * kGroups * gs::kCols * sizeof(T);
@@ -54,7 +58,7 @@ struct Gp3Stream {
     return e < kFields ? 80 * i + kFields * rr + e : -1;
   }
   // lane r < 8 (and its copies r + 8, ...) holds row 8j + r; each field's
-  // 8-row sum rounded to bf16, the five added in f32
+  // 8-row sum rounded to T, the five added in f32
   static __device__ __forceinline__ float group_sum(const float* xst, int j, int m, int M,
                                                     int lane) {
     const float* xr = xst + ((8 * j + lane % 8) * M + m) * gs::kXRow;
@@ -64,7 +68,7 @@ struct Gp3Stream {
       float v = xr[i];
 #pragma unroll
       for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      t += __bfloat162float(__float2bfloat16(v));
+      t += int4k::rnd<T>(v);
     }
     return t;
   }
@@ -74,7 +78,7 @@ struct Gp3Stream {
                                                  const float* sx, float (&acc)[M][gs::C], bool,
                                                  int c) {
     constexpr int C = gs::C;
-    const __nv_bfloat16* S = reinterpret_cast<const __nv_bfloat16*>(st + kScaleOffset);
+    const T* S = reinterpret_cast<const T*>(st + kScaleOffset);
 #pragma unroll
     for (int j = 0; j < kGroups; ++j) {
       float p[M][C];
@@ -119,40 +123,49 @@ struct Gp3Stream {
   }
 };
 
-// Call f(gs::Body<Gp3Stream, M>()) at 1 <= M <= 2 (cudaErrorInvalidValue
-// for another M).
-template <class F>
-cudaError_t with_stream_body(int M, F f) {
+template <typename T, class F>
+cudaError_t with_m(int M, F f) {
   switch (M) {
-    case 1: return f(gs::Body<Gp3Stream, 1>());
-    case 2: return f(gs::Body<Gp3Stream, 2>());
+    case 1: return f(gs::Body<Gp3Stream<T>, 1>());
+    case 2: return f(gs::Body<Gp3Stream<T>, 2>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Call f(gs::Body<Gp3Stream<T>, M>()) on the streaming body of (dtype, M):
+// bf16 and f16 at 1 <= M <= 2 (cudaErrorInvalidValue for another).
+template <class F>
+cudaError_t with_stream_body(int dtype, int M, F f) {
+  switch (dtype) {
+    case int4k::kBF16: return with_m<__nv_bfloat16>(M, f);
+    case int4k::kF16: return with_m<__half>(M, f);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x [M, 40G] bf16; w u16 words [8G, N] (a layer's block); s [G, N] bf16;
-// `parts` split-K parts of `per` 80-k stages (at most gs::kMaxPer), with
-// partial f32 [parts, M, N] and tickets int32 [ceil(N / 256)], zero, when
-// parts > 1 (else null); out [M, N] in bf16 (out_f32 = 0) or f32. Needs 1
-// <= M <= 2, G % 2 == 0, N % 8 == 0, 16-byte aligned w and s bases.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// refused plan).
-extern "C" int mlc_gemv_gp3(const void* x, const void* w, const void* s, void* partial,
-                            void* tickets, void* out, int M, int G, int N, int out_f32,
-                            int parts, int per, void* stream) {
+// dtype: int4k::DType of x and s (bf16 or f16). x [M, 40G]; w u16 words
+// [8G, N] (a layer's block); s [G, N]; `parts` split-K parts of `per` 80-k
+// stages (at most gs::kMaxPer), with partial f32 [parts, M, N] and tickets
+// int32 [ceil(N / 256)], zero, when parts > 1 (else null); out [M, N] in
+// x's type (out_f32 = 0) or f32. Needs 1 <= M <= 2, G % 2 == 0, N % 8 ==
+// 0, 16-byte aligned w and s bases. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a refused plan).
+extern "C" int mlc_gemv_gp3(int dtype, const void* x, const void* w, const void* s,
+                            void* partial, void* tickets, void* out, int M, int G, int N,
+                            int out_f32, int parts, int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const gs::Params p{x, static_cast<const uint8_t*>(w), static_cast<const uint8_t*>(s), nullptr,
                      static_cast<float*>(partial), static_cast<int*>(tickets), out, 40 * G, N,
                      G, G / 2, per, parts, out_f32};
   if (G % 2 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      with_stream_body(M, [&](auto body) { return gs::launch(body, p, st); }));
+      with_stream_body(dtype, M, [&](auto body) { return gs::launch(body, p, st); }));
 }
 
-// The blocks of the streaming body at M an SM holds, into *n.
-extern "C" int mlc_gemv_gp3_blocks(int M, int* n) {
+// The blocks of the streaming body of (dtype, M) an SM holds, into *n.
+extern "C" int mlc_gemv_gp3_blocks(int dtype, int M, int* n) {
   return static_cast<int>(
-      with_stream_body(M, [&](auto body) { return gs::blocks_per_sm(body, n); }));
+      with_stream_body(dtype, M, [&](auto body) { return gs::blocks_per_sm(body, n); }));
 }

@@ -33,13 +33,14 @@ format                          m <= 2     2 < m <= 8  8 < m <= 2048  m > 2048
 q4bf16, q4f16 (qsplit)          gemv_qs    gemv_qs     gemm_qs       dense
 q4*_pair, q4*_sym, q4f32        gemv_gp    gemv_gp     gemm_pairs    dense
 q4*_hs (hsplit, G % 16 == 0)    gemv_gp    gemv_gp     gemm_pairs    dense
-q3bf16_s16 (G % 16 == 0)        gemv_gp3   gemm_plane  gemm_plane    dense
-q3bf16, fp4bf16, q8bf16         gemm_plane gemm_plane  gemm_plane    dense
+q3*_s16 (G % 16 == 0)           gemv_gp3   gemm_plane  gemm_plane    dense
+q3*, fp4*, q8* (bf16 and f16)   gemm_plane gemm_plane  gemm_plane    dense
 ==============================  =========  ==========  ============  ========
 
 The four int4 kernels compute in the spec's dtype, bf16, f16 or f32 (x
 and the scales in that dtype, the output in it or in f32); no int4 order
-raises. The int3, fp4 and int8 kernels take bf16.
+raises. The int3, fp4 and int8 kernels take bf16 and f16 (every low-bit
+preset: q3bf16, q3f16, q3*_s16, fp4*, q8*).
 
 Each wrapper picks its path from the tensors' device: CPU tensors run
 the plain version (``*_plain``), CUDA tensors launch the kernel or
@@ -82,9 +83,9 @@ _GP_ARGS = {"mlc_gemv_gp": [_I] * 2 + [_P] * 7 + [_I] * 6 + [_P],
             "mlc_gemv_gp_tc": [_I] * 2 + [_P] * 7 + [_I] * 7 + [_P],
             "mlc_gemv_gp_blocks": [_I] * 2 + [_P]}
 _PAIRS_ARGS = {"mlc_gemm_pairs": [_I] * 2 + [_P] * 7 + [_I] * 8 + [_P]}
-_GP3_ARGS = {"mlc_gemv_gp3": [_P] * 6 + [_I] * 6 + [_P],
-             "mlc_gemv_gp3_blocks": [_I, _P]}
-_PLANE_ARGS = {"mlc_gemm_plane": [_I] + [_P] * 6 + [_I] * 8 + [_P]}
+_GP3_ARGS = {"mlc_gemv_gp3": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+             "mlc_gemv_gp3_blocks": [_I] * 2 + [_P]}
+_PLANE_ARGS = {"mlc_gemm_plane": [_I] * 2 + [_P] * 6 + [_I] * 8 + [_P]}
 _QSPLIT = QUANT_PRESETS["q4bf16"]
 _Q3S16 = QUANT_PRESETS["q3bf16_s16"]
 # int4/u32 words in each bit order (the unpacker reads only the order)
@@ -99,6 +100,8 @@ LAYOUT_IDS = {"pair": 0, "hsplit": 1}
 PLANE_FORMATS = {("int3", "u32", 40): 0, ("int3", "u16", 40): 1, ("fp4", "u32", 32): 2,
                  ("int8", "i8", 32): 3}
 _WORD_DTYPES = {"u32": torch.int32, "u16": torch.int16, "i8": torch.int8}
+# the compute dtypes of the int3/fp4/int8 kernels (gemv_gp3, gemm_plane)
+_PLANE_DTYPES = (torch.bfloat16, torch.float16)
 
 # The wgmma kernels (gemm_qs, gemm_pairs, gemm_plane, and gemv_qs in
 # bf16/f16 and gemv_gp at 2 <= m <= 8; csrc/dequant_wgmma.cuh): a block
@@ -180,9 +183,10 @@ STREAM_MAX_PER = 16
 STREAM_MAX_PARTS = 64
 STREAM_STAGE_K = {"qsplit": 128, "pair": 128, "hsplit": 128, "int3": 80}
 # the blocks an SM holds of each stream_kernel instantiation (its shared
-# memory bounds them), by (word kind, compute dtype bytes, m): chip_smoke.py
-# holds each against cudaOccupancyMaxActiveBlocksPerMultiprocessor of the
-# built kernel
+# memory bounds them), by (word kind, compute dtype bytes, m): bf16 and f16
+# share an entry (the same shared memory); chip_smoke.py holds each
+# instantiation against cudaOccupancyMaxActiveBlocksPerMultiprocessor of
+# the built kernel
 STREAM_BLOCKS = {("int4", 2, 1): 4, ("int3", 2, 1): 5, ("int3", 2, 2): 4,
                  **{("int4", 4, m): b for m, b in zip(range(1, 9), (3, 2, 2, 1, 1, 1, 1, 1))}}
 # stream_plan's time model: (the HBM rate the streaming blocks share, B/µs;
@@ -432,7 +436,8 @@ def gemv_gp3_plain(x, words, scale, out_dtype):
     """Plain version of the int3/u16 GEMV (_gp3_body), in its arithmetic
     order. u16 word r holds k = 5r + i at bits 3i; a group is 8 words
     (40 k). Per group, f32 partials P = sum x*(8+q); each of the five
-    fields' 8-element sums of x rounded to bf16, then added in f32 (sx);
+    fields' 8-element sums of x rounded to x's dtype (bf16 or f16: the
+    TPU body sums its x planes in that dtype), then added in f32 (sx);
     y = sum_g s*(P - (8+max_int)*sx) with f32 scales. x: [m, 40G];
     words [8G, N] int16; scale [G, N]; returns [m, N] in out_dtype."""
     m, K = x.shape
@@ -440,7 +445,7 @@ def gemv_gp3_plain(x, words, scale, out_dtype):
     xg = x.float().reshape(m, G, 40)
     vals = (_unpack_words(words, _Q3S16).to(torch.float32) + 8.0).reshape(G, 40, N)
     P = torch.einsum("mgk,gkn->mgn", xg, vals)
-    sx = xg.reshape(m, G, 8, 5).sum(dim=2).to(torch.bfloat16).float().sum(dim=2)
+    sx = xg.reshape(m, G, 8, 5).sum(dim=2).to(x.dtype).float().sum(dim=2)
     y = (scale.float()[None] * (P - float(8 + _Q3S16.max_int) * sx[:, :, None])).sum(dim=1)
     return y.to(out_dtype)
 
@@ -462,8 +467,8 @@ def plane_weight_plain(data, scale, spec: QuantSpec, dtype=torch.bfloat16) -> to
 def gemm_plane_plain(x, data, scale, zero, spec: QuantSpec, out_dtype):
     """Plain version of the plane GEMM (_kernel, dequant_matmul.py:362):
     y = x @ W in f32 with W from plane_weight_plain, plus, for word-packed
-    int formats, the folded offset sum_kw bf16(sum_i x[kw*epw+i]) * off[g]
-    with off = bf16(-max_int*s) (sym) or z (asym). x: [m, K_stored] with
+    int formats, the folded offset sum_kw T(sum_i x[kw*epw+i]) * off[g]
+    with off = T(-max_int*s) (sym) or z (asym), T x's dtype. x: [m, K_stored] with
     K_stored = rows * epw (words) or rows (i8); returns [m, N]."""
     m = x.shape[0]
     G = scale.shape[0]
@@ -744,12 +749,14 @@ gemm_pairs.launches = 0
 
 def gemv_gp3(x, data, scale, layer=None, out_dtype=torch.bfloat16):
     """int3/u16 group-partial GEMV (q3*_s16, sym, group 40). x: [m <= 2,
-    40G] bf16; data int16 [8G, N] or [L, 8G, N] (then pass `layer`);
-    scale [G, N] like data, G % 16 == 0. Returns [m, N] in out_dtype."""
+    40G] bf16 or f16; data int16 [8G, N] or [L, 8G, N] (then pass
+    `layer`); scale [G, N] like data, in x's dtype, G % 16 == 0. Returns
+    [m, N] in out_dtype."""
     if x.device.type == "cpu":
         return gemv_gp3_plain(x, _layer_view(data, layer), _layer_view(scale, layer), out_dtype)
     _check_cuda_args("gemv_gp3", x, data, scale, None, layer, out_dtype,
-                     word_dtype=torch.int16, k_per_row=5, group_k=40, g_mult=16, n_mult=8)
+                     word_dtype=torch.int16, k_per_row=5, group_k=40, g_mult=16, n_mult=8,
+                     dtypes=_PLANE_DTYPES)
     m = x.shape[0]
     G, N = scale.shape[-2:]
     if not 1 <= m <= GP3_MAX_M:
@@ -757,11 +764,12 @@ def gemv_gp3(x, data, scale, layer=None, out_dtype=torch.bfloat16):
     lib = load_kernel("dequant_gemv_gp3", _GP3_ARGS)
     wp, sp, _ = _ptrs(data, scale, None, layer)
     _check_tma("gemv_gp3", x.data_ptr(), wp, sp)
-    _, parts, per = stream_plan("int3", m, x.shape[1], N)
+    _, parts, per = stream_plan("int3", m, x.shape[1], N, x.element_size())
     st = _stream(x)
     partial, tickets = _stream_scratch(x, m, N, parts, st)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
-    err = lib.mlc_gemv_gp3(x.data_ptr(), wp, sp, None if partial is None else partial.data_ptr(),
+    err = lib.mlc_gemv_gp3(DTYPE_IDS[x.dtype], x.data_ptr(), wp, sp,
+                           None if partial is None else partial.data_ptr(),
                            None if tickets is None else tickets.data_ptr(), out.data_ptr(), m, G,
                            N, int(out_dtype == torch.float32), parts, per, st)
     check_launch(err, "gemv_gp3")
@@ -774,10 +782,10 @@ gemv_gp3.launches = 0
 
 def gemm_plane(x, data, scale, zero, spec: QuantSpec, layer=None, out_dtype=torch.bfloat16):
     """Plane dequant GEMM for int3 (u32/u16 words), fp4 and int8, at any m
-    up to 2048. x: [m, K_stored] bf16; data [KW, N] words or an int8 plane
-    [K, N] (or [L, ...], then pass `layer`); scale/zero [G, N] like data;
-    zero None unless asym (the plain version's only: the kernel's formats
-    are sym). Returns [m, N]."""
+    up to 2048. x: [m, K_stored] bf16 or f16; data [KW, N] words or an
+    int8 plane [K, N] (or [L, ...], then pass `layer`); scale/zero [G, N]
+    like data, in x's dtype; zero None unless asym (the plain version's
+    only: the kernel's formats are sym). Returns [m, N]."""
     if x.device.type == "cpu":
         return gemm_plane_plain(x, _layer_view(data, layer), _layer_view(scale, layer),
                                 _layer_view(zero, layer), spec, out_dtype)
@@ -790,7 +798,7 @@ def gemm_plane(x, data, scale, zero, spec: QuantSpec, layer=None, out_dtype=torc
     epw = 1 if spec.storage == "i8" else spec.elems_per_word
     _check_cuda_args("gemm_plane", x, data, scale, None, layer, out_dtype,
                      word_dtype=_WORD_DTYPES[spec.storage], k_per_row=epw,
-                     group_k=spec.group_size, n_mult=TILE_N)
+                     group_k=spec.group_size, n_mult=TILE_N, dtypes=_PLANE_DTYPES)
     m = x.shape[0]
     G, N = scale.shape[-2:]
     rows = data.shape[-2]
@@ -803,13 +811,13 @@ def gemm_plane(x, data, scale, zero, spec: QuantSpec, layer=None, out_dtype=torc
     # x in the plane-transposed order (+ int3's word-sum plane), rows of
     # the word count rounded up to 8 (16 bytes): the prologue's output
     planes = 0 if spec.storage == "i8" else epw + int(spec.mode == "int3")
-    xt = (torch.empty((planes, m, -(-rows // 8) * 8), dtype=torch.bfloat16, device=x.device)
+    xt = (torch.empty((planes, m, -(-rows // 8) * 8), dtype=x.dtype, device=x.device)
           if planes else None)
     partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     err = lib.mlc_gemm_plane(
-        fmt, x.data_ptr(), None if xt is None else xt.data_ptr(), wp, sp,
+        fmt, DTYPE_IDS[x.dtype], x.data_ptr(), None if xt is None else xt.data_ptr(), wp, sp,
         None if partial is None else partial.data_ptr(), out.data_ptr(), m, G, N, mt, splits,
         per, spec.max_int, int(out_dtype == torch.float32), _stream(x))
     check_launch(err, "gemm_plane")

@@ -253,7 +253,7 @@ def gemm_plane_cases(gen):
         def launch(lib, fmt=fmt, x=x, xt=xt, qt=qt, part=part, out=out, m=m, G=G, N=N, mt=mt,
                    splits=splits, per=per, max_int=spec.max_int):
             return lib.mlc_gemm_plane(
-                fmt, x.data_ptr(), None if xt is None else xt.data_ptr(), qt.data.data_ptr(),
+                fmt, dm.DTYPE_IDS[x.dtype], x.data_ptr(), None if xt is None else xt.data_ptr(), qt.data.data_ptr(),
                 qt.scale.data_ptr(), None if part is None else part.data_ptr(),
                 out.data_ptr(), m, G, N, mt, splits, per, max_int, 0,
                 torch.cuda.current_stream().cuda_stream)

@@ -7,10 +7,11 @@ For each case (kernel, preset, shape, m: the 3B and Vicuna-7B shapes the
 NeoX and Vicuna prefills and the b8 decode steps run; `gemm_qs` in bf16 at
 the Vicuna-7B shapes at m = 128 and 2048, in f16 and f32 at the 3B shapes
 at m = 128; `gemv_gp` at m = 8 at the 3B shapes, hsplit f16 and pair f32
-with their f32 lm heads; `gemm_plane` on q3bf16_s16 at the Vicuna-7B
-shapes at m = 8, 128 and 2048 and on q3bf16, fp4bf16 and q8bf16 at w_in;
-the streaming m = 1 GEMVs: `gemv_qs` q4bf16 and `gemv_gp3` q3bf16_s16 at
-the Vicuna-7B shapes, `gemv_gp` q4f32 and q4f16_hs at the 3B shapes, the
+with their f32 lm heads; `gemm_plane` on q3bf16_s16 and q3f16_s16 at
+the Vicuna-7B shapes at m = 8, 128 and 2048 and on q3bf16, fp4bf16,
+q8bf16 and their f16 presets at w_in;
+the streaming m = 1 GEMVs: `gemv_qs` q4bf16 and `gemv_gp3` q3bf16_s16 and
+q3f16_s16 at the Vicuna-7B shapes, `gemv_gp` q4f32 and q4f16_hs at the 3B shapes, the
 lm heads in f32 where the model's is),
 forces each distinct plan (m tile, split-K parts, stages per part) in
 place of `gemm_tiles`' choice (the streaming GEMVs: columns a block,
@@ -74,14 +75,16 @@ CASES += [("gemv_gp", preset + (":f32" if n == 50432 and preset == "q4f16_hs" el
           for preset in ("q4f16_hs", "q4f32") for k, n in NEOX_3B]
 # gemm_plane: the q3 Vicuna-7B prefill (m = 128, 2048; not the lm head, which
 # a prefill runs at m = 1) and b8 decode (m = 8, the lm head too), and the
-# other plane formats at w_in
-CASES += [("gemm_plane", "q3bf16_s16", k, n, m) for m in (8, 128, 2048) for k, n in VICUNA
-          if m == 8 or n != 32000]
-CASES += [("gemm_plane", preset, 4096, 22016, m) for preset in ("q3bf16", "fp4bf16", "q8bf16")
+# other plane formats at w_in; bf16 and f16
+CASES += [("gemm_plane", preset, k, n, m) for preset in ("q3bf16_s16", "q3f16_s16")
+          for m in (8, 128, 2048) for k, n in VICUNA if m == 8 or n != 32000]
+CASES += [("gemm_plane", preset, 4096, 22016, m)
+          for preset in ("q3bf16", "fp4bf16", "q8bf16", "q3f16", "fp4f16", "q8f16")
           for m in (8, 128, 2048)]
 # the streaming GEMVs at m = 1 (gemv_gp3 also at m = 2)
 CASES += [("gemv_qs", "q4bf16", k, n, 1) for k, n in VICUNA]
-CASES += [("gemv_gp3", "q3bf16_s16", k, n, m) for m in (1, 2) for k, n in VICUNA]
+CASES += [("gemv_gp3", preset, k, n, m) for preset in ("q3bf16_s16", "q3f16_s16")
+          for m in (1, 2) for k, n in VICUNA]
 CASES += [("gemv_gp", preset + (":f32" if n == 50432 and preset == "q4f16_hs" else ""), k, n, 1)
           for preset in ("q4f16_hs", "q4f32") for k, n in NEOX_3B]
 # kernel 7: (label, kv-heads, query heads, head dim, q dtype, page dtypes)

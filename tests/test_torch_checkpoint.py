@@ -4,8 +4,8 @@ Both packages write one raw .bin per leaf and a manifest.json; the port
 reads what JAX writes and JAX reads what the port writes, with every
 leaf bit-equal. Presets on tiny-llama: q4bf16 (hsplit and qsplit tensors
 side by side: k = 64 gives 2 groups, which cannot quarter-split), q3bf16_s16
-(u16 words), q8bf16 (int8 planes), f32 (dense); on tiny-gpt_neox q4f32
-(pair words, f32 scales, layernorm biases).
+(u16 words), q3f16_s16 (u16 words, f16 scales), q8bf16 (int8 planes), f32
+(dense); on tiny-gpt_neox q4f32 (pair words, f32 scales, layernorm biases).
 """
 
 import json
@@ -31,7 +31,7 @@ from mlc_llm_tpu_torch.utils.checkpoint import load_params, save_params
 torch.set_num_threads(2)
 
 CASES = [("tiny-llama", "q4bf16"), ("tiny-llama", "q3bf16_s16"), ("tiny-llama", "q8bf16"),
-         ("tiny-llama", "f32"), ("tiny-gpt_neox", "q4f32")]
+         ("tiny-llama", "f32"), ("tiny-gpt_neox", "q4f32"), ("tiny-llama", "q3f16_s16")]
 _jforward = jax.jit(jforward, static_argnames=("cfg",))
 
 

@@ -758,3 +758,78 @@ def test_cuda_stream_gemv_gp3_matches_plain(k, n, m):
     want = dm.gemv_gp3_plain(x, one.data, one.scale, out_dtype)
     _stream_call(dm.gemv_gp3,
                  lambda: dm.gemv_gp3(x, data, scale, layer=layer, out_dtype=out_dtype), want, TOL)
+
+
+# The f16 bodies of the int3/fp4/int8 kernels (q3f16, q3f16_s16, fp4f16,
+# q8f16): x, x_t, the scales and the tensor maps in f16. x ~ 0.5 N(0, 1):
+# a map that read f16 bytes as bf16 would miss the plain version by far
+# more than TOL at this magnitude.
+F16_PLANE = ["q3f16_s16", "q3f16", "fp4f16", "q8f16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("k,n", VICUNA_MM + [(4096, 264)])
+def test_cuda_stream_gemv_gp3_f16_matches_plain(k, n, m):
+    _need_gpu()
+    qts, (data, scale, _) = _stacked("q3f16_s16", k, n)
+    one = qts[1]
+    x = _x_for(one, m).half()
+    head = n == 32000
+    layer, out_dtype = (None, torch.float32) if head else (1, torch.float16)
+    if head:
+        data, scale = one.data, one.scale
+    want = dm.gemv_gp3_plain(x, one.data, one.scale, out_dtype)
+    _stream_call(dm.gemv_gp3,
+                 lambda: dm.gemv_gp3(x, data, scale, layer=layer, out_dtype=out_dtype), want, TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8] + RAGGED_M)
+@pytest.mark.parametrize("preset", F16_PLANE)
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "flat"])
+def test_cuda_wgmma_gemm_plane_f16_matches_plain(preset, stacked, m):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer = _weights(preset, 4096, 1024, stacked)
+    x = _x_for(one, m).half()
+    out_dtype = torch.float16 if stacked else torch.float32
+    before = dm.gemm_plane.launches
+    got = dm.gemm_plane(x, data, scale, zero, one.spec, layer=layer, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert dm.gemm_plane.launches == before + 1 and got.dtype == out_dtype
+    want = dm.gemm_plane_plain(x, one.data, one.scale, one.zero, one.spec, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 3], ids=["unsplit", "split3"])
+@pytest.mark.parametrize("m", [256, 2047])
+@pytest.mark.parametrize("preset", F16_PLANE)
+def test_cuda_gemm_plane_f16_wide_tile_matches_plain(preset, m, parts, monkeypatch):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, (data, scale, zero), layer = _weights(preset, 4096, 1024, True)
+    x = _x_for(one, m).half()
+    spec = one.spec
+    fmt = dm.PLANE_FORMATS[(spec.mode, spec.storage, spec.group_size)]
+    steps = -(-data.shape[-2] // dm.PLANE_STAGE_ROWS[fmt])
+    mt, per = dm.PLANE_WIDTHS[fmt][-1], -(-steps // parts)
+    monkeypatch.setattr(dm, "plane_tiles", lambda *a: (mt, -(-steps // per), per))
+    got = dm.gemm_plane(x, data, scale, zero, spec, layer=layer, out_dtype=torch.float16)
+    torch.cuda.synchronize()
+    want = dm.gemm_plane_plain(x, one.data, one.scale, one.zero, spec, torch.float16)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_f16_x_on_bf16_scales_raises():
+    # x and the scales in one dtype: f16 x on a bf16 preset's scales has
+    # no kernel, and nothing converts
+    _need_gpu()
+    one, (data, scale, zero), _ = _weights("q3bf16_s16", 4096, 1024, True)
+    x = _x_for(one, 1).half()
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        dm.gemv_gp3(x, data, scale, layer=1, out_dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        dm.gemm_plane(x, data, scale, zero, one.spec, layer=1, out_dtype=torch.float16)

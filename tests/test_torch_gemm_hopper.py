@@ -16,7 +16,9 @@ it:
   +8, k pairs 2c and 2c + 8 of a k16 step): qsplit walks 8 word rows a
   stage, one k16 step per quarter; the plane kernel walks 16 words a
   stage, one k16 step per field of the plane-transposed x_t, and for int3
-  one more step of the word-sum plane against off = bf16(-max_int * s).
+  one more step of the word-sum plane against off = T(-max_int * s), in
+  the compute type T (x's: bf16 or f16), with the f16 bit assembly of
+  each format's values (int3 1024 + q less 1024, fp4 exponent e + 8).
   The weights round where the kernels round (one bf16 or f16 product, one
   sum for qsplit), so the emulation meets the plain versions up to f32
   sums in another order: 1e-5 relative (atol 1e-5 of the output's max)
@@ -245,10 +247,10 @@ def emulate_gemm_qs(x, words, scale, zero, dtype):
 
 def emulate_gemm_plane(x, data, scale, spec):
     """gemm_plane's mainloop in torch: the prologue's x_t [planes, m, KW]
-    (fields, and int3's bf16 word sums), then per stage of 16 words and per
-    field f: A [N, 16] = bf16(value * s) of words 2c, 2c+1, 2c+8, 2c+9 of
-    the chunk, B = x_t[f] at the chunk; int3 adds the word-sum plane
-    against off = bf16(-max_int * s). int8 reads x as its one plane. Past
+    (fields, and int3's word sums in T, x's dtype), then per stage of 16
+    words and per field f: A [N, 16] = T(value * s) of words 2c, 2c+1,
+    2c+8, 2c+9 of the chunk, B = x_t[f] at the chunk; int3 adds the
+    word-sum plane against off = T(-max_int * s). int8 reads x as its one plane. Past
     the stored words everything reads zero (TMA's fill, the padded x_t).
     Returns f32 [m, N]."""
     m, K = x.shape
@@ -260,12 +262,12 @@ def emulate_gemm_plane(x, data, scale, spec):
     xt = x.reshape(m, kw, epw).permute(2, 0, 1)
     if spec.mode == "int3":
         xt = torch.cat([xt, x.float().reshape(m, kw, epw).sum(2).to(x.dtype)[None]])
+    cd = x.dtype
     if i8:
-        vals = data.to(torch.bfloat16).reshape(kw, 1, N)
+        vals = data.to(cd).reshape(kw, 1, N)
     else:
         codes = _unpack_words(data, spec).reshape(kw, epw, N)
-        vals = (dm._f4_to_float(codes, torch.bfloat16) if spec.mode == "fp4"
-                else codes.to(torch.bfloat16))
+        vals = dm._f4_to_float(codes, cd) if spec.mode == "fp4" else codes.to(cd)
     pad = -kw % 16
     xt = torch.nn.functional.pad(xt, (0, pad))
     vals = torch.nn.functional.pad(vals, (0, 0, 0, 0, 0, pad))
@@ -281,35 +283,41 @@ def emulate_gemm_plane(x, data, scale, spec):
     return acc
 
 
-def _bf16_bits(b):
-    """int64 tensor of 16-bit patterns -> bf16 tensor"""
-    return (((b & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16).view(torch.bfloat16)
+def _bits16(b, dtype):
+    """int64 tensor of 16-bit patterns -> bf16 or f16 tensor"""
+    return (((b & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16).view(dtype)
 
 
-def _step_values(lo, hi, f, spec):
+def _step_values(lo, hi, f, spec, dtype):
     """The kernel's value_pair from a chunk's register words: lo and hi
     the low and high word of each pair (int64, the stored bits), packed
     into one register as fetch() packs them (int3/u16 lo | hi << 16; fp4 the
-    half of four fields, 16 bits of each word). Returns the
-    unscaled bf16 values of field f, [2 * pairs, N], pair rows interleaved."""
+    half of four fields, 16 bits of each word). Returns the unscaled
+    values of field f in `dtype` (bf16 or f16), [2 * pairs, N], pair rows
+    interleaved."""
+    bf16 = dtype == torch.bfloat16
     if spec.storage == "i8":
-        v = torch.stack([lo, hi], 1).to(torch.int8).to(torch.bfloat16)
+        v = torch.stack([lo, hi], 1).to(torch.int8).to(dtype)
         return v.reshape(-1, lo.shape[1])
     if spec.mode == "fp4":
         # fetched in two halves of four fields, a pair packed into one
-        # register; both codes converted at once, one a 16-bit lane
+        # register; both codes converted at once, one a 16-bit lane:
+        # exponent field e + 120 at bit 7 (bf16) or e + 8 at bit 10 (f16)
         p = ((lo & 0xFFFF) | (hi << 16)) if f < 4 else ((lo >> 16) | (hi & 0xFFFF0000))
         t = (p >> (4 * (f % 4))) & 0x000F000F
         e = t & 0x00070007
         nz = ((e | (e >> 1) | (e >> 2)) & 0x00010001) * 0xFFFF
-        bits = (((e + 0x00780078) << 7) | ((t & 0x00080008) << 12)) & nz
-        return _bf16_bits(torch.stack([bits, bits >> 16], 1)).reshape(-1, lo.shape[1])
+        ex = ((e + 0x00780078) << 7) if bf16 else ((e + 0x00080008) << 10)
+        bits = (ex | ((t & 0x00080008) << 12)) & nz
+        return _bits16(torch.stack([bits, bits >> 16], 1), dtype).reshape(-1, lo.shape[1])
+    # int3: 128 + q in bf16 (0x4300), 1024 + q in f16 (0x6400), ulp 1
+    base, one = (0x43004300, 128.0) if bf16 else (0x64006400, 1024.0)
     if spec.storage == "u16":
-        t = (((lo | (hi << 16)) >> (3 * f)) & 0x00070007) | 0x43004300
+        t = (((lo | (hi << 16)) >> (3 * f)) & 0x00070007) | base
     else:
-        t = ((lo >> (3 * f)) & 7) | (((hi >> (3 * f)) & 7) << 16) | 0x43004300
-    halves = _bf16_bits(torch.stack([t, t >> 16], 1)).reshape(-1, lo.shape[1])
-    return (halves.float() - 128.0).to(torch.bfloat16)  # exact: __hsub2 of 128
+        t = ((lo >> (3 * f)) & 7) | (((hi >> (3 * f)) & 7) << 16) | base
+    halves = _bits16(torch.stack([t, t >> 16], 1), dtype).reshape(-1, lo.shape[1])
+    return (halves.float() - one).to(dtype)  # exact: __hsub2 of 128 or 1024
 
 
 def emulate_gemm_plane_streamed(x, data, scale, spec):
@@ -331,13 +339,13 @@ def emulate_gemm_plane_streamed(x, data, scale, spec):
     bits = {"u32": 0xFFFFFFFF, "u16": 0xFFFF, "i8": 0xFF}[spec.storage]
     words = torch.nn.functional.pad(data.to(torch.int64) & bits, (0, 0, 0, pad))
     s_rows = torch.nn.functional.pad(scale[torch.arange(kw) // wpg], (0, 0, 0, pad))
-    neg_max = torch.tensor(-spec.max_int, dtype=torch.bfloat16)
+    neg_max = torch.tensor(-spec.max_int, dtype=x.dtype)
     acc = torch.zeros((m, N), dtype=torch.float32)
     for kw0 in range(0, kw + pad, 16):
         lo, hi = words[kw0:kw0 + 16:2], words[kw0 + 1:kw0 + 16:2]  # the chunk's pairs
         s = s_rows[kw0:kw0 + 16]
         for f in range(xt.shape[0]):  # one k16 step, A in natural k order
-            a = _step_values(lo, hi, f, spec) * s if f < epw else s * neg_max
+            a = _step_values(lo, hi, f, spec, x.dtype) * s if f < epw else s * neg_max
             acc += xt[f][:, kw0:kw0 + 16].float() @ a.float()
     return acc
 
@@ -379,9 +387,11 @@ def test_gemm_qs_k_order_matches_plain_and_jax(preset, stacked):
 
 
 # 16 groups each, and group counts that are no multiple of the 16-word
-# chunk (q3bf16: 5 groups are 20 words; q3bf16_s16: 3 groups, 24 words)
+# chunk (q3bf16: 5 groups are 20 words; q3bf16_s16: 3 groups, 24 words);
+# each format in bf16 and f16
 PLANE_CASES = [("q3bf16_s16", 640), ("q3bf16", 640), ("fp4bf16", 512), ("q8bf16", 512),
-               ("q3bf16", 200), ("q3bf16_s16", 120)]
+               ("q3bf16", 200), ("q3bf16_s16", 120), ("q3f16_s16", 640), ("q3f16", 640),
+               ("fp4f16", 512), ("q8f16", 512), ("q3f16", 200)]
 
 
 @pytest.mark.parametrize("preset,k", PLANE_CASES)
@@ -395,7 +405,7 @@ def test_gemm_plane_k_order_matches_plain_and_jax(preset, k, stacked):
     spec = tq.spec
     rows = tq.data.shape[0]
     k_stored = rows if spec.storage == "i8" else rows * spec.elems_per_word
-    xj = jnp.asarray(rng.standard_normal((9, k)) * 0.1, jnp.bfloat16)
+    xj = jnp.asarray(rng.standard_normal((9, k)) * 0.1, spec.dtype)
     xt = torch.nn.functional.pad(tensor_from_numpy(np.asarray(xj)), (0, k_stored - k))
     got = emulate_gemm_plane(xt, tq.data, tq.scale, spec)
     _close_f32(got, dm.gemm_plane_plain(xt, tq.data, tq.scale, None, spec, torch.float32))
@@ -403,8 +413,8 @@ def test_gemm_plane_k_order_matches_plain_and_jax(preset, k, stacked):
         jst = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs, 0), *qts)
         want = _dequant_matmul_stacked_generic_2d(
             xj, jnp.asarray([1], jnp.int32), jst.data, jst.scale, jst.zero, spec=jst.spec,
-            shape=jst.shape, out_dtype=jnp.bfloat16, interpret=True)
-        got = got.to(torch.bfloat16)
+            shape=jst.shape, out_dtype=xj.dtype, interpret=True)
+        got = got.to(xt.dtype)
     else:
         want = _dequant_matmul_2d(xj, jq.data, jq.scale, jq.zero, spec=jq.spec, shape=jq.shape,
                                   out_dtype=jnp.float32, interpret=True)
@@ -412,7 +422,8 @@ def test_gemm_plane_k_order_matches_plain_and_jax(preset, k, stacked):
                                **JAX_TOL)
 
 
-@pytest.mark.parametrize("preset,k", PLANE_CASES + [("q3bf16_s16", 4000), ("fp4bf16", 1024)])
+@pytest.mark.parametrize("preset,k", PLANE_CASES + [("q3bf16_s16", 4000), ("fp4bf16", 1024),
+                                                    ("fp4f16", 1024)])
 def test_gemm_plane_streamed_k_order_is_bit_equal(preset, k):
     # A streamed per k16 step from the chunk's register words (kStream)
     # adds the same products in the same k order as the stage-at-once
@@ -424,6 +435,7 @@ def test_gemm_plane_streamed_k_order_is_bit_equal(preset, k):
     rows = tq.data.shape[0]
     k_stored = rows if spec.storage == "i8" else rows * spec.elems_per_word
     x = torch.nn.functional.pad(
-        torch.from_numpy(rng.standard_normal((9, k)) * 0.1).to(torch.bfloat16), (0, k_stored - k))
+        torch.from_numpy(rng.standard_normal((9, k)) * 0.1).to(getattr(torch, spec.dtype)),
+        (0, k_stored - k))
     got = emulate_gemm_plane_streamed(x, tq.data, tq.scale, spec)
     assert torch.equal(got, emulate_gemm_plane(x, tq.data, tq.scale, spec))

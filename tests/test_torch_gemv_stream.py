@@ -16,7 +16,7 @@ pair and hsplit (csrc/dequant_gemv_gp.cu, GpStream) and int3/u16
   order, the group sums of x gathered by the kernel's lane map and rounded
   as the TPU bodies round them (qsplit and hsplit once to T; pair the even
   and odd sums each rounded, added in T; int3 each field's sum rounded to
-  bf16, the five added in f32), the fold s * (P - base * sx) + z * sx, and
+  T, the five added in f32), the fold s * (P - base * sx) + z * sx, and
   the parts summed in part order. Each position's nibble is checked to hold
   the code of the k its staged x holds, each staged value to come from
   that k of the part's x slice as the kernel copies it (a few contiguous
@@ -135,8 +135,8 @@ def _group_sum(order, xg, dtype):
         even = xg[:, 0::2].sum(dim=1).to(dtype).float()
         odd = xg[:, 1::2].sum(dim=1).to(dtype).float()
         return (even + odd).to(dtype).float()
-    if order == "int3":  # each field's 8-row sum to bf16, the five in f32
-        return xg.reshape(-1, 8, 5).sum(dim=1).to(torch.bfloat16).float().sum(dim=1)
+    if order == "int3":  # each field's 8-row sum to T, the five in f32
+        return xg.reshape(-1, 8, 5).sum(dim=1).to(dtype).float().sum(dim=1)
     return xg.sum(dim=1).to(dtype).float()
 
 
@@ -306,21 +306,27 @@ def test_qsplit_f32_stream_at_m_above_1(m):
     _check_against_jax(jq, qts, xj, got, False, xt.dtype)
 
 
+# (preset, the scale of x): bf16, and f16 at x ~ 2 N(0, 1), where the
+# field sums' rounding type shows
+INT3_CASES = [("q3bf16_s16", 0.1), ("q3f16_s16", 2.0)]
+
+
+@pytest.mark.parametrize("preset,x_scale", INT3_CASES, ids=["bf16", "f16"])
 @pytest.mark.parametrize("stacked", [False, True], ids=["flat", "stacked"])
 @pytest.mark.parametrize("m", [1, 2])
-def test_int3_stream_matches_plain_and_jax(m, stacked):
-    # q3bf16_s16 at 32 groups (1280 k; the gp3 kernel needs G % 16 == 0);
+def test_int3_stream_matches_plain_and_jax(m, stacked, preset, x_scale):
+    # q3*_s16 at 32 groups (1280 k; the gp3 kernel needs G % 16 == 0);
     # N = 264, stored as 384 columns: a ragged tile past one whole one
-    spec = JPRESETS["q3bf16_s16"]
+    spec = JPRESETS[preset]
     k, n = 1280, 264
     rng, qts = _jax_weights(spec, k, n, seed=70 + m)
     jq = qts[1]
     tq = params_from_jax(jax.tree.map(np.asarray, jq))
     G = tq.scale.shape[0]
     assert G == 32 and dm.route(tq.spec, G, m) == "gemv_gp3"
-    xj = jnp.asarray(rng.standard_normal((m, k)) * 0.1, jnp.bfloat16)
+    xj = jnp.asarray(rng.standard_normal((m, k)) * x_scale, spec.dtype)
     xt = tensor_from_numpy(np.asarray(xj))
-    _, parts, per = dm.stream_plan("int3", m, 40 * G, n)
+    _, parts, per = dm.stream_plan("int3", m, 40 * G, n, xt.element_size())
     got = emulate_stream("int3", xt, tq.data, tq.scale, None, parts, per)
     _close_f32(got, dm.gemv_gp3_plain(xt, tq.data, tq.scale, torch.float32))
     _check_against_jax(jq, qts, xj, got, stacked, xt.dtype)
@@ -364,7 +370,7 @@ PLAN_SHAPES = ([("qsplit", k, n) for k, n in VICUNA + NEOX_3B]
 
 # the (compute dtype bytes, m) of each order's streaming bodies: qsplit
 # bf16/f16 at m = 1 and f32 at every m <= 8, pair and hsplit in each type at
-# m = 1, int3 in bf16 at m <= 2
+# m = 1, int3 in bf16 and f16 at m <= 2
 STREAMED = {"qsplit": [(2, 1)] + [(4, m) for m in range(1, 9)],
             "pair": [(2, 1), (4, 1)], "hsplit": [(2, 1), (4, 1)], "int3": [(2, 1), (2, 2)]}
 

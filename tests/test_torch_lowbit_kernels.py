@@ -87,7 +87,8 @@ def _jax_route(spec, G, m):
 
 
 @pytest.mark.parametrize("preset", ["q4bf16", "q4bf16_hs", "q4bf16_pair", "q4bf16_sym",
-                                    "q3bf16", "q3bf16_s16", "fp4bf16", "q8bf16"])
+                                    "q3bf16", "q3bf16_s16", "fp4bf16", "q8bf16",
+                                    "q3f16", "q3f16_s16", "fp4f16", "q8f16"])
 def test_route_matches_jax_dispatch(preset):
     groups = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 103, 128, 276, 288, 344, 352)
     ms = (1, 2, 3, 4, 7, 8, 9, 16, 128, 2048, 2049)
