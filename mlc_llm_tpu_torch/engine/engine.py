@@ -4,11 +4,19 @@ the continuous-batching scheduler's hooks.
 The counterpart of ``mlc_llm_tpu/engine/engine.py``. Prefill lengths are
 padded to the same static buckets and attention reads a bucketed
 window, so the kernels see the same shapes as the reference's programs.
-PyTorch runs eagerly: each JAX program is a method that runs the
-forward(s) and the on-device sampler, with no host readback inside
-(a K-step decode block is a Python loop of K forwards). The decode loop
-keeps the reference's pipelining: the next step is enqueued on the
-device before the previous step's token is read back.
+
+The decode step is a step program (``engine/programs.py``), as JAX's
+jitted ``_decode_sample``: on a CUDA engine every decode step replays
+one captured CUDA graph, keyed by (batch, attention window) as JAX keys
+its program on shapes and the static ``attn_window``. The graph reads
+fixed buffers: the staged tokens and active mask, the cache's device
+lengths and page table; it runs the forward, the greedy argmax and the
+inactive rows' freeze. Sampled rows (T >= 1e-6) are drawn after the
+replay from the graph's logits with each slot's own generator. A K-step
+block is K replays fed by an in-stream copy. Prefill runs eagerly. On
+the CPU the same step function runs eagerly. The decode loop keeps the
+reference's pipelining: the next step is enqueued on the device before
+the previous step's token is read back.
 
 KV layouts: ``"slot"`` (slot-contiguous [B, Smax] per slot), ``"paged"``
 (one shared page pool + per-slot page tables, ``models/paged_cache.py``)
@@ -20,6 +28,7 @@ decode kernel dequantizes inside its dots).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -28,10 +37,11 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.paged_cache import PageAllocator, PrefixCache, init_paged_kv_cache
-from ..models.transformer import forward, init_kv_cache, tree_map
+from ..models.transformer import forward, forward_decode, init_kv_cache, tree_map
 from ..ops import resolve_device, synchronize
-from ..ops.sampling import sample_token_perslot
+from ..ops.sampling import sample_rows, sample_token_perslot
 from ..quant.groupwise import QuantizedTensor, pad_quantized_groups
+from .programs import StepPrograms
 from .stats import RuntimeStats
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -99,9 +109,14 @@ class InferenceEngine:
         if not self.buckets or self.buckets[-1] < self.max_seq_len:
             self.buckets = tuple(sorted({*self.buckets, self.max_seq_len}))
         self.stats = RuntimeStats()
-        # decode forwards run (every S == 1 forward of the decode loops):
-        # each launches the paged decode kernel once per layer
+        # decode steps run (every run of the decode program, a graph
+        # replay on the card): each launches the paged decode kernel once
+        # per layer
         self.decode_forwards = 0
+        self.programs = StepPrograms(self.device)
+        # the decode program's fixed input buffers
+        self._step_tokens = torch.zeros((max_batch, 1), dtype=torch.int64, device=self.device)
+        self._step_active = torch.zeros((max_batch,), dtype=torch.int64, device=self.device)
         self.kv_layout = kv_layout
         self.page_size = page_size
         self.allocator = None
@@ -127,10 +142,23 @@ class InferenceEngine:
                                        device=self.device)
 
     def precompile(self, *, progress: Optional[Callable[[str], None]] = None) -> int:
-        """No-op warm-up: PyTorch runs eagerly and the kernels are built
-        at first use, so there is no program to compile ahead. Returns
-        the number of programs compiled (0)."""
-        return 0
+        """Capture the decode program of every attention-window bucket at
+        max_batch, {decode_window(b) for b in buckets} and max_seq_len
+        (the JAX engine's decode windows), ahead of serving: one CUDA
+        graph each, after an eager warm-up step that advances no length.
+        Reports each through `progress` and returns the number captured.
+        A CPU engine captures nothing and returns 0. Prefill stays eager;
+        the kernels are built at first use."""
+        if self.device.type != "cuda":
+            return 0
+        windows = sorted({self.decode_window(b) for b in self.buckets} | {self.max_seq_len})
+        # the warm-up writes its junk K/V at each slot's current length
+        self.cache.lengths_dev.copy_(self.cache.lengths)
+        for w in windows:
+            if progress is not None:
+                progress(f"decode window {w} (batch {self.max_batch})")
+            self.programs.capture(*self._decode_program_args(w))
+        return len(windows)
 
     def decode_window(self, max_len_next: int) -> int:
         """Static attention-window bucket covering max_len_next."""
@@ -331,36 +359,86 @@ class InferenceEngine:
         return out
 
     # ------------------------------------------------------ scheduler hooks
+    def _stage_decode(self, tokens, active: np.ndarray) -> None:
+        """Fill the decode program's inputs: tokens [B, 1] (a device copy,
+        in stream order), the active mask and the host lengths (copies
+        from pinned host memory that do not block)."""
+        self._step_tokens.copy_(tokens)
+        host = torch.empty((2, self.max_batch), dtype=torch.int64,
+                           pin_memory=self.device.type == "cuda")
+        host[0] = torch.from_numpy(active.astype(np.int64))
+        host[1] = self.cache.lengths
+        self._step_active.copy_(host[0], non_blocking=True)
+        self.cache.lengths_dev.copy_(host[1], non_blocking=True)
+
+    def _decode_program(self, attn_window: int):
+        """The decode step on the fixed buffers, what one graph holds:
+        the forward, then the argmax of every row, inactive rows keeping
+        their token. Reads no host value; advances the device lengths of
+        the active slots. Returns (logits [B, V] f32, next tokens [B])."""
+        active = self._step_active
+        logits = forward_decode(self.params, self.cfg, self._step_tokens, self.cache, active,
+                                attn_window=attn_window)
+        nxt = torch.where(active.bool(), torch.argmax(logits, dim=-1), self._step_tokens[:, 0])
+        return logits, nxt
+
+    def _decode_program_args(self, attn_window: int):
+        """(key, program, warm-up) of the decode program of attn_window.
+        The warm-up runs it with every slot inactive: no length advances
+        and each slot's junk K/V lands at its length, as an inactive row's
+        does at every step."""
+        fn = functools.partial(self._decode_program, attn_window)
+
+        def warm_up():
+            staged = self._step_active.clone()
+            self._step_active.zero_()
+            fn()
+            self._step_active.copy_(staged)
+
+        return ("decode", self.max_batch, attn_window), fn, warm_up
+
+    def _decode_step(self, active: np.ndarray, generators, temperature, top_p, top_k: int,
+                     attn_window: int):
+        """Run the decode program on the staged inputs and draw the
+        sampled rows: returns [B] next tokens in a fresh tensor (the
+        graph's outputs are overwritten by its next replay)."""
+        logits, nxt = self.programs.run(*self._decode_program_args(attn_window))
+        self.decode_forwards += 1
+        out = nxt.clone()
+        temps = np.where(active, np.broadcast_to(temperature, active.shape), 0.0)
+        sample_rows(out, logits, generators, temps, top_p, top_k)
+        return out
+
     def _decode_sample(self, tokens, active: np.ndarray, generators, temperature, top_p, *,
                        attn_window: int, top_k: int = 64):
         """One masked decode step + on-device sampling. tokens [B, 1] on
         the device; active [B] host bools: inactive slots do not advance
         their length and keep their token. temperature/top_p: host
         scalars or [B]; inactive rows are argmax and draw nothing.
-        Returns [B] next tokens on the device; nothing is read back."""
-        logits, self.cache = forward(
-            self.params, self.cfg, tokens, self.cache,
-            seq_lens=torch.from_numpy(active.astype(np.int64)), attn_window=attn_window)
-        self.decode_forwards += 1
-        temps = np.where(active, np.broadcast_to(temperature, active.shape), 0.0)
-        nxt = sample_token_perslot(logits, generators, temps, top_p, top_k)
-        return torch.where(torch.from_numpy(active).to(self.device), nxt, tokens[:, 0])
+        Returns [B] next tokens on the device, a fresh tensor; nothing is
+        read back."""
+        self._stage_decode(tokens, active)
+        out = self._decode_step(active, generators, temperature, top_p, top_k, attn_window)
+        self.cache.lengths += torch.from_numpy(active.astype(np.int64))
+        return out
 
     def _decode_sample_k(self, tokens, active: np.ndarray, generators, temperature, top_p, *,
                          attn_window: int, top_k: int = 64, k_steps: int = 4):
-        """k_steps decode steps in one block: a Python loop of eager
-        forwards with no host readback inside; returns [K, B] tokens.
-        Each request's generator draws in the same order as K single
-        steps, so streams are identical. Stop detection happens at drain
-        time: rows past a stop are discarded by the host, and their junk
-        KV sits past the slot's valid length."""
+        """k_steps decode steps in one block: K runs of the decode
+        program, each step's tokens fed to the next by an in-stream copy,
+        with no host readback inside; returns [K, B] tokens. Each
+        request's generator draws in the same order as K single steps,
+        so streams are identical. Stop detection happens at drain time:
+        rows past a stop are discarded by the host, and their junk KV
+        sits past the slot's valid length."""
+        self._stage_decode(tokens, active)
         out = []
-        tok = tokens
-        for _ in range(k_steps):
-            nxt = self._decode_sample(tok, active, generators, temperature, top_p,
-                                      attn_window=attn_window, top_k=top_k)
-            out.append(nxt)
-            tok = nxt[:, None]
+        for i in range(k_steps):
+            if i:
+                self._step_tokens.copy_(out[-1][:, None])
+            out.append(self._decode_step(active, generators, temperature, top_p, top_k,
+                                         attn_window))
+        self.cache.lengths += k_steps * torch.from_numpy(active.astype(np.int64))
         return torch.stack(out)
 
     def _prefill_slot(self, tokens: np.ndarray, seq_len: int, slot: int, append: bool = False,

@@ -18,8 +18,13 @@ blocking: a copy into pinned host memory is started with
 ``non_blocking=True`` and a ``torch.cuda.Event`` recorded after it; the
 result has "landed" when the event has completed (always, on the CPU).
 
+Every decode dispatch runs the engine's decode program (a CUDA graph
+replay on the card; K replays for a ``multi_step`` block) and gets a
+fresh token tensor back, so a readback in flight never sees a later
+step's tokens.
+
 Speculative decoding (``speculative_k``) is not ported yet (ROADMAP.md
-queue 1, item 5) and raises.
+queue 1, item 1) and raises.
 """
 
 from __future__ import annotations
@@ -119,7 +124,7 @@ class ContinuousBatchingScheduler:
         speculative_k: not ported yet; raises NotImplementedError."""
         if speculative_k:
             raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md queue 1, item 5)")
+                "speculative decoding is not ported yet (ROADMAP.md queue 1, item 1)")
         self.engine = engine
         self.slots = list(slots) if slots is not None else list(range(engine.max_batch))
         if prefill_chunk is not None and prefill_chunk not in engine.buckets:

@@ -2,7 +2,7 @@
 
 The counterpart of ``mlc_llm_tpu/engine/session.py``, in engine mode
 and scheduler mode (the speculative-decoding branch waits for ROADMAP.md
-queue 1, item 5):
+queue 1, item 1):
 
 - incremental prompt assembly: only new turns are tokenized per round
 - window-shift long-context policy: when

@@ -2,13 +2,14 @@
 
 from .config import ModelConfig, MODEL_REGISTRY, get_config
 from .paged_cache import PagedKVCache, init_paged_kv_cache
-from .transformer import forward, init_random_params, KVCache, init_kv_cache
+from .transformer import forward, forward_decode, init_random_params, KVCache, init_kv_cache
 
 __all__ = [
     "ModelConfig",
     "MODEL_REGISTRY",
     "get_config",
     "forward",
+    "forward_decode",
     "init_random_params",
     "KVCache",
     "init_kv_cache",

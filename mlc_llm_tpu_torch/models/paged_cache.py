@@ -10,24 +10,30 @@ The counterpart of ``mlc_llm_tpu/models/paged_cache.py``, same layouts:
   but always masked (positions >= length);
 - lengths: [B] valid tokens per slot, kept on the host (int64 CPU
   tensor, as the slot cache's), with a host copy of the page table
-  (``table_host``) beside the device one: the write indices are
-  computed from both without a device sync;
+  (``table_host``) beside the device one: a prefill's write indices are
+  computed from both without a device sync. ``page_table`` and
+  ``lengths_dev`` (the device copy of the lengths that a decode step
+  reads and advances) are fixed buffers that live as long as the cache:
+  every update is an in-place copy, so a captured decode graph keeps
+  reading the current table and lengths;
 - int8 mode: per-(head, position) absmax scales, k-scales
   [G, L, P, hb, ps] and v-scales [G, L, P, ps, hb].
 
 Writes are IN PLACE (JAX returns an updated copy that XLA aliases), as
 the slot path's are. The (page id, offset) of every written token is
-computed once per forward on the host (``paged_write_index``) and reused
-for all L layers: each layer's write is then one ``index_copy_`` per
-pool, not a copy per slot and page. Semantics are the JAX package's:
-page 0 is the null page, padded bucket tokens are written too,
-positions at or past the table's capacity are dropped (a decode write,
-S == 1, clamps its page column instead, as JAX does), and an unaligned
-append keeps the earlier tokens of the page it starts in.
+computed once per forward (a block's on the host, ``paged_write_index``;
+a decode step's on the device from the device table and lengths,
+``paged_decode_index``) and reused for all L layers: each layer's write
+is then one ``index_copy_`` per pool, not a copy per slot and page.
+Semantics are the JAX package's: page 0 is the null page, padded
+bucket tokens are written too, positions at or past the table's
+capacity are dropped (a decode write, S == 1, clamps its page column
+instead, as JAX does), and an unaligned append keeps the earlier tokens
+of the page it starts in.
 
 The tensor-parallel routing of the JAX module (``paged_flash_tp_enabled``,
 ``paged_flash_decode_tp``) is not ported yet (ROADMAP.md queue 1,
-item 10).
+item 8).
 """
 
 from __future__ import annotations
@@ -51,10 +57,13 @@ class PagedKVCache:
     k_scale: Optional[torch.Tensor] = None  # [G, L, P, hb, ps] (int8 mode)
     v_scale: Optional[torch.Tensor] = None  # [G, L, P, ps, hb] (int8 mode)
     table_host: Optional[torch.Tensor] = None  # host copy of page_table
+    lengths_dev: Optional[torch.Tensor] = None  # [B] int64, pool device
 
     def __post_init__(self):
         if self.table_host is None:
             self.table_host = self.page_table.to("cpu", torch.int32)
+        if self.lengths_dev is None:
+            self.lengths_dev = self.lengths.to(self.k_pages.device, copy=True)
 
     @property
     def page_size(self) -> int:
@@ -65,9 +74,10 @@ class PagedKVCache:
         return self.page_table.shape[1] * self.page_size
 
     def set_page_table(self, table) -> None:
-        """Install a host page table [B, max_pages]: one upload."""
+        """Install a host page table [B, max_pages]: one upload, in place
+        into the device table."""
         self.table_host = torch.as_tensor(np.array(table, np.int32))
-        self.page_table = self.table_host.to(self.k_pages.device)
+        self.page_table.copy_(self.table_host)
 
     def slot_view(self, slot: int, start: int) -> "PagedKVCache":
         """One slot's view: the shared pools, its table row, its start
@@ -200,6 +210,18 @@ def paged_write_index(table, start, S: int, page_size: int, device) -> PagedWrit
         flat = flat[sel]
         sel = torch.from_numpy(sel).to(device)
     return PagedWriteIndex(flat=torch.from_numpy(flat).to(device), sel=sel, page_size=ps)
+
+
+def paged_decode_index(page_table, lengths, page_size: int) -> PagedWriteIndex:
+    """The write positions of a decode step (S == 1) from the device
+    table [B, maxp] and the device lengths [B]: ``paged_write_index`` at S
+    = 1 (the page column clamped to the table's last, every token
+    written), computed on the device with no host value."""
+    maxp = page_table.shape[1]
+    col = torch.clamp(lengths // page_size, max=maxp - 1)
+    pid = page_table.gather(1, col[:, None].to(torch.int64))[:, 0].to(torch.int64)
+    return PagedWriteIndex(flat=pid * page_size + lengths % page_size, sel=None,
+                           page_size=page_size)
 
 
 def _pick(rows, index: PagedWriteIndex):

@@ -15,6 +15,13 @@ On the paged cache, a decode step (S == 1) attends through
 its plain version on the CPU); prefill and any S > 1 block gather the
 windowed pages and run ``attend_cache``. The paged path never takes a
 flash-prefill branch.
+
+Two entry points share one body. ``forward`` is driven from the host:
+the start lengths come from the cache's host mirror, which it advances.
+``forward_decode`` is one decode step that reads no host value (the
+device lengths ``cache.lengths_dev``, the device page table, a device
+``seq_lens``) and advances the device lengths only, so that a CUDA
+graph can hold it (``engine/programs.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from .paged_cache import (
     gather_pages_scale_k,
     gather_pages_scale_v,
     gather_pages_v,
+    paged_decode_index,
     paged_write_index,
     write_rows_paged,
     write_scale_rows_paged_k,
@@ -62,7 +70,9 @@ WEIGHT_KEYS = ("wqkv", "wo", "w_in", "w_out")
 class KVCache:
     """k: [L, B, Hkv, Smax, D]; v: [L, B, Hkv, D, Smax] (D-major);
     lengths: [B] valid token count per slot, kept on the host (int64 CPU
-    tensor) so the writes can slice without a device sync.
+    tensor), the source of truth; lengths_dev: its device copy, a fixed
+    buffer that a decode step reads and advances (staged from the host
+    mirror before each step).
 
     int8 mode: k/v hold per-element int8 codes and k_scale/v_scale hold
     per-(layer, slot, head, position) absmax/127 scales [L, B, Hkv,
@@ -73,6 +83,11 @@ class KVCache:
     lengths: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    lengths_dev: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.lengths_dev is None:
+            self.lengths_dev = self.lengths.to(self.k.device, copy=True)
 
     @property
     def max_len(self) -> int:
@@ -230,24 +245,33 @@ def _attend_paged(q, k, v, cache: PagedKVCache, l, step: _PagedStep, start_dev, 
     return attend_cache(qt, kc, vc, ksc, vsc, start_dev)
 
 
-def _attend_slot(q, k, v, cache: KVCache, l, starts, start_dev, attn_window):
+def slot_write_index(start_dev, S: int, smax: int):
+    """(slot rows [B, 1], positions [B, S]) of an S-token block written at
+    each slot's start, the start clamped so the block fits (start =
+    min(start, smax - S), as jax.lax.dynamic_update_slice clamps it),
+    from device values only."""
+    st = torch.clamp(start_dev, max=smax - S)
+    rows = torch.arange(st.shape[0], device=st.device)[:, None]
+    return rows, st[:, None] + torch.arange(S, device=st.device)[None, :]
+
+
+def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window):
     """Write only the new tokens, IN PLACE (JAX returns an updated copy
-    that XLA aliases); the start is clamped so the block fits, as
-    jax.lax.dynamic_update_slice clamps it. Then attend the window."""
-    B, S = q.shape[:2]
+    that XLA aliases): one batched scatter a buffer at `slot_index`
+    (``slot_write_index``). Then attend the window."""
     smax = cache.max_len
     kt, vt = k.transpose(1, 2), v.permute(0, 2, 3, 1)  # [B,H,S,D], [B,H,D,S]
     ks = vs = None
     if cache.k.dtype == torch.int8:
         kt, ks = _quantize_kv(kt)
         vt, vs = _quantize_kv_t(vt)
-    for b in range(B):
-        st = min(starts[b], smax - S)
-        cache.k[l, b, :, st:st + S] = kt[b].to(cache.k.dtype)
-        cache.v[l, b, :, :, st:st + S] = vt[b].to(cache.v.dtype)
-        if ks is not None:
-            cache.k_scale[l, b, :, st:st + S] = ks[b]
-            cache.v_scale[l, b, :, st:st + S] = vs[b]
+    rows, pos = slot_index
+    # advanced indices (rows, pos) first: each target is [B, S, H, ...]
+    cache.k[l][rows, :, pos] = kt.permute(0, 2, 1, 3).to(cache.k.dtype)
+    cache.v[l][rows, :, :, pos] = vt.permute(0, 3, 1, 2).to(cache.v.dtype)
+    if ks is not None:
+        cache.k_scale[l][rows, :, pos] = ks.transpose(1, 2)
+        cache.v_scale[l][rows, :, pos] = vs.transpose(1, 2)
     W = attn_window or smax
     ksc = vsc = None
     if ks is not None:
@@ -257,7 +281,7 @@ def _attend_slot(q, k, v, cache: KVCache, l, starts, start_dev, attn_window):
 
 
 def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
-           positions, starts, start_dev, attn_window: Optional[int],
+           positions, slot_index, start_dev, attn_window: Optional[int],
            paged: Optional[_PagedStep]):
     B, S, _ = h.shape
     nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -277,7 +301,7 @@ def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
     if paged is not None:
         attn = _attend_paged(q, k, v, cache, l, paged, start_dev, d)
     else:
-        attn = _attend_slot(q, k, v, cache, l, starts, start_dev, attn_window)
+        attn = _attend_slot(q, k, v, cache, l, slot_index, start_dev, attn_window)
     attn = attn.transpose(1, 2).reshape(B, S, nh * d)
     attn_out = qmatmul_stacked(attn, weights["wo"], l, lp.get("bo"))
     return _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg)
@@ -294,27 +318,61 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
     rewritten before it is ever read. attn_window bounds the cache
     positions read (caller guarantees lengths + S <= attn_window).
     Returns (logits f32 [B, V] at each slot's last real token if
-    last_only, else [B, S, V]; the cache, updated in place, lengths
-    advanced by seq_lens)."""
+    last_only, else [B, S, V]; the cache, updated in place, its host
+    lengths advanced by seq_lens)."""
     B, S = tokens.shape
     seq_lens = (torch.full((B,), S, dtype=torch.int64) if seq_lens is None
                 else torch.as_tensor(seq_lens, dtype=torch.int64).cpu())
     dev = tokens.device
-    starts = [int(s) for s in cache.lengths]
     start_dev = cache.lengths.to(dev)
+    index = None
+    if isinstance(cache, PagedKVCache) and S > 1:
+        # a block's write positions from the host table and lengths (no
+        # device sync); a decode step's come from the device table
+        index = paged_write_index(cache.table_host, cache.lengths, S, cache.page_size, dev)
+    logits = _forward(params, cfg, tokens, cache, start_dev, seq_lens.to(dev), index,
+                      last_only, attn_window)
+    cache.lengths += seq_lens
+    return logits, cache
+
+
+@torch.no_grad()
+def forward_decode(params: Params, cfg: ModelConfig, tokens, cache, seq_lens, *,
+                   attn_window: Optional[int] = None):
+    """One decode step (tokens [B, 1]) that reads no host value: the
+    starts are ``cache.lengths_dev``, the paged write positions come from
+    the device page table (``paged_decode_index``), seq_lens is a [B]
+    int64 device tensor (1 active, 0 frozen). Advances
+    ``cache.lengths_dev`` by seq_lens, in place; the host mirror is the
+    caller's to advance. Returns the f32 logits [B, V]."""
+    logits = _forward(params, cfg, tokens, cache, cache.lengths_dev, seq_lens, None, True,
+                      attn_window)
+    cache.lengths_dev += seq_lens
+    return logits
+
+
+def _forward(params, cfg: ModelConfig, tokens, cache, start_dev, seq_lens, index,
+             last_only: bool, attn_window: Optional[int]):
+    """The decoder body on device values: start_dev and seq_lens [B]
+    int64 on the tokens' device; index the paged write positions of an S
+    > 1 block (None: computed here, S == 1 only)."""
+    B, S = tokens.shape
+    dev = tokens.device
     positions = start_dev[:, None] + torch.arange(S, device=dev)[None, :]
     positions = positions.clamp(max=cache.max_len - 1)
-    paged = None
+    paged = slot_index = None
     if isinstance(cache, PagedKVCache):
         ps = cache.page_size
         maxp = cache.page_table.shape[1]
         if attn_window is not None:
             maxp = min(maxp, -(-attn_window // ps))
+        if index is None:
+            index = paged_decode_index(cache.page_table, start_dev, ps)
         # the write positions and kernel lengths once per forward, for all
-        # L layers, from the host-side table and lengths (no device sync)
-        paged = _PagedStep(
-            index=paged_write_index(cache.table_host, starts, S, ps, dev),
-            lengths=cache.lengths.to(torch.int32).to(dev), maxp=maxp)
+        # L layers
+        paged = _PagedStep(index=index, lengths=start_dev.to(torch.int32), maxp=maxp)
+    else:
+        slot_index = slot_write_index(start_dev, S, cache.max_len)
 
     emb = params["embed"]["w"]
     h = take_dequantize(emb, tokens) if isinstance(emb, QuantizedTensor) else emb[tokens]
@@ -323,13 +381,13 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
     small = {k: v for k, v in params["layers"].items() if k not in WEIGHT_KEYS}
     for l in range(cfg.num_layers):
         lp = {k: v[l] for k, v in small.items()}
-        h = _layer(h, lp, weights, cache, l, cfg, rot_cos, rot_sin, positions, starts,
+        h = _layer(h, lp, weights, cache, l, cfg, rot_cos, rot_sin, positions, slot_index,
                    start_dev, attn_window, paged)
 
     h = _norm(h, params["final_ln"]["w"], params["final_ln"].get("b"), cfg)
     if last_only:
         # lm head on each slot's last REAL position only
-        idx = (seq_lens - 1).clamp(0, S - 1).to(dev)
+        idx = (seq_lens - 1).clamp(0, S - 1)
         h = h[torch.arange(B, device=dev), idx][:, None]
     lm = params["lm_head"]
     if cfg.fp32_lm_head:
@@ -337,8 +395,7 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
     logits = qmatmul(h, lm["w"], lm.get("b"), out_dtype=torch.float32).float()
     if last_only:
         logits = logits[:, 0]
-    cache.lengths += seq_lens
-    return logits, cache
+    return logits
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,11 @@ KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp", "dequant_gem
            "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# the kernels' ticket buffers, by device and stream: see zeroed_tickets
+# the kernels' ticket buffers, by device and stream: see zeroed_tickets;
+# a buffer that a larger one replaced stays alive in _RETIRED, since a
+# captured graph may still point at it
 _TICKETS: Dict[tuple, torch.Tensor] = {}
+_RETIRED: list = []
 
 
 def resolve_device(device) -> torch.device:
@@ -146,6 +149,25 @@ def zeroed_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     key = (device, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # a buffer allocated here would come from the graph's pool
+            raise RuntimeError(
+                f"zeroed_tickets: stream {stream:#x} has no buffer of {n} tickets; an eager "
+                "warm-up on the capture stream must create it before capture")
+        if t is not None:
+            _RETIRED.append(t)
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _TICKETS[key] = t
     return t
+
+
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port. Each keeps a plain integer
+    ``launches`` that its wrapper adds one to where it launches its
+    kernel, and nowhere else (``engine/programs.py`` adds a captured
+    graph's launches at each replay)."""
+    from . import dequant_matmul as dm
+    from .paged_attention import paged_flash_decode
+
+    return (dm.gemv_qs, dm.gemm_qs, dm.gemv_gp, dm.gemm_pairs, dm.gemv_gp3, dm.gemm_plane,
+            paged_flash_decode)

@@ -53,11 +53,20 @@ def sample_token_perslot(logits, generators: Sequence[Optional[torch.Generator]]
     request's stream depends on its own seed and draw count, whatever
     else shares the batch. Rows are written into the argmax vector on
     the device: no host readback."""
+    out = torch.argmax(logits.float(), dim=-1)
+    sample_rows(out, logits, generators, temperature, top_p, top_k)
+    return out
+
+
+def sample_rows(out, logits, generators: Sequence[Optional[torch.Generator]],
+                temperature, top_p, top_k: int = 64) -> None:
+    """Overwrite, in place, each row b of out [B] whose temperature is
+    at least 1e-6 with a top-p draw from logits[b] and generators[b]
+    (the rest of ``sample_token_perslot``: the decode graph computes the
+    argmax, and the sampled rows are drawn after its replay)."""
     B = logits.shape[0]
     temps = np.broadcast_to(np.asarray(temperature, np.float64), (B,))
     topps = np.broadcast_to(np.asarray(top_p, np.float64), (B,))
-    out = torch.argmax(logits.float(), dim=-1)
     for b in np.nonzero(temps >= 1e-6)[0]:
         out[b] = sample_top_p(logits[b], generators[b], float(temps[b]), float(topps[b]),
                               top_k)
-    return out

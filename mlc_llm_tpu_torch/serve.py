@@ -17,8 +17,10 @@ the generation back.
   # anywhere else: submit token ids and stream the generation back
   python -m mlc_llm_tpu_torch.serve --connect HOST:8100 --prompt-ids 1,2,3
 
-``--speculative`` raises (ROADMAP.md queue 1); ``--precompile`` is the
-engine's no-op (PyTorch runs eagerly, kernels build at first use).
+``--speculative`` raises (ROADMAP.md queue 1). ``--precompile`` captures
+the decode step's CUDA graph of every attention-window bucket before
+serving and prints their count and seconds; without it each graph is
+captured at its window's first step.
 """
 
 from __future__ import annotations
@@ -65,7 +67,9 @@ def run_server(args) -> None:
 
     engine = build_engine(args)
     if args.precompile:
-        engine.precompile(progress=lambda m: print(f"precompile: {m}", flush=True))
+        t0 = time.time()
+        n = engine.precompile(progress=lambda m: print(f"precompile: {m}", flush=True))
+        print(f"precompiled {n} programs in {time.time() - t0:.1f}s", flush=True)
     sched = ContinuousBatchingScheduler(
         engine, seed=args.seed or 0, prefill_chunk=args.prefill_chunk,
         speculative_k=args.speculative, decode_ahead=args.decode_ahead,
@@ -133,7 +137,8 @@ def main(argv=None):
                     help="decode steps kept in flight before blocking on the oldest "
                          "token readback (stop detection lags this many tokens)")
     ap.add_argument("--precompile", action="store_true",
-                    help="warm-up before serving (a no-op: kernels build at first use)")
+                    help="capture the decode step's CUDA graph of every attention-window "
+                         "bucket before serving (none on the CPU)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8100)
     ap.add_argument("--seed", type=int, default=None)

@@ -10,9 +10,12 @@ cuts the depth) in the --quantization preset (default q4bf16), prefills --batch 
 of --prompt-len tokens, then runs greedy decode under torch.profiler and
 prints: host wall ms per decode step (profiler off), device kernel ms per
 step (the sum of CUDA kernel self times, the prefill's own profile
-subtracted), the device idle share, kernel launches per step, the
-kernels ranked by device time, and the decode step's own split by
-kernel. A step yields --batch tokens. Needs a CUDA device.
+subtracted), the device idle share, kernel launches per step beside the
+decode graph's replays per step (each decode step replays one captured
+CUDA graph; the kernels it launches are counted as the profiler reports
+them), the graphs captured with their capture seconds and the graph
+pool's bytes, the kernels ranked by device time, and the decode step's
+own split by kernel. A step yields --batch tokens. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -76,7 +79,9 @@ def main(argv=None):
 
     pre = profiled(lambda: engine.prefill(prompt, reserve_tokens=args.tokens))
     engine.stats.reset()
+    replays = engine.programs.replays
     both = profiled(lambda: engine.generate(prompt, gen))
+    replays = engine.programs.replays - replays
     engine.cfg = engine.cfg.replace(stop_tokens=cfg_stops)
     steps = engine.stats.decode_tokens // args.batch
     pre_ms = sum(_device_us(e) for e in pre) / 1e3
@@ -91,7 +96,12 @@ def main(argv=None):
     print(f"decode without the profiler: {plain_wall:.3f} ms/step "
           f"({1e3 * args.batch / plain_wall:.2f} tok/s)")
     print(f"decode device kernel time: {dec_ms:.3f} ms/step, {dec_launches:.1f} "
-          f"launches/step -> device idle share {1 - dec_ms / plain_wall:.4f}")
+          f"launches/step, {replays / steps:.2f} graph replays/step -> device idle share "
+          f"{1 - dec_ms / plain_wall:.4f}")
+    secs = engine.programs.capture_seconds()
+    print(f"decode graphs: {engine.programs.count} captured "
+          f"({', '.join(f'window {k[2]}: {v:.3f} s' for k, v in sorted(secs.items()))}), "
+          f"graph pool {engine.programs.pool_bytes()} bytes")
     print(f"prefill ({args.batch} x {args.prompt_len} tokens) device kernel time: "
           f"{pre_ms:.3f} ms")
     print("kernels by device time, prefill + decode window (ms total, count):")

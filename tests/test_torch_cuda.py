@@ -833,3 +833,124 @@ def test_cuda_f16_x_on_bf16_scales_raises():
         dm.gemv_gp3(x, data, scale, layer=1, out_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="one dtype"):
         dm.gemm_plane(x, data, scale, zero, one.spec, layer=1, out_dtype=torch.float16)
+
+
+# ------------------------------------------------------- the decode graph
+# Each decode step of a CUDA engine replays one captured graph
+# (engine/programs.py). The eager step is the same step function run
+# without the graph (the engine's programs.run swapped for a direct
+# call). Tolerance 0: every kernel of the step combines its split parts
+# in a fixed order (the streaming GEMVs and kernel 7 in part order after
+# their tickets, the wgmma GEMVs through their partial buffers), so two
+# eager runs agree bit for bit and a replay must too.
+
+GRAPH_LAYERS = 2
+
+
+@pytest.fixture(scope="module")
+def vicuna2():
+    _need_gpu()
+    from mlc_llm_tpu_torch.models import get_config, init_random_params
+
+    cfg = get_config("vicuna-v1-7b").replace(num_layers=GRAPH_LAYERS)
+    return cfg, init_random_params(cfg, "q4bf16", seed=0, device="cuda")
+
+
+def _graph_engine(vicuna2, batch, eager=False):
+    from mlc_llm_tpu_torch.engine import InferenceEngine
+
+    cfg, params = vicuna2
+    kw = dict(kv_layout="paged", page_size=128) if batch > 1 else {}
+    eng = InferenceEngine(cfg, params, max_batch=batch, max_seq_len=2048, device="cuda", **kw)
+    eng.cfg = cfg.replace(stop_tokens=())  # decode the full count
+    seen = []
+    run = eng.programs.run
+
+    def spy(key, fn, warm_up):
+        out = fn() if eager else run(key, fn, warm_up)
+        seen.append(tuple(t.clone() for t in out))
+        return out
+
+    eng.programs.run = spy
+    return eng, seen
+
+
+def _graph_prompts(batch):
+    rng = torch.Generator().manual_seed(3)
+    return [torch.randint(3, 32000, (int(n),), generator=rng).tolist()
+            for n in torch.randint(8, 300, (batch,), generator=rng)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8], ids=["b1-slot", "b8-paged"])
+def test_cuda_decode_graph_matches_eager_step(vicuna2, batch):
+    from mlc_llm_tpu_torch.engine import GenerationConfig
+    from mlc_llm_tpu_torch.ops import kernel_wrappers
+
+    prompts = _graph_prompts(batch)
+    gen = GenerationConfig(max_new_tokens=12, temperature=0.0)
+    runs = []
+    for eager in (False, True):
+        eng, seen = _graph_engine(vicuna2, batch, eager)
+        before = [w.launches for w in kernel_wrappers()]
+        toks = eng.generate(prompts, gen)
+        torch.cuda.synchronize()
+        launches = [w.launches - b for w, b in zip(kernel_wrappers(), before)]
+        runs.append((eng, seen, toks, launches))
+    (geng, gseen, gtoks, glaunch), (eeng, eseen, etoks, elaunch) = runs
+    assert gtoks == etoks and all(len(t) == 12 for t in gtoks)
+    assert len(gseen) == len(eseen) == 11
+    for (gl, gn), (el, en) in zip(gseen, eseen):
+        assert torch.equal(gl, el) and torch.equal(gn, en)
+    # a replay counts the launches of the step it replays, and nothing else
+    assert glaunch == elaunch and sum(glaunch) > 0
+    assert geng.programs.count == len(geng.programs.keys) >= 1
+    assert geng.programs.replays == geng.decode_forwards == 11
+    assert eeng.programs.count == 0
+    # the capture stream's tickets are left zero by the replays
+    from mlc_llm_tpu_torch.ops import _TICKETS
+
+    tickets = _TICKETS[(torch.device("cuda", torch.cuda.current_device()),
+                        geng.programs._stream.cuda_stream)]
+    assert int(tickets.abs().sum()) == 0
+    # a repeated run captures nothing new and gives the same tokens
+    count = geng.programs.count
+    assert geng.generate(prompts, gen) == gtoks and geng.programs.count == count
+
+
+@pytest.mark.cuda
+def test_cuda_precompile_captures_every_window(vicuna2):
+    from mlc_llm_tpu_torch.engine import GenerationConfig
+
+    eng, _ = _graph_engine(vicuna2, 8)
+    windows = {eng.decode_window(b) for b in eng.buckets} | {eng.max_seq_len}
+    assert eng.precompile() == len(windows) == eng.programs.count
+    assert {k[2] for k in eng.programs.keys} == windows
+    assert eng.programs.pool_bytes() > 0
+    eng.generate(_graph_prompts(8), GenerationConfig(max_new_tokens=4, temperature=0.0))
+    assert eng.programs.count == len(windows)  # every step replays a precompiled graph
+
+
+@pytest.mark.cuda
+def test_cuda_scheduler_decode_ahead_same_tokens(vicuna2):
+    from mlc_llm_tpu_torch.engine import GenerationConfig
+    from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+
+    # dispatch-ahead and K-step blocks (K replays a dispatch) change when
+    # tokens are read back, never which
+    outs = []
+    for kw in (dict(decode_ahead=0), dict(decode_ahead=2), dict(multi_step=4)):
+        eng, _ = _graph_engine(vicuna2, 8)
+        blocks = []
+        block = eng._decode_sample_k
+        eng._decode_sample_k = lambda *a, **k: blocks.append(k["k_steps"]) or block(*a, **k)
+        sched = ContinuousBatchingScheduler(eng, seed=0, **kw)
+        reqs = [sched.submit(p, GenerationConfig(max_new_tokens=10,
+                                                 temperature=0.7 if i == 3 else 0.0, seed=i))
+                for i, p in enumerate(_graph_prompts(6))]
+        sched.run()
+        assert all(r.done and len(r.output) == 10 for r in reqs)
+        assert eng.programs.replays == eng.decode_forwards > 0
+        assert bool(blocks) == ("multi_step" in kw)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1] == outs[2]

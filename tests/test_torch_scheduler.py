@@ -161,7 +161,7 @@ def test_chunked_prefill_rejects_non_bucket(params):
 
 
 def test_speculative_raises_with_roadmap_item(params):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 1"):
         ContinuousBatchingScheduler(_engine(params), speculative_k=4)
 
 
