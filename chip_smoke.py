@@ -17,8 +17,9 @@ Phases (any failed check exits non-zero before the last line):
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
    plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
-   GEMV at m=1, 3 and 8, GEMM at m=128 and m=2048 and on the flat lm head at
-   m=128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
+   GEMV at m=1, 3 and 8: m = 8 is the b1 verify pass at K = 8; GEMM at
+   m=32, the b8 scheduler's verify pass at K = 4, m=128 and m=2048, and on
+   the flat lm head at m=32 and 128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
    2048); the plane GEMM on q3bf16, fp4bf16 and q8bf16 at w_in, m=1, 128
    and 2048; the f16 bodies: q3f16_s16's int3 GEMV at m=1 and 2 on w_in
    and the lm head, and the plane GEMM on q3f16_s16, q3f16, fp4f16 and
@@ -67,6 +68,26 @@ Phases (any failed check exits non-zero before the last line):
    (window 512, stride 256, 2048 tokens: every window's layer matmuls and
    its lm head at m = 512 on gemm_qs, launches held) and evaluate
    --profile;
+5b. speculation phase, on the same params: (a) b1 slot KV, the motif
+   prompt of scripts/spec_bench.py (64 tokens) through speculative_stream
+   at K = 8 with three drafters: one that proposes nothing (the no-draft
+   stream: every token from the same m = 8 verify program, the
+   reference), the prompt-lookup drafter, and one that replays the
+   no-draft stream (random full-width weights give output that does not
+   repeat, so the prompt-lookup drafter finds next to nothing; the replay
+   accepts every draft the verify pass agrees with), the plain
+   graph-replayed generate beside them (tok/s, tokens a pass, the accepted
+   share, verify pass ms, captures, match length against plain); then 2
+   greedy chat turns through ChatSession(speculative_k=8) with the same
+   three drafters; (b) the b8 slot scheduler with speculative_k=4, two
+   greedy requests and, after 3 verify passes, a sampled one (the switch
+   to the plain pipeline and back), with the same three drafters, and the
+   plain scheduler's step wall. Each stream equals its no-draft stream, or
+   its first divergence falls at a no-draft top-2 logit gap within the
+   logit difference measured between the two streams up to it; the replay
+   runs take fewer passes than the no-draft ones; replays equal verify
+   runs; launch counts held: a b1 pass 4L + 1 gemv_qs calls at m = 8, a
+   scheduler pass 4L + 1 gemm_qs calls at m = 32;
 6. serve phase: the same model behind SchedulerServer
    (ContinuousBatchingScheduler over InferenceEngine(kv_layout="paged",
    max_batch=8, max_seq_len=2048, page_size=128)); 16 requests from a
@@ -147,13 +168,14 @@ import sys
 import tempfile
 import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
 
 from mlc_llm_tpu_torch import build, cli, evaluate, ppl
 from mlc_llm_tpu_torch.debug.compare import compare_paths
-from mlc_llm_tpu_torch.engine import GenerationConfig, InferenceEngine
+from mlc_llm_tpu_torch.engine import GenerationConfig, InferenceEngine, speculative
 from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
 from mlc_llm_tpu_torch.engine.session import ChatConfig, ChatSession
 from mlc_llm_tpu_torch.models import (
@@ -272,7 +294,8 @@ QSPLIT_F32 = dataclasses.replace(QUANT_PRESETS["q4f32"], layout="qsplit")
 # and read at layer 1 (out in the compute dtype)
 MATMUL_CASES = [
     ("q4bf16", "q4bf16", SHAPES, False,
-     [("gemv_qs", {"*": (1, 3, 8)}), ("gemm_qs", {"*": (128, 2048), "lm_head": (128, 512)})]),
+     [("gemv_qs", {"*": (1, 3, 8)}),
+      ("gemm_qs", {"*": (32, 128, 2048), "lm_head": (32, 128, 512)})]),
     # moss-moon-003-sft: its decode and serve GEMVs and its prefill GEMM
     ("q4bf16 moss", "q4bf16", SHAPES_MOSS, False,
      [("gemv_qs", {"*": (1, 8)}), ("gemm_qs", {"*": (128,)})]),
@@ -1051,8 +1074,8 @@ _FINITE = []
 @contextlib.contextmanager
 def finite_logits(label):
     """Hold the logits of every forward the engine runs inside to be
-    finite: each forward (every prefill, and every decode step, inside
-    its captured graph) adds its count of non-finite logits and one
+    finite: each forward (every prefill, and every decode step and verify
+    pass, inside its captured graph) adds its count of non-finite logits and one
     forward to two counters on the card (no host sync a step), read once
     at the end."""
     from mlc_llm_tpu_torch.engine import engine as engine_mod
@@ -1061,7 +1084,8 @@ def finite_logits(label):
         _FINITE.append(torch.zeros(2, dtype=torch.int64, device="cuda"))
     counts = _FINITE[0]
     counts.zero_()
-    fwd, fwd_decode = engine_mod.forward, engine_mod.forward_decode
+    fwd, fwd_decode, fwd_verify = (engine_mod.forward, engine_mod.forward_decode,
+                                   engine_mod.forward_verify)
 
     def count(logits):
         counts[0].add_((~torch.isfinite(logits)).sum())
@@ -1074,10 +1098,12 @@ def finite_logits(label):
 
     engine_mod.forward = checked
     engine_mod.forward_decode = lambda *a, **kw: count(fwd_decode(*a, **kw))
+    engine_mod.forward_verify = lambda *a, **kw: count(fwd_verify(*a, **kw))
     try:
         yield
     finally:
         engine_mod.forward, engine_mod.forward_decode = fwd, fwd_decode
+        engine_mod.forward_verify = fwd_verify
     bad, forwards = counts.tolist()
     print(f"  {label}: {forwards} forwards, {bad} non-finite logits")
     if bad or not forwards:
@@ -1566,12 +1592,430 @@ def model_serve_phase(params, cfg, quant, idle_share=False, page_dtype=torch.bfl
     return launches, stats
 
 
+# the speculation phase: scripts/spec_bench.py's repetitive prompt (a
+# cycled 8-token motif the drafter can hit), the b1 verify width and the
+# scheduler's
+SPEC_MOTIF = ([311, 42, 87, 1009, 55, 7, 66, 23] * 8)[:64]
+SPEC_K, SPEC_TOKENS, SCHED_SPEC_K = 8, 64, 4
+
+
+class NoDraft(speculative.NgramDrafter):
+    """The no-draft stream's drafter: every pass carries t_last alone,
+    padded to K, so every token comes from the same m = K program."""
+
+    def propose(self, k):
+        return []
+
+
+class CountingDrafter(speculative.NgramDrafter):
+    """The prompt-lookup drafter, counting the draft tokens it proposes."""
+
+    proposed = 0
+
+    def propose(self, k):
+        out = super().propose(k)
+        CountingDrafter.proposed += len(out)
+        return out
+
+
+class ReplayDrafter(speculative.NgramDrafter):
+    """Proposes the next tokens of a reference stream (refs: prompt tuple ->
+    the tokens generated after it, the no-draft stream's), so that drafts
+    are accepted wherever the verify pass agrees with its no-draft run: on
+    random full-width weights the prompt-lookup drafter finds next to
+    nothing to propose (the output does not repeat), and this exercises the
+    accepted-draft path at full depth."""
+
+    refs = {}
+
+    def __init__(self, history, max_ngram=3):
+        super().__init__(history, max_ngram)
+        keys = sorted(self.refs, key=len, reverse=True)
+        key = next((k for k in keys if tuple(self.history[:len(k)]) == k), ())
+        self.prompt_len, self.ref = len(key), self.refs.get(key, [])
+
+    def propose(self, k):
+        n = len(self.history) - self.prompt_len
+        return list(self.ref[n:n + k])
+
+
+@contextlib.contextmanager
+def drafter(cls):
+    orig = speculative.NgramDrafter
+    speculative.NgramDrafter = cls
+    try:
+        yield
+    finally:
+        speculative.NgramDrafter = orig
+
+
+def record_verify(engine):
+    """Keep the logits of every K > 1 verify pass the engine runs, and of
+    its last decode step in engine.last_step_logits (copies of the graph's
+    outputs, which the next replay overwrites). Returns the list the
+    verify logits go into."""
+    kept = []
+    run = engine.programs.run
+
+    def spy(key, fn, warm_up):
+        out = run(key, fn, warm_up)
+        if key[0] == "verify" and key[2] > 1:
+            kept.append(out[0].clone())
+        elif key[0] == "decode":
+            engine.last_step_logits = out[0].clone()
+        return out
+
+    engine.programs.run = spy
+    return kept
+
+
+def tag_b1(stream, kept, sink):
+    """Yield a b1 speculative stream's tokens, appending (token, logits
+    row it came from) to sink: the first token is the prefill's (None),
+    then row j of the pass that emitted it as its j-th token."""
+    seen, row = 0, 0
+    try:
+        for tok in stream:
+            n = len(kept)
+            row = row + 1 if n == seen else 0
+            sink.append((tok, kept[-1][0, row] if n else None))
+            seen = n
+            yield tok
+    finally:
+        stream.close()
+
+
+def tag_scheduler(sched, kept):
+    """Record (token, logits row) per request of a scheduler: a verify
+    pass's tokens from its [B, K] logits (row j of the slot for its j-th
+    token of the pass), a plain step's from that step's [B, V] logits (the
+    drain pops its entry in dispatch order), a first token as None.
+    Returns {request id: [(token, row)]}."""
+    rec, state, steps = {}, {"src": None, "rows": {}}, deque()
+
+    class Tap(deque):
+        def popleft(self):
+            owners = super().popleft()
+            state["src"] = ("first",) if isinstance(owners, tuple) else ("step",
+                                                                          steps.popleft())
+            return owners
+
+    sched._pending_slots = Tap(sched._pending_slots)
+    emit, dispatch, spec = sched._emit, sched._decode_dispatch, sched._decode_dispatch_speculative
+
+    def tagged_emit(req, tok):
+        src = state["src"]
+        if src[0] == "verify":
+            j = state["rows"].get(req.id, 0)
+            state["rows"][req.id] = j + 1
+            row = kept[-1][req.slot, j]
+        else:
+            row = src[1][req.slot] if src[0] == "step" else None
+        rec.setdefault(req.id, []).append((tok, row))
+        return emit(req, tok)
+
+    def tagged_dispatch(k_steps=None):
+        dispatch(k_steps)
+        steps.append(sched.engine.last_step_logits)
+
+    def tagged_spec():
+        state["src"], state["rows"] = ("verify",), {}
+        spec()
+
+    sched._emit, sched._decode_dispatch = tagged_emit, tagged_dispatch
+    sched._decode_dispatch_speculative = tagged_spec
+    return rec
+
+
+def match_len(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def hold_to_no_draft(label, got, want):
+    """A speculative stream against its no-draft stream, as lists of
+    (token, logits row). Equal token for token, or else the rule fixed in
+    advance: the first divergence d falls where the no-draft logits' top-2
+    gap is within the largest difference measured between the two
+    streams' logits at the positions 1..d, computed on the same tokens.
+    Returns the match length."""
+    a, b = [t for t, _ in got], [t for t, _ in want]
+    if a == b:
+        return len(a)
+    d = match_len(a, b)
+    if d == 0 or d >= min(len(a), len(b)):
+        fail(f"{label}: speculative {a} and no-draft {b} streams differ at {d}")
+    diff = max((got[i][1].float() - want[i][1].float()).abs().max().item()
+               for i in range(1, d + 1))
+    top2 = torch.topk(want[d][1].float(), 2).values
+    gap = (top2[0] - top2[1]).item()
+    print(f"  {label}: streams diverge at token {d}: no-draft top-2 gap {gap:.4g}, largest "
+          f"logit difference over positions 1..{d} {diff:.4g}")
+    if gap > diff:
+        fail(f"{label}: the divergence at {d} is no argmax tie (gap {gap} > {diff})")
+    return d
+
+
+def verify_capture_stats(engine):
+    secs = engine.programs.capture_seconds()
+    return {str(k[1:]): v for k, v in sorted(secs.items(), key=lambda kv: str(kv[0]))}
+
+
+def spec_b1_phase(params):
+    """(a) b1 slot KV, full depth: the motif prompt through
+    speculative_stream at K = 8 with a drafter that proposes nothing (the
+    no-draft stream, the reference), with the prompt-lookup drafter, and
+    with a drafter that replays the no-draft stream (every draft that the
+    verify pass agrees with is accepted), the plain graph-replayed generate
+    beside them; then 2 greedy chat turns through
+    ChatSession(speculative_k=8) with the same three drafters. Launch
+    counts held: every K-wide pass 4L + 1 gemv_qs calls (m = 8), every K =
+    1 pass or stop feed the same at m = 1, every prefill 4L gemm_qs calls
+    and its lm head on gemv_qs."""
+    L = VICUNA.num_layers
+    print(f"== speculation phase (a): {VICUNA.name} q4bf16, {L} layers, bf16 slot KV, batch 1, "
+          f"K = {SPEC_K}, the motif prompt ({len(SPEC_MOTIF)} tokens), {SPEC_TOKENS} tokens")
+    cfg = VICUNA.replace(stop_tokens=())  # decode the full count
+
+    def fresh():
+        eng = InferenceEngine(VICUNA, params, max_batch=1, max_seq_len=1536, device="cuda")
+        eng.cfg = cfg
+        return eng
+
+    out, paths = {}, {}
+    plain_eng = fresh()
+    gen = GenerationConfig(max_new_tokens=SPEC_TOKENS, temperature=0.0)
+    plain = plain_eng.generate([SPEC_MOTIF], gen)[0]
+    plain_eng.stats.reset()
+    t0 = time.perf_counter()
+    if plain_eng.generate([SPEC_MOTIF], gen)[0] != plain:
+        fail("spec b1: a second plain run gave other tokens")
+    out["plain_tok_s"] = SPEC_TOKENS / (time.perf_counter() - t0)
+    out["plain_step_ms"] = plain_eng.stats.decode_time / plain_eng.stats.decode_tokens * 1e3
+    del plain_eng
+    runs = {}
+    for name, cls in (("no-draft", NoDraft), ("spec", CountingDrafter),
+                      ("replay", ReplayDrafter)):
+        eng = fresh()
+        kept = record_verify(eng)
+        stats, sink = {}, []
+        CountingDrafter.proposed = 0
+        reset_counters()
+        with drafter(cls):
+            list(tag_b1(speculative.speculative_stream(eng, SPEC_MOTIF, SPEC_TOKENS, SPEC_K,
+                                                       stats=stats), kept, sink))
+        launches = read_counters()
+        want = expected_launches("q4bf16", b1_steps=eng.verify_forwards, prefills=1)
+        print(f"  {name}: {stats}, verify runs {eng.verify_forwards}, replays "
+              f"{eng.programs.replays}, graphs {eng.programs.count}; launches {launches} "
+              f"(want {want})")
+        if launches != want:
+            fail(f"spec b1 {name}: launch counts do not match the path")
+        if eng.programs.replays != eng.verify_forwards or not (
+                0 <= eng.verify_forwards - stats["passes"] <= 1):
+            fail(f"spec b1 {name}: {eng.programs.replays} replays for {stats['passes']} passes")
+        if len(sink) != SPEC_TOKENS or stats["passes"] >= len(sink):
+            fail(f"spec b1 {name}: {len(sink)} tokens in {stats['passes']} passes")
+        if name == "no-draft":
+            ReplayDrafter.refs = {tuple(SPEC_MOTIF): [t for t, _ in sink]}
+        else:
+            out[f"{name}_match_no_draft"] = hold_to_no_draft(f"spec b1 {name}", sink,
+                                                             runs["no-draft"][0])
+        runs[name] = (sink, stats)
+        out[name] = dict(stats, verify_runs=eng.verify_forwards)
+        if name == "spec":
+            out["spec"]["proposed_drafts"] = CountingDrafter.proposed
+            out.update(graphs=eng.programs.count, capture_s=verify_capture_stats(eng))
+            paths["spec_b1"] = launches
+        # the wall of a rerun, its graphs captured
+        tokens = [t for t, _ in sink]
+        eng.stats.reset()
+        t0 = time.perf_counter()
+        with drafter(cls):
+            again = speculative.generate_speculative(eng, SPEC_MOTIF, SPEC_TOKENS, SPEC_K)
+        wall = time.perf_counter() - t0
+        if again != tokens:
+            fail(f"spec b1 {name}: a second run gave other tokens")
+        out[name].update(tok_s=SPEC_TOKENS / wall,
+                         verify_pass_ms=eng.stats.decode_time / stats["passes"] * 1e3,
+                         tokens_per_pass=(len(tokens) - 1) / stats["passes"],
+                         accepted_share_of_tokens=stats["accepted_drafts"] / (len(tokens) - 1),
+                         match_plain=match_len(tokens, plain),
+                         vs_plain=SPEC_TOKENS / wall / out["plain_tok_s"])
+        del eng
+        torch.cuda.empty_cache()
+    replay = runs["replay"][1]
+    if replay["accepted_drafts"] == 0 or replay["passes"] >= runs["no-draft"][1]["passes"]:
+        fail(f"spec b1 replay: no draft accepted at full depth ({replay})")
+    out["spec"]["accepted_share_of_proposed"] = out["spec"]["accepted_drafts"] / max(
+        out["spec"]["proposed_drafts"], 1)
+    # 2 greedy chat turns: the no-draft session, the prompt-lookup one and
+    # the one that replays the no-draft turns
+    turns = ["Repeat after me: one two three, one two three, one two three.", "Again, please."]
+    chats, refs = {}, {}
+    for name, cls in (("no-draft", NoDraft), ("spec", speculative.NgramDrafter),
+                      ("replay", ReplayDrafter)):
+        eng = InferenceEngine(VICUNA, params, max_batch=1, max_seq_len=1536, device="cuda")
+        kept = record_verify(eng)
+        session = ChatSession(eng, ByteTokenizer(), VICUNA,
+                              ChatConfig(temperature=0.0, max_gen_len=32, max_window_size=768),
+                              speculative_k=SPEC_K)
+        sinks, prompts = [], []
+        inner = session._speculative_tokens
+
+        def tagged(toks, g, inner=inner, kept=kept, sinks=sinks, prompts=prompts):
+            sinks.append([])
+            prompts.append(tuple(toks))
+            return tag_b1(inner(toks, g), kept, sinks[-1])
+
+        session._speculative_tokens = tagged
+        ReplayDrafter.refs = refs
+        reset_counters()
+        t0 = time.perf_counter()
+        with drafter(cls), finite_logits(f"spec chat {name}"):
+            replies = [session.ask(t) for t in turns]
+        chat_wall = time.perf_counter() - t0
+        launches = read_counters()
+        want = expected_launches("q4bf16", b1_steps=eng.verify_forwards, prefills=len(turns))
+        print(f"  chat {name}: {[len(r) for r in replies]} chars, {eng.verify_forwards} verify "
+              f"runs, {eng.programs.replays} replays, {chat_wall:.3f} s; launches {launches} "
+              f"(want {want})")
+        if len(sinks) != len(turns) or launches != want or \
+                eng.programs.replays != eng.verify_forwards:
+            fail(f"spec chat {name}: the turns did not run the speculative path's counts")
+        chats[name] = sinks
+        out[f"chat_{name}_verify_runs"] = eng.verify_forwards
+        if name == "no-draft":
+            refs = {p: [t for t, _ in sink] for p, sink in zip(prompts, sinks)}
+        else:
+            out[f"chat_{name}_match_no_draft"] = [
+                hold_to_no_draft(f"spec chat {name} turn {i}", g, w)
+                for i, (g, w) in enumerate(zip(sinks, chats["no-draft"]))]
+        if name == "spec":
+            paths["spec_chat"] = launches
+        del eng, session
+        torch.cuda.empty_cache()
+    out["chat_tokens"] = [len(g) for g in chats["no-draft"]]
+    out["card"] = card_name()
+    if out["chat_replay_verify_runs"] >= out["chat_no-draft_verify_runs"]:
+        fail("spec chat replay: no draft accepted in the session's turns")
+    print(f"  {json.dumps(out)}")
+    return paths, out
+
+
+def spec_scheduler_phase(params):
+    """(b) The b8 slot scheduler with speculative_k=4: two greedy requests
+    (the motif prompt and an arbitrary one), then after 3 verify passes a
+    sampled request (the switch to the plain pipeline and back). Run with
+    a drafter that proposes nothing (the reference), the prompt-lookup
+    drafter and one that replays the reference's streams; each greedy
+    stream is held to the reference's; a verify pass is 4L + 1 gemm_qs
+    calls at m = 32 (the layers and the flat lm head); the plain scheduler
+    gives the b8 step wall."""
+    L = VICUNA.num_layers
+    print(f"== speculation phase (b): {VICUNA.name} q4bf16, {L} layers, slot KV, max_batch "
+          f"{SERVE_BATCH}, max_seq_len {SERVE_SEQ}, speculative_k {SCHED_SPEC_K}")
+    rng = np.random.default_rng(5)
+    arbitrary = [int(t) for t in rng.integers(3, VICUNA.vocab_size, 100)]
+    greedy = GenerationConfig(max_new_tokens=48, temperature=0.0)
+    sampled = GenerationConfig(max_new_tokens=8, temperature=0.7, top_p=0.95, seed=11)
+    eng = InferenceEngine(VICUNA, params, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                          device="cuda")
+    eng.cfg = VICUNA.replace(stop_tokens=())
+    if eng.kv_layout != "slot":
+        fail("the speculative scheduler needs slot KV")
+    prefills = []
+    one, group = eng._prefill_slot, eng._prefill_slots
+    eng._prefill_slot = lambda *a, **kw: prefills.append(1) or one(*a, **kw)
+    eng._prefill_slots = lambda *a, **kw: prefills.append(1) or group(*a, **kw)
+    out, runs, paths = {}, {}, {}
+    run = eng.programs.run
+    for name, cls in (("no-draft", NoDraft), ("spec", speculative.NgramDrafter),
+                      ("replay", ReplayDrafter)):
+        eng.reset()
+        eng.programs.run = run
+        kept = record_verify(eng)
+        sched = ContinuousBatchingScheduler(eng, seed=0, speculative_k=SCHED_SPEC_K)
+        rec = tag_scheduler(sched, kept)
+        pass_s = []
+        spec = sched._decode_dispatch_speculative
+
+        def timed(spec=spec, pass_s=pass_s):
+            t0 = time.perf_counter()
+            spec()
+            pass_s.append(time.perf_counter() - t0)
+
+        sched._decode_dispatch_speculative = timed
+        v0, d0, prefills[:] = eng.verify_forwards, eng.decode_forwards, []
+        reset_counters()
+        with drafter(cls), finite_logits(f"spec scheduler {name}"):
+            reqs = [sched.submit(SPEC_MOTIF, greedy), sched.submit(arbitrary, greedy)]
+            while len(pass_s) < 3 and sched.has_work():
+                sched.step()
+            reqs.append(sched.submit(SPEC_MOTIF[:20], sampled))
+            sched.run()
+        launches = read_counters()
+        passes, steps = eng.verify_forwards - v0, eng.decode_forwards - d0
+        want = dict.fromkeys(COUNTED, 0)
+        want["gemm_qs"] = (4 * L + 1) * passes + 4 * L * len(prefills)
+        want["gemv_qs"] = (4 * L + 1) * steps + len(prefills)
+        print(f"  {name}: {passes} verify passes, {steps} plain b8 steps, {len(prefills)} "
+              f"prefills, outputs {[len(r.output) for r in reqs]}; launches {launches} "
+              f"(want {want})")
+        if launches != want or passes == 0 or steps == 0:
+            fail(f"spec scheduler {name}: launch counts do not match the path, or a mode "
+                 "never ran")
+        if not all(r.done and r.output for r in reqs) or any(
+                len(r.output) != 48 for r in reqs[:2]):
+            fail(f"spec scheduler {name}: bad completions")
+        runs[name] = (rec, reqs)
+        out[name] = dict(passes=passes, plain_steps=steps,
+                         pass_wall_ms=float(np.median(pass_s)) * 1e3)
+        if name == "no-draft":
+            ReplayDrafter.refs = {tuple(r.prompt): list(r.output) for r in reqs[:2]}
+        else:
+            nrec, nreqs = runs["no-draft"]
+            out[name]["match_no_draft"] = [
+                hold_to_no_draft(f"spec scheduler {name} request {i}", rec[r.id], nrec[n.id])
+                for i, (r, n) in enumerate(zip(reqs[:2], nreqs[:2]))]
+        if name == "spec":
+            paths["spec_sched"] = launches
+            out.update(tokens=sum(len(r.output) for r in reqs[:2]),
+                       capture_s=verify_capture_stats(eng))
+    if out["replay"]["passes"] >= out["no-draft"]["passes"]:
+        fail(f"spec scheduler replay: no draft accepted ({out['replay']})")
+    del runs, rec
+    eng.programs.run = run
+    # the plain scheduler on the same requests: its b8 step wall, the
+    # second run's (the first captures the graphs)
+    for i in range(2):
+        eng.reset()
+        eng.stats.reset()
+        d0 = eng.decode_forwards
+        sched = ContinuousBatchingScheduler(eng, seed=0)
+        for p, g in ((SPEC_MOTIF, greedy), (arbitrary, greedy), (SPEC_MOTIF[:20], sampled)):
+            sched.submit(p, g)
+        sched.run()
+    out["plain_step_wall_ms"] = eng.stats.decode_time / (eng.decode_forwards - d0) * 1e3
+    out["pass_vs_plain_step"] = out["spec"]["pass_wall_ms"] / out["plain_step_wall_ms"]
+    out["card"] = card_name()
+    print(f"  {json.dumps(out)}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(f"card: {card}")
     t0 = time.perf_counter()
     # the wgmma sources are built in any case, so that ptxas reports them
@@ -1625,6 +2069,10 @@ def main():
         with phase_seconds("chat phase"):
             paths["chat"], chat_stats = chat_phase(params)
         torch.cuda.empty_cache()
+        with phase_seconds("speculation phase"):
+            spec_paths, spec_b1 = spec_b1_phase(params)
+            sched_paths, spec_sched = spec_scheduler_phase(params)
+        paths.update(spec_paths, **sched_paths)
         with phase_seconds("tools phase"):
             tool_paths, ppl_res = tools_phase(tmp)
         paths.update(tool_paths)
@@ -1744,7 +2192,8 @@ def main():
                       "q3_serve": q3_serve_stats, "q3f16_chat": q3f16_chat_stats,
                       "q3f16_serve": q3f16_serve_stats, **neox_stats,
                       "moss_chat": moss_chat_stats,
-                      "moss_serve": moss_serve_stats, "graph": graph_phase_stats}))
+                      "moss_serve": moss_serve_stats, "graph": graph_phase_stats,
+                      "speculation_b1": spec_b1, "speculation_scheduler": spec_sched}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

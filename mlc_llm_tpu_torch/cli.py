@@ -12,6 +12,9 @@ Usage:
   python -m mlc_llm_tpu_torch.cli --model vicuna-v1-7b --random-weights
   python -m mlc_llm_tpu_torch.cli --model tiny-llama --random-weights \
       --prompt hi --temperature 0 --device cpu
+  # greedy turns through prompt-lookup speculation, 4-token verify blocks
+  python -m mlc_llm_tpu_torch.cli --model tiny-llama --random-weights \
+      --prompt hi --temperature 0 --speculative 4 --device cpu
 """
 
 from __future__ import annotations
@@ -81,7 +84,8 @@ def build_session(args):
         max_window_size=args.max_window_size,
         seed=args.seed,
     )
-    return ChatSession(engine, tok, cfg, chat, conv_template=args.conv_template)
+    return ChatSession(engine, tok, cfg, chat, conv_template=args.conv_template,
+                       speculative_k=args.speculative)
 
 
 HELP = """Commands:
@@ -107,6 +111,9 @@ def main(argv=None):
     ap.add_argument("--max-window-size", type=int, default=768)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    ap.add_argument("--speculative", type=int, default=None, metavar="K",
+                    help="prompt-lookup speculative decoding with K-token verify blocks on "
+                         "greedy turns (temperature 0): the greedy stream in fewer passes")
     ap.add_argument("--prompt", default=None, help="one-shot prompt (no REPL)")
     ap.add_argument("--evaluate", action="store_true", help="built-in smoke benchmark")
     ap.add_argument("--try-tokenizer", action="store_true",

@@ -18,6 +18,13 @@ the CPU the same step function runs eagerly. The decode loop keeps the
 reference's pipelining: the next step is enqueued on the device before
 the previous step's token is read back.
 
+The speculative verify pass (``engine/speculative.py``) is one more
+step program, keyed (batch, block width K, window) as JAX jits its
+verify program per shape and ``attn_window``: it writes K/V rows [len,
+len + K) of every slot, advances no length and returns each position's
+greedy token, read back once a pass (``verify``). The caller advances
+the host lengths by what the pass consumed.
+
 KV layouts: ``"slot"`` (slot-contiguous [B, Smax] per slot), ``"paged"``
 (one shared page pool + per-slot page tables, ``models/paged_cache.py``)
 or ``"auto"`` (paged for int8 KV at batch > 1, slot otherwise: the slot
@@ -37,7 +44,13 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.paged_cache import PageAllocator, PrefixCache, init_paged_kv_cache
-from ..models.transformer import forward, forward_decode, init_kv_cache, tree_map
+from ..models.transformer import (
+    forward,
+    forward_decode,
+    forward_verify,
+    init_kv_cache,
+    tree_map,
+)
 from ..ops import resolve_device, synchronize
 from ..ops.sampling import sample_rows, sample_token_perslot
 from ..quant.groupwise import QuantizedTensor, pad_quantized_groups
@@ -117,6 +130,10 @@ class InferenceEngine:
         # the decode program's fixed input buffers
         self._step_tokens = torch.zeros((max_batch, 1), dtype=torch.int64, device=self.device)
         self._step_active = torch.zeros((max_batch,), dtype=torch.int64, device=self.device)
+        # the verify program's fixed token buffers [B, K], by K; and its
+        # runs (each a graph replay on the card)
+        self._verify_tokens = {}
+        self.verify_forwards = 0
         self.kv_layout = kv_layout
         self.page_size = page_size
         self.allocator = None
@@ -440,6 +457,50 @@ class InferenceEngine:
                                          attn_window))
         self.cache.lengths += k_steps * torch.from_numpy(active.astype(np.int64))
         return torch.stack(out)
+
+    # ------------------------------------------------------ verify program
+    def _stage_verify(self, tokens: np.ndarray) -> None:
+        """Fill the verify program's inputs: the tokens [B, K] and the
+        host lengths, copies from pinned host memory that do not block."""
+        B, K = tokens.shape
+        buf = self._verify_tokens.get(K)
+        if buf is None:
+            buf = self._verify_tokens[K] = torch.zeros((B, K), dtype=torch.int64,
+                                                       device=self.device)
+        host = torch.empty((B * K + B,), dtype=torch.int64,
+                           pin_memory=self.device.type == "cuda")
+        host[:B * K] = torch.from_numpy(np.asarray(tokens, np.int64).reshape(-1))
+        host[B * K:] = self.cache.lengths
+        buf.copy_(host[:B * K].view(B, K), non_blocking=True)
+        self.cache.lengths_dev.copy_(host[B * K:], non_blocking=True)
+
+    def _verify_program(self, K: int, attn_window: int):
+        """The verify pass on the fixed buffers, what one graph holds:
+        the forward over the staged [B, K] block at the device lengths
+        (no length advances), then each position's argmax. Returns
+        (logits [B, K, V] f32, tokens [B, K])."""
+        logits = forward_verify(self.params, self.cfg, self._verify_tokens[K], self.cache,
+                                attn_window=attn_window)
+        return logits, torch.argmax(logits, dim=-1)
+
+    def _verify_program_args(self, K: int, attn_window: int):
+        """(key, program, warm-up) of the verify program. The warm-up is
+        the pass itself: its K/V rows [len, len + K) lie past every
+        slot's length, and the pass rewrites them."""
+        fn = functools.partial(self._verify_program, K, attn_window)
+        return ("verify", self.max_batch, K, attn_window), fn, fn
+
+    def verify(self, tokens: np.ndarray, attn_window: int) -> np.ndarray:
+        """One verify pass over tokens [B, K] (host ints) appended at each
+        slot's length: writes their K/V, advances no length, and returns
+        the greedy token of every position [B, K], read back once (the
+        pass's one synchronous readback). Slot KV only."""
+        if self.kv_layout != "slot":
+            raise ValueError("the speculative verify pass needs kv_layout='slot'")
+        self._stage_verify(tokens)
+        _, got = self.programs.run(*self._verify_program_args(tokens.shape[1], attn_window))
+        self.verify_forwards += 1
+        return got.cpu().numpy()
 
     def _prefill_slot(self, tokens: np.ndarray, seq_len: int, slot: int, append: bool = False,
                       attn_window: Optional[int] = None):

@@ -23,8 +23,11 @@ replay on the card; K replays for a ``multi_step`` block) and gets a
 fresh token tensor back, so a readback in flight never sees a later
 step's tokens.
 
-Speculative decoding (``speculative_k``) is not ported yet (ROADMAP.md
-queue 1, item 1) and raises.
+Batched speculation (``speculative_k``): while every active request is
+greedy and transient, a step is one synchronous verify pass over a
+[B, K] block of drafts (the engine's verify program, a graph replay on
+the card), after the plain pipeline's lag is drained; other steps run
+the plain pipelined path.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops.sampling import sample_token_perslot
+from . import speculative
 from .engine import GenerationConfig, InferenceEngine
 
 
@@ -101,6 +105,7 @@ class ContinuousBatchingScheduler:
     def __init__(self, engine: InferenceEngine, seed: int = 0, slots=None,
                  prefill_chunk: Optional[int] = None,
                  speculative_k: Optional[int] = None,
+                 speculative_max_batch: int = 2,
                  decode_ahead: int = 1,
                  multi_step=None):
         """slots: engine slots this scheduler owns (default: all).
@@ -121,16 +126,24 @@ class ContinuousBatchingScheduler:
         blocks on the oldest readback; stop detection lags as many
         tokens (the (slot, request-id) drain discards them).
 
-        speculative_k: not ported yet; raises NotImplementedError."""
-        if speculative_k:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md queue 1, item 1)")
+        speculative_k: batched prompt-lookup speculation
+        (engine/speculative.py): when every active request is greedy and
+        transient (slot KV, no reserved slots, every slot K rows from the
+        window edge), a step verifies K-token draft blocks for the whole
+        batch in one pass, emitting up to K tokens a slot. Streams are
+        those of greedy decode under the verify pass's numerics; steps
+        that miss the gate run the plain pipelined path.
+
+        speculative_max_batch: speculation engages only while at most
+        this many slots are active (a verify pass forwards B*K tokens)."""
         self.engine = engine
         self.slots = list(slots) if slots is not None else list(range(engine.max_batch))
         if prefill_chunk is not None and prefill_chunk not in engine.buckets:
             raise ValueError(f"prefill_chunk {prefill_chunk} must be one of the "
                              f"engine's prefill buckets {engine.buckets}")
         self.prefill_chunk = prefill_chunk
+        self.speculative_k = speculative_k
+        self.speculative_max_batch = speculative_max_batch
         self.decode_ahead = max(1, int(decode_ahead))
         self.adaptive_multi_step = False
         if isinstance(multi_step, str):
@@ -418,6 +431,77 @@ class ContinuousBatchingScheduler:
         seg = req.prompt[:rem] if pos == 0 and rem else req.prompt[pos:pos + chunk]
         self._prefill_segment(req, slot, seg, pos=pos, final=pos + len(seg) >= len(req.prompt))
 
+    def _speculative_ready(self) -> bool:
+        """Gate of the batched speculative step: slot KV, no reserved
+        slots (an idle session slot whose frozen KV sits within K rows of
+        max_seq_len would be overwritten by its inactive rows' writes),
+        at most speculative_max_batch active requests, every one greedy
+        and transient, every slot K rows from the window edge (a clamped
+        start would slide the block over valid KV), and the RTT gate."""
+        K = self.speculative_k
+        if not K or not self.active:
+            return False
+        if len(self.active) > self.speculative_max_batch:
+            return False
+        if not speculative.rtt_gate_ok(self.engine):
+            return False
+        if self.engine.kv_layout != "slot" or self._reserved:
+            return False
+        for req in self.active.values():
+            if req.gen.temperature != 0.0 or req.pin_slot is not None or req.append:
+                return False
+            cur = req.start_len + len(req.prompt) + len(req.output) - 1
+            if cur + K > self.engine.max_seq_len:
+                return False
+        return True
+
+    def _decode_dispatch_speculative(self) -> None:
+        """One synchronous batched verify pass (no dispatch-ahead lag: the
+        next pass's inputs depend on this one's acceptance)."""
+        eng = self.engine
+        B = eng.max_batch
+        K = self.speculative_k
+        verify, advance = speculative._make_verify(eng)
+        toks = np.zeros((B, K), np.int64)
+        slot_drafts: Dict[int, List[int]] = {}
+        max_end = 2
+        for slot, req in self.active.items():
+            drafts = speculative.NgramDrafter(list(req.prompt) + req.output).propose(K - 1)
+            toks[slot, 0] = req.output[-1]  # last emitted, not yet fed
+            if drafts:
+                toks[slot, 1:1 + len(drafts)] = drafts
+            slot_drafts[slot] = drafts
+            cur = req.start_len + len(req.prompt) + len(req.output) - 1
+            max_end = max(max_end, cur + K)
+        got = verify(toks, eng.decode_window(min(max_end, eng.max_seq_len)))  # [B, K]
+        adv = np.zeros((B,), np.int64)
+        emitted_total = 0
+        for slot, req in list(self.active.items()):
+            drafts = slot_drafts[slot]
+            a = 0
+            while a < len(drafts) and got[slot, a] == drafts[a]:
+                a += 1
+            m = 0
+            for t in list(drafts[:a]) + [int(got[slot, a])]:
+                self._emit(req, t)
+                if req.done:
+                    break
+                m += 1
+            # continuing slots keep lengths = prompt + emitted - 1 (the
+            # last emitted token stays unfed); finished ones are transient
+            # and restart from 0 at their slot's next admission
+            adv[slot] = m
+            emitted_total += m
+        advance(adv)
+        eng.stats.decode_tokens += emitted_total
+        # a later plain step must feed each slot's last emitted token, not
+        # the one from before these passes
+        cur = self._cur_tokens.clone()
+        for slot, req in self.active.items():
+            if req.output:
+                cur[slot, 0] = req.output[-1]
+        self._cur_tokens = cur
+
     def _choose_k(self) -> Optional[int]:
         """Adaptive multi-step block size: full K when requests are
         pending (saturation), K scaled by slot occupancy (rounded down to
@@ -505,6 +589,12 @@ class ContinuousBatchingScheduler:
             return
         self._sync_first_tokens()
         t0 = time.perf_counter()
+        if self._speculative_ready():
+            self._drain(all_remaining=True)  # flush the plain pipeline's lag first
+            if self.active:
+                self._decode_dispatch_speculative()
+            self.engine.stats.decode_time += time.perf_counter() - t0
+            return
         k = self._choose_k()
         # dispatch budget: a length-capped request can use only
         # max_new_tokens - emitted - in-flight more rows; session requests

@@ -1,8 +1,9 @@
 """Stateful chat session: templating, window shift, streaming, stop logic.
 
 The counterpart of ``mlc_llm_tpu/engine/session.py``, in engine mode
-and scheduler mode (the speculative-decoding branch waits for ROADMAP.md
-queue 1, item 1):
+and scheduler mode, with the speculative branch (greedy engine-mode
+turns ride prompt-lookup speculation when ``speculative_k`` is set and
+``engine/speculative.rtt_gate_ok`` passes):
 
 - incremental prompt assembly: only new turns are tokenized per round
 - window-shift long-context policy: when
@@ -22,6 +23,7 @@ from ..conversation import Conversation, get_conversation
 from ..models.config import ModelConfig
 from ..tokenizer import Tokenizer
 from .engine import GenerationConfig, InferenceEngine
+from .speculative import rtt_gate_ok, speculative_stream
 
 
 @dataclasses.dataclass
@@ -58,7 +60,12 @@ class ChatSession:
         chat: ChatConfig = ChatConfig(),
         conv_template: Optional[str] = None,
         scheduler=None,
+        speculative_k: Optional[int] = None,
     ):
+        """speculative_k: verify-block width of prompt-lookup speculation
+        (engine/speculative.py), used on greedy turns (temperature 0) in
+        engine mode; sampled turns and scheduler mode keep the plain
+        decode loop."""
         slot = 0
         if scheduler is not None:
             engine = scheduler.engine
@@ -69,6 +76,7 @@ class ChatSession:
         self.cfg = cfg
         self.chat = chat
         self.slot = slot
+        self.speculative_k = speculative_k
         self.conv: Conversation = get_conversation(conv_template or cfg.conv_template)
         self.total_len = 0  # tokens currently in the KV cache for this slot
 
@@ -131,6 +139,11 @@ class ChatSession:
         ):
             yield tok
 
+    def _speculative_tokens(self, tokens: List[int], gen: GenerationConfig):
+        yield from speculative_stream(self.engine, tokens, max_new_tokens=gen.max_new_tokens,
+                                      draft_k=self.speculative_k,
+                                      reset=(self.total_len == 0))
+
     def _scheduler_tokens(self, tokens: List[int], gen: GenerationConfig):
         out = deque()
         req = self.scheduler.submit(tokens, gen, on_token=out.append, pin_slot=self.slot,
@@ -172,6 +185,10 @@ class ChatSession:
         final_text = ""
         if self.scheduler is not None:
             source = self._scheduler_tokens(tokens, gen)
+        elif self.speculative_k and gen.temperature == 0.0 and rtt_gate_ok(self.engine):
+            # greedy turns ride prompt-lookup speculation; the RTT gate
+            # keeps it off where the pipelined plain loop is faster
+            source = self._speculative_tokens(tokens, gen)
         else:
             source = self._engine_tokens(tokens, gen)
         try:

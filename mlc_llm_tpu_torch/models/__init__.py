@@ -2,7 +2,14 @@
 
 from .config import ModelConfig, MODEL_REGISTRY, get_config
 from .paged_cache import PagedKVCache, init_paged_kv_cache
-from .transformer import forward, forward_decode, init_random_params, KVCache, init_kv_cache
+from .transformer import (
+    KVCache,
+    forward,
+    forward_decode,
+    forward_verify,
+    init_kv_cache,
+    init_random_params,
+)
 
 __all__ = [
     "ModelConfig",
@@ -10,6 +17,7 @@ __all__ = [
     "get_config",
     "forward",
     "forward_decode",
+    "forward_verify",
     "init_random_params",
     "KVCache",
     "init_kv_cache",

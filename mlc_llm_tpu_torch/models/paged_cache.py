@@ -32,8 +32,8 @@ instead, as JAX does), and an unaligned append keeps the earlier tokens
 of the page it starts in.
 
 The tensor-parallel routing of the JAX module (``paged_flash_tp_enabled``,
-``paged_flash_decode_tp``) is not ported yet (ROADMAP.md queue 1,
-item 8).
+``paged_flash_decode_tp``) is not ported yet (ROADMAP.md queue 1, its
+sharding item).
 """
 
 from __future__ import annotations

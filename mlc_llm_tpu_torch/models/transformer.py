@@ -21,7 +21,10 @@ the start lengths come from the cache's host mirror, which it advances.
 ``forward_decode`` is one decode step that reads no host value (the
 device lengths ``cache.lengths_dev``, the device page table, a device
 ``seq_lens``) and advances the device lengths only, so that a CUDA
-graph can hold it (``engine/programs.py``).
+graph can hold it (``engine/programs.py``). ``forward_verify`` is the
+speculative verify pass on the same terms (slot cache only): an S-token
+block written at the device lengths, every position's logits, no
+length advanced.
 """
 
 from __future__ import annotations
@@ -349,6 +352,22 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens, cache, seq_lens, *,
                       attn_window)
     cache.lengths_dev += seq_lens
     return logits
+
+
+@torch.no_grad()
+def forward_verify(params: Params, cfg: ModelConfig, tokens, cache, *,
+                   attn_window: Optional[int] = None):
+    """The speculative verify pass (tokens [B, S]) that reads no host
+    value: the block is written at ``cache.lengths_dev``, K/V rows [len,
+    len + S) in place (the start clamped to Smax - S, as JAX's
+    dynamic_update_slice clamps it), and no length advances, the JAX
+    verify's ``forward(..., seq_lens=0, last_only=False)``. Slot cache
+    only. Returns the f32 logits [B, S, V] of every position."""
+    if isinstance(cache, PagedKVCache):
+        raise ValueError("the speculative verify pass needs the slot KV cache")
+    zeros = torch.zeros_like(cache.lengths_dev)
+    return _forward(params, cfg, tokens, cache, cache.lengths_dev, zeros, None, False,
+                    attn_window)
 
 
 def _forward(params, cfg: ModelConfig, tokens, cache, start_dev, seq_lens, index,

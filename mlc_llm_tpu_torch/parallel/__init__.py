@@ -2,5 +2,5 @@
 
 The counterpart of ``mlc_llm_tpu/parallel``. Tensor-parallel sharding,
 multi-host slots and the host coordinator are not ported yet
-(ROADMAP.md queue 1, items 6 and 8).
+(ROADMAP.md queue 1, its coordinator and sharding items).
 """

@@ -17,10 +17,12 @@ the generation back.
   # anywhere else: submit token ids and stream the generation back
   python -m mlc_llm_tpu_torch.serve --connect HOST:8100 --prompt-ids 1,2,3
 
-``--speculative`` raises (ROADMAP.md queue 1). ``--precompile`` captures
-the decode step's CUDA graph of every attention-window bucket before
-serving and prints their count and seconds; without it each graph is
-captured at its window's first step.
+``--speculative K`` turns on batched prompt-lookup speculation on the
+slot KV cache (``--speculative-max-batch``: at most that many active
+requests, default 2). ``--precompile`` captures the decode step's CUDA
+graph of every attention-window bucket before serving and prints their
+count and seconds; without it each graph, and each verify pass's, is
+captured at its key's first run.
 """
 
 from __future__ import annotations
@@ -61,8 +63,16 @@ def build_engine(args):
                            device=args.device, **kwargs)
 
 
-def run_server(args) -> None:
+def build_scheduler(args, engine):
     from .engine.scheduler import ContinuousBatchingScheduler
+
+    return ContinuousBatchingScheduler(
+        engine, seed=args.seed or 0, prefill_chunk=args.prefill_chunk,
+        speculative_k=args.speculative, speculative_max_batch=args.speculative_max_batch,
+        decode_ahead=args.decode_ahead, multi_step=args.multi_step)
+
+
+def run_server(args) -> None:
     from .parallel.wire import SchedulerServer
 
     engine = build_engine(args)
@@ -70,10 +80,7 @@ def run_server(args) -> None:
         t0 = time.time()
         n = engine.precompile(progress=lambda m: print(f"precompile: {m}", flush=True))
         print(f"precompiled {n} programs in {time.time() - t0:.1f}s", flush=True)
-    sched = ContinuousBatchingScheduler(
-        engine, seed=args.seed or 0, prefill_chunk=args.prefill_chunk,
-        speculative_k=args.speculative, decode_ahead=args.decode_ahead,
-        multi_step=args.multi_step)
+    sched = build_scheduler(args, engine)
     server = SchedulerServer(sched, host=args.host, port=args.port)
     server.start()
     print(f"serving {args.model} on {args.host}:{server.port} (max_batch={args.max_batch}"
@@ -109,7 +116,7 @@ def run_client(args) -> None:
     client.close()
 
 
-def main(argv=None):
+def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("mlc_llm_tpu_torch.serve")
     ap.add_argument("--model", default="vicuna-v1-7b")
     ap.add_argument("--weights", default=None, help="checkpoint directory")
@@ -128,7 +135,11 @@ def main(argv=None):
                     help="enable automatic prefix caching on the paged pool, holding up "
                          "to this many pages of shared prompt-prefix KV")
     ap.add_argument("--speculative", type=int, default=None, metavar="K",
-                    help="batched prompt-lookup speculation (not ported yet: raises)")
+                    help="batched prompt-lookup speculation with K-token verify blocks on "
+                         "all-greedy transient batches (slot KV; up to K tokens a slot a "
+                         "pass)")
+    ap.add_argument("--speculative-max-batch", type=int, default=2,
+                    help="speculation engages only while at most this many slots are active")
     ap.add_argument("--multi-step", type=_multi_step_arg, default=None, metavar="K|auto[:K]",
                     help="run K decode steps per dispatch (stop detection lags up to K-1 "
                          "tokens inside a block); 'auto' (max 8) or 'auto:K' picks the "
@@ -152,7 +163,11 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.7)
     ap.add_argument("--top-p", type=float, default=0.95)
     ap.add_argument("--timeout", type=float, default=300.0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
 
     if args.connect:
         if not args.prompt_ids:

@@ -1,6 +1,7 @@
 """The port's build driver, CLI and server on checkpoints, on the CPU.
 
 - build --random, then the CLI one-shot with --weights;
+- the CLI's --speculative: the same reply as the plain loop;
 - the CLI's dist/<model>* artifact search, and its skip of a candidate
   built with another quantization;
 - the port's engine on a checkpoint that the JAX package's build wrote:
@@ -56,6 +57,31 @@ def test_build_random_then_cli(tmp_path, capsys):
               "--max-window-size", "256", "--device", "cpu"])
     got = capsys.readouterr()
     assert got.out.endswith("\n") and "decode:" in got.err
+
+
+def test_cli_speculative_prints_the_plain_reply(capsys, monkeypatch):
+    """--speculative 4 on a greedy one-shot: the turn rides speculation
+    (the verify program runs) and prints the reply of the plain loop."""
+    from mlc_llm_tpu_torch.engine import session as session_mod
+
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    streams = []
+    stream = session_mod.speculative_stream
+
+    def counted(engine, *a, **kw):
+        streams.append(engine)
+        return stream(engine, *a, **kw)
+
+    monkeypatch.setattr(session_mod, "speculative_stream", counted)
+    argv = ["--model", "tiny-llama", "--random-weights", "--prompt", "hi", "--temperature", "0",
+            "--max-gen-len", "12", "--max-window-size", "64", "--device", "cpu"]
+    replies = []
+    for extra in ([], ["--speculative", "4"]):
+        capsys.readouterr()
+        cli.main(argv + extra)
+        replies.append(capsys.readouterr().out)
+    assert replies[0] == replies[1] and replies[0].strip()
+    assert len(streams) == 1 and streams[0].verify_forwards > 0
 
 
 def test_cli_artifact_search(tmp_path, capsys, monkeypatch):

@@ -954,3 +954,138 @@ def test_cuda_scheduler_decode_ahead_same_tokens(vicuna2):
         assert bool(blocks) == ("multi_step" in kw)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1] == outs[2]
+
+
+# The speculative verify pass (engine.verify, one graph per (batch, K,
+# window)) at 2 layers. Its reference on the card is the no-draft stream:
+# the same passes with a drafter that proposes nothing, so every token
+# comes from the same m = K program (the m = 1 decode step runs another
+# kernel body, whose last bits may break a random-weight argmax tie the
+# other way). Random full-width weights give output that does not
+# repeat, so the prompt-lookup drafter finds next to nothing to propose;
+# a drafter that replays the no-draft stream has its drafts accepted
+# wherever the verify pass agrees, which holds a row's result independent
+# of its place in the m tile.
+
+class _NoDraft:
+    def __init__(self, history, max_ngram=3):
+        pass
+
+    def extend(self, toks):
+        pass
+
+    def propose(self, k):
+        return []
+
+
+class _Replay:
+    """Proposes the next tokens of the reference stream of its prompt
+    (refs: prompt tuple -> the tokens generated after it)."""
+
+    refs = {}
+
+    def __init__(self, history, max_ngram=3):
+        self.history = list(history)
+        key = max((k for k in self.refs if tuple(self.history[:len(k)]) == k), key=len,
+                  default=())
+        self.prompt_len, self.ref = len(key), self.refs.get(key, [])
+
+    def extend(self, toks):
+        self.history.extend(toks)
+
+    def propose(self, k):
+        n = len(self.history) - self.prompt_len
+        return list(self.ref[n:n + k])
+
+
+def _spec_engine(vicuna2, batch, eager=False):
+    from mlc_llm_tpu_torch.engine import InferenceEngine
+
+    cfg, params = vicuna2
+    eng = InferenceEngine(cfg, params, max_batch=batch, max_seq_len=2048, device="cuda")
+    eng.cfg = cfg.replace(stop_tokens=())  # decode the full count
+    seen = []
+    run = eng.programs.run
+
+    def spy(key, fn, warm_up):
+        out = fn() if eager else run(key, fn, warm_up)
+        seen.append(tuple(t.clone() for t in out))
+        return out
+
+    eng.programs.run = spy
+    return eng, seen
+
+
+MOTIF = ([311, 42, 87, 1009, 55, 7, 66, 23] * 8)[:64]
+
+
+@pytest.mark.cuda
+def test_cuda_verify_graph_matches_eager_verify(vicuna2, monkeypatch):
+    from mlc_llm_tpu_torch.engine import speculative
+
+    monkeypatch.setattr(speculative, "NgramDrafter", _NoDraft)
+    eng, _ = _spec_engine(vicuna2, 1)
+    _Replay.refs = {tuple(MOTIF): speculative.generate_speculative(eng, MOTIF, 40, 8)}
+    monkeypatch.setattr(speculative, "NgramDrafter", _Replay)
+    runs = []
+    for eager in (False, True):
+        eng, seen = _spec_engine(vicuna2, 1, eager)
+        stats = {}
+        toks = speculative.generate_speculative(eng, MOTIF, max_new_tokens=40, draft_k=8,
+                                                stats=stats)
+        runs.append((eng, seen, toks, stats))
+    (geng, gseen, gtoks, gstats), (_, eseen, etoks, estats) = runs
+    assert gtoks == etoks and gstats == estats and len(gtoks) == 40
+    assert gstats["accepted_drafts"] > 0
+    assert len(gseen) == len(eseen) == gstats["passes"]
+    for (gl, gt), (el, et) in zip(gseen, eseen):
+        assert torch.equal(gl, el) and torch.equal(gt, et)
+    assert geng.programs.replays == geng.verify_forwards == gstats["passes"]
+    assert {k[:3] for k in geng.programs.keys} == {("verify", 1, 8)}
+    assert geng.programs.count == len(geng.programs.keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drafter", ["prompt-lookup", "replay"])
+def test_cuda_speculative_matches_no_draft_stream(vicuna2, drafter, monkeypatch):
+    from mlc_llm_tpu_torch.engine import speculative
+
+    streams, stats = [], []
+    lookup = speculative.NgramDrafter
+    for cls in (_NoDraft, lookup if drafter == "prompt-lookup" else _Replay):
+        monkeypatch.setattr(speculative, "NgramDrafter", cls)
+        eng, _ = _spec_engine(vicuna2, 1)
+        st = {}
+        streams.append(speculative.generate_speculative(eng, MOTIF, max_new_tokens=48,
+                                                        draft_k=8, stats=st))
+        stats.append(st)
+        _Replay.refs = {tuple(MOTIF): streams[0]}
+    assert streams[0] == streams[1] and len(streams[0]) == 48
+    assert stats[0]["passes"] == 47 and stats[0]["accepted_drafts"] == 0
+    if drafter == "replay":
+        assert stats[1]["passes"] < stats[0]["passes"] and stats[1]["accepted_drafts"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_scheduler_speculation_matches_no_draft_run(vicuna2, monkeypatch):
+    from mlc_llm_tpu_torch.engine import GenerationConfig, speculative
+    from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    prompts = [MOTIF] + _graph_prompts(5)
+    outs, passes = [], []
+    for drafter in (_NoDraft, speculative.NgramDrafter, _Replay):
+        monkeypatch.setattr(speculative, "NgramDrafter", drafter)
+        eng, _ = _spec_engine(vicuna2, 8)
+        sched = ContinuousBatchingScheduler(eng, seed=0, speculative_k=4,
+                                            speculative_max_batch=8)
+        reqs = [sched.submit(p, GenerationConfig(max_new_tokens=16, temperature=0.0))
+                for p in prompts]
+        sched.run()
+        assert all(r.done and len(r.output) == 16 for r in reqs)
+        assert eng.programs.replays == eng.verify_forwards + eng.decode_forwards
+        outs.append([r.output for r in reqs])
+        passes.append(eng.verify_forwards)
+        _Replay.refs = {tuple(p): o for p, o in zip(prompts, outs[0])}
+    assert outs[0] == outs[1] == outs[2]
+    assert 0 < passes[2] < passes[0]

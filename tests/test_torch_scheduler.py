@@ -160,9 +160,126 @@ def test_chunked_prefill_rejects_non_bucket(params):
         ContinuousBatchingScheduler(_engine(params, max_batch=1), prefill_chunk=24)
 
 
-def test_speculative_raises_with_roadmap_item(params):
-    with pytest.raises(NotImplementedError, match="item 1"):
-        ContinuousBatchingScheduler(_engine(params), speculative_k=4)
+# ------------------------------------------------------ batched speculation
+# the streams are under test: MLC_SPEC_FORCE=1 keeps the RTT gate (its own
+# tests are in test_torch_speculative.py) from deciding for a loaded CPU
+
+
+def _count_passes(sched):
+    passes = []
+    orig = sched._decode_dispatch_speculative
+    sched._decode_dispatch_speculative = lambda: (passes.append(1), orig())
+    return passes
+
+
+def test_scheduler_speculative_matches_plain(params, monkeypatch):
+    """Batched speculation on an all-greedy transient batch emits the
+    plain scheduler's streams, on prompts that draft well and ones that
+    do not, in fewer verify passes than tokens."""
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    prompts = [[5, 6, 7] * 4, [11, 3, 19, 42, 7, 23], [9, 8] * 5]
+    plain = ContinuousBatchingScheduler(_engine(params, max_batch=2, max_seq_len=128))
+    want = [plain.submit(p, _greedy(16)) for p in prompts]
+    plain.run()
+    eng = _engine(params, max_batch=2, max_seq_len=128)
+    spec = ContinuousBatchingScheduler(eng, speculative_k=4)
+    passes = _count_passes(spec)
+    got = [spec.submit(p, _greedy(16)) for p in prompts]
+    spec.run()
+    assert [g.output for g in got] == [w.output for w in want]
+    assert passes and len(passes) < sum(len(g.output) for g in got)
+    assert eng.verify_forwards == len(passes)
+    assert {k[:3] for k in eng.programs.keys if k[0] == "verify"} == {("verify", 2, 4)}
+
+
+def test_scheduler_speculative_falls_back_on_sampled(params, monkeypatch):
+    """A sampled request in the batch closes the gate; the greedy request
+    still gets its solo greedy stream."""
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    sched = ContinuousBatchingScheduler(_engine(params, max_batch=2), speculative_k=4)
+    sampled = GenerationConfig(max_new_tokens=8, temperature=0.8, seed=3)
+    r_g = sched.submit([5, 6, 7] * 3, _greedy(8))
+    r_s = sched.submit([1, 2, 3], sampled)
+    sched.run()
+    assert r_g.done and r_s.done and len(r_s.output) > 0
+    assert r_g.output == _solo(params, r_g.prompt, _greedy(8))
+
+
+def test_scheduler_speculative_mode_switch_mid_run(params, monkeypatch):
+    """Speculative passes, then a sampled request arrives: the plain
+    pipeline must feed each slot's last emitted token (the _cur_tokens
+    sync), keeping the greedy stream exact."""
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    sched = ContinuousBatchingScheduler(_engine(params, max_batch=2, max_seq_len=128),
+                                        speculative_k=4)
+    passes = _count_passes(sched)
+    r_g = sched.submit([5, 6, 7] * 4, _greedy(20))
+    for _ in range(3):
+        sched.step()
+    assert passes and not r_g.done
+    n_passes = len(passes)
+    r_s = sched.submit([4, 4], GenerationConfig(max_new_tokens=6, temperature=0.9, seed=5))
+    sched.run()
+    assert r_g.done and r_s.done
+    assert r_g.output == _solo(params, r_g.prompt, _greedy(20), max_seq_len=128)
+    assert sched.engine.decode_forwards > 0 and len(passes) >= n_passes
+
+
+def test_chunked_admission_with_batched_speculation(params, monkeypatch):
+    """Chunked admission and batched speculation at once: streams equal
+    the plain scheduler's."""
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    prompts = [([5, 6, 7] * 16)[:40], list(range(2, 40))]
+    plain = ContinuousBatchingScheduler(_engine(params, max_batch=2, max_seq_len=128))
+    want = [plain.submit(p, _greedy(12)) for p in prompts]
+    plain.run()
+    combo = ContinuousBatchingScheduler(_engine(params, max_batch=2, max_seq_len=128),
+                                        prefill_chunk=16, speculative_k=4)
+    passes = _count_passes(combo)
+    got = [combo.submit(p, _greedy(12)) for p in prompts]
+    combo.run()
+    assert [g.output for g in got] == [w.output for w in want]
+    assert passes
+
+
+def test_scheduler_speculative_batch_gate(params, monkeypatch):
+    """Speculation stays off above speculative_max_batch and engages when
+    the cap is raised; the streams are the same either way."""
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    prompts = [[5, 6, 7] * 4, [9, 8] * 5, [1, 2, 3, 4]]
+
+    def run(cap):
+        sched = ContinuousBatchingScheduler(_engine(params, max_batch=4, max_seq_len=128),
+                                            speculative_k=4, speculative_max_batch=cap)
+        passes = _count_passes(sched)
+        reqs = [sched.submit(p, _greedy(6)) for p in prompts]
+        sched.run()
+        return passes, [r.output for r in reqs]
+
+    gated, gated_out = run(2)  # 3 active > 2: the plain path
+    opened, open_out = run(4)
+    assert not gated and opened
+    assert gated_out == open_out
+
+
+def test_scheduler_speculative_matches_jax_scheduler(monkeypatch):
+    """The same requests through the JAX scheduler and the port's, both
+    with speculative_k=4, on the same f32 parameters: equal streams."""
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    jcfg = jget_config("tiny-llama")
+    jp = jinit(jcfg, "f32", seed=0)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    prompts = [[5, 6, 7] * 4, [11, 3, 19, 42, 7, 23], [9, 8] * 5]
+    js = JSched(JEngine(jcfg, jp, max_batch=2, max_seq_len=128), speculative_k=4)
+    want = [js.submit(p, JGen(max_new_tokens=16, temperature=0.0)) for p in prompts]
+    js.run()
+    sched = ContinuousBatchingScheduler(_engine(tp, max_batch=2, max_seq_len=128),
+                                        speculative_k=4)
+    passes = _count_passes(sched)
+    got = [sched.submit(p, _greedy(16)) for p in prompts]
+    sched.run()
+    assert passes
+    assert [g.output for g in got] == [[int(t) for t in w.output] for w in want]
 
 
 @pytest.mark.parametrize("gen", [

@@ -3,7 +3,8 @@
 SchedulerServer + RemoteScheduler on 127.0.0.1 (port 0): requests stream
 back the tokens that the in-process scheduler gives for them, and a
 cancel mid-generation frees the slot (tests/test_coordinator.py's wire
-tests on the port). The serve entry point runs as two real processes.
+tests on the port). The serve entry point runs as two real processes;
+its --speculative flags reach the scheduler it builds.
 """
 
 import os
@@ -81,6 +82,31 @@ def test_wire_cancel_mid_generation_frees_the_slot(engine):
         client.close()
     finally:
         server.stop()
+
+
+def test_serve_speculative_flags_reach_the_scheduler(monkeypatch):
+    """serve's parser takes --speculative and --speculative-max-batch, the
+    scheduler it builds carries them, and it speculates on a greedy
+    request (slot KV) with the plain scheduler's stream."""
+    from mlc_llm_tpu_torch import serve
+
+    monkeypatch.setenv("MLC_SPEC_FORCE", "1")
+    base = ["--model", "tiny-llama", "--random-weights", "--device", "cpu", "--max-batch", "2",
+            "--max-seq-len", "64"]
+    args = serve.make_parser().parse_args(base + ["--speculative", "4",
+                                                  "--speculative-max-batch", "1"])
+    sched = serve.build_scheduler(args, serve.build_engine(args))
+    assert (sched.speculative_k, sched.speculative_max_batch) == (4, 1)
+    plain_args = serve.make_parser().parse_args(base)
+    plain = serve.build_scheduler(plain_args, serve.build_engine(plain_args))
+    assert (plain.speculative_k, plain.speculative_max_batch) == (None, 2)
+    outs = []
+    for s in (sched, plain):
+        req = s.submit([5, 6, 7] * 4, _greedy(12))
+        s.run()
+        outs.append(req.output)
+    assert outs[0] == outs[1] and sched.engine.verify_forwards > 0
+    assert plain.engine.verify_forwards == 0
 
 
 def test_serve_entrypoint_end_to_end():
