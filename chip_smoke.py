@@ -89,17 +89,25 @@ Phases (any failed check exits non-zero before the last line):
    runs; launch counts held: a b1 pass 4L + 1 gemv_qs calls at m = 8, a
    scheduler pass 4L + 1 gemm_qs calls at m = 32;
 6. serve phase: the same model behind SchedulerServer
-   (ContinuousBatchingScheduler over InferenceEngine(kv_layout="paged",
-   max_batch=8, max_seq_len=2048, page_size=128)); 16 requests from a
-   seed submitted by RemoteScheduler over localhost, with TTFT, decode
-   rates, step wall and launch counts; then a shorter in-process run
-   with int8 KV under kv_layout="auto", which must resolve to paged;
-6b. graph phase: greedy tokens of the decode graphs against the same
-   step run eagerly (the engine's program runner swapped for a direct
-   call): full-depth Vicuna q4bf16 at b1 (16 tokens, both step walls
-   printed), then 8 requests through the paged b8 scheduler at 2 layers
-   on an engine that precompile() gave one graph a window bucket (their
-   count, capture seconds and pool bytes printed; the run captures none);
+   (ContinuousBatchingScheduler(multi_step="auto:4") over
+   InferenceEngine(kv_layout="paged", max_batch=8, max_seq_len=2048,
+   page_size=128), the engine precompiled as `serve --precompile
+   --multi-step auto:4` does it: every program JAX's precompile compiles
+   and the K = 2 and 4 blocks, their count, seconds and pool bytes
+   printed); 16 requests from a seed (every fourth sampled) submitted by
+   RemoteScheduler over localhost, with TTFT, decode rates, step wall and
+   launch counts; no graph is captured while serving, every admission,
+   first-token draw, step and K-step block is a replay, and the same
+   requests through a single-step scheduler on the same engine give the
+   same streams, greedy and sampled; then a shorter in-process run with
+   int8 KV under kv_layout="auto", which must resolve to paged;
+6b. graph phase: every program's graph against the same program run
+   eagerly (the engine's program runner swapped for a direct call):
+   full-depth Vicuna q4bf16 at b1, the prefill logits bit for bit, greedy
+   tokens (16, both step walls printed) and a sampled stream (T 0.7, a
+   fixed seed) equal; then 8 requests through the paged b8 scheduler at 2
+   layers on an engine precompile() captured (their count, capture
+   seconds and pool bytes printed; the run captures none);
 7. q3 chat phase: the q4 params are freed; full-depth Vicuna-7B
    q3bf16_s16 (random weights quantized on the card) with int8 slot KV at
    batch 1, 3 greedy turns of 32 new tokens through ChatSession: every
@@ -140,10 +148,11 @@ Phases (any failed check exits non-zero before the last line):
 11. one JSON line of stats, one of kernels, the card line, and the final
    ok line. Each phase prints its seconds.
 
-Every decode step of the chat, serve, scheduler and CLI paths replays
-one captured CUDA graph (engine/programs.py); each path prints its
-graphs, their capture seconds, its replays (held equal to its decode
-steps) and the graph pool's bytes.
+Every prefill, first-token draw, decode step and K-step block of the
+chat, serve, scheduler and CLI paths replays one captured CUDA graph
+(engine/programs.py); each path prints its graphs, their capture
+seconds, its program runs by kind (held to its prefills, draws and
+decode forwards, every run a replay) and the graph pool's bytes.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; launches made to compare a kernel with its plain version do
@@ -154,6 +163,7 @@ exits non-zero without one.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -192,6 +202,7 @@ from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import matmul as mm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
 from mlc_llm_tpu_torch.parallel.wire import RemoteScheduler, SchedulerServer
+from mlc_llm_tpu_torch.serve import multi_step_compile_ks
 from mlc_llm_tpu_torch.quant import (
     QUANT_PRESETS,
     QuantizedTensor,
@@ -1074,8 +1085,8 @@ _FINITE = []
 @contextlib.contextmanager
 def finite_logits(label):
     """Hold the logits of every forward the engine runs inside to be
-    finite: each forward (every prefill, and every decode step and verify
-    pass, inside its captured graph) adds its count of non-finite logits and one
+    finite: each forward (every prefill, decode step and verify pass,
+    inside its captured graph) adds its count of non-finite logits and one
     forward to two counters on the card (no host sync a step), read once
     at the end."""
     from mlc_llm_tpu_torch.engine import engine as engine_mod
@@ -1084,25 +1095,21 @@ def finite_logits(label):
         _FINITE.append(torch.zeros(2, dtype=torch.int64, device="cuda"))
     counts = _FINITE[0]
     counts.zero_()
-    fwd, fwd_decode, fwd_verify = (engine_mod.forward, engine_mod.forward_decode,
-                                   engine_mod.forward_verify)
+    fwd_block, fwd_decode, fwd_verify = (engine_mod.forward_block, engine_mod.forward_decode,
+                                         engine_mod.forward_verify)
 
     def count(logits):
         counts[0].add_((~torch.isfinite(logits)).sum())
         counts[1].add_(1)
         return logits
 
-    def checked(*a, **kw):
-        logits, cache = fwd(*a, **kw)
-        return count(logits), cache
-
-    engine_mod.forward = checked
+    engine_mod.forward_block = lambda *a, **kw: count(fwd_block(*a, **kw))
     engine_mod.forward_decode = lambda *a, **kw: count(fwd_decode(*a, **kw))
     engine_mod.forward_verify = lambda *a, **kw: count(fwd_verify(*a, **kw))
     try:
         yield
     finally:
-        engine_mod.forward, engine_mod.forward_decode = fwd, fwd_decode
+        engine_mod.forward_block, engine_mod.forward_decode = fwd_block, fwd_decode
         engine_mod.forward_verify = fwd_verify
     bad, forwards = counts.tolist()
     print(f"  {label}: {forwards} forwards, {bad} non-finite logits")
@@ -1118,12 +1125,37 @@ def phase_seconds(name):
 
 
 def graph_stats(engine):
-    """The engine's decode graphs: how many were captured, each one's
-    warm-up + capture seconds, and the bytes of their shared pool."""
+    """The engine's graphs: how many were captured, each one's warm-up +
+    capture seconds, its program runs by kind, and the bytes of their
+    shared pool."""
     secs = engine.programs.capture_seconds()
     return dict(graphs=engine.programs.count, replays=engine.programs.replays,
-                capture_s={str(k[2]): v for k, v in sorted(secs.items())},
+                runs=engine.programs.runs_by_kind(),
+                capture_s={" ".join(map(str, k)): v
+                           for k, v in sorted(secs.items(), key=lambda kv: str(kv[0]))},
                 graph_pool_bytes=engine.programs.pool_bytes())
+
+
+def program_mark(engine):
+    """A mark of the engine's program runs (by key) and graph replays."""
+    return collections.Counter(engine.programs.runs), engine.programs.replays
+
+
+def runs_since(engine, mark, label):
+    """The program runs since `mark`, by kind, with "forwards": the decode
+    forwards they ran (a K-step block K). Fails unless every run was a
+    graph replay."""
+    runs0, replays0 = mark
+    delta = collections.Counter(engine.programs.runs) - runs0
+    if engine.programs.replays - replays0 != sum(delta.values()):
+        fail(f"{label}: {sum(delta.values())} program runs, "
+             f"{engine.programs.replays - replays0} graph replays")
+    kinds = collections.Counter()
+    for key, n in delta.items():
+        kinds[key[0]] += n
+        if key[0] in ("decode", "decode_k"):
+            kinds["forwards"] += n * (key[2] if key[0] == "decode_k" else 1)
+    return dict(kinds)
 
 
 def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
@@ -1153,6 +1185,7 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
                           ChatConfig(temperature=0.0, max_gen_len=32, max_window_size=768))
     prompts = ["Hello! Who are you?", "Name three colors.", "Thanks, bye."]
     reset_counters()
+    mark = program_mark(engine)
     ttft, turn_s = [], []
     t0 = time.perf_counter()
     with finite_logits(f"{cfg.name} {quant} chat"):
@@ -1165,17 +1198,19 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
             print(f"  USER: {prompt!r} -> {len(reply)} chars")
     wall = time.perf_counter() - t0
     launches = read_counters()
+    runs = runs_since(engine, mark, f"{cfg.name} {quant} chat")
     steps = engine.stats.decode_tokens
     stats = dict(model=cfg.name, quant=quant, kv=kv, param_bytes=nbytes, prefill_ms=ttft,
                  decode_tok_s=engine.stats.decode_tps, decode_steps=steps,
                  step_wall_ms=engine.stats.decode_time / max(steps, 1) * 1e3, wall_s=wall,
                  **graph_stats(engine))
     print(f"  prefill ms per turn (TTFT less sampling): {[round(t, 2) for t in ttft]}; "
-          f"decode {engine.stats.decode_tps:.2f} tok/s over {steps} steps; decode graphs "
-          f"{stats['graphs']} (capture s {stats['capture_s']}), {stats['replays']} replays, "
+          f"decode {engine.stats.decode_tps:.2f} tok/s over {steps} steps; graphs "
+          f"{stats['graphs']} (capture s {stats['capture_s']}), the turns' replays {runs}, "
           f"pool {stats['graph_pool_bytes']} bytes")
-    if stats["replays"] != steps:
-        fail(f"{steps} decode steps ran {stats['replays']} graph replays")
+    if runs != {"prefill": len(prompts), "sample": len(prompts), "decode": steps,
+                "forwards": steps}:
+        fail(f"{len(prompts)} turns of {steps} decode steps ran the programs {runs}")
     want = expected_launches(quant, layers=cfg.num_layers, b1_steps=steps,
                              prefills=len(prompts))
     print(f"  launches: {launches} (want {want})")
@@ -1304,12 +1339,26 @@ def serve_requests(n=16, vocab=VICUNA.vocab_size, sampled=lambda i: i % 4 == 3):
     return out
 
 
+SERVE_MULTI_STEP = "auto:4"  # the serve phase's --multi-step: K-step blocks of 2 and 4
+
+
 def serve_phase(params):
     print(f"== serve phase: vicuna-v1-7b q4bf16, 32 layers, paged KV (page {PAGE_SIZE}), "
-          f"max_batch {SERVE_BATCH}, max_seq_len {SERVE_SEQ}, SchedulerServer + RemoteScheduler")
+          f"max_batch {SERVE_BATCH}, max_seq_len {SERVE_SEQ}, multi_step {SERVE_MULTI_STEP!r}, "
+          f"precompiled, SchedulerServer + RemoteScheduler")
     engine = InferenceEngine(VICUNA, params, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
                              kv_layout="paged", page_size=PAGE_SIZE, device="cuda")
-    sched = ContinuousBatchingScheduler(engine, seed=0)
+    # serve --precompile --multi-step auto:4
+    t0 = time.perf_counter()
+    n = engine.precompile(multi_step=multi_step_compile_ks(SERVE_MULTI_STEP))
+    pre = dict(precompile_s=time.perf_counter() - t0, precompiled=n,
+               precompile_pool_bytes=engine.programs.pool_bytes())
+    print(f"  precompile: {n} graphs in {pre['precompile_s']:.2f} s, pool "
+          f"{pre['precompile_pool_bytes']} bytes")
+    if n != len(engine.precompile_keys(multi_step_compile_ks(SERVE_MULTI_STEP))) or \
+            engine.programs.count != n:
+        fail(f"serve: precompile captured {engine.programs.count} graphs, returned {n}")
+    sched = ContinuousBatchingScheduler(engine, seed=0, multi_step=SERVE_MULTI_STEP)
     admitted = []
     prefill_slot = engine._prefill_slot
 
@@ -1320,8 +1369,8 @@ def serve_phase(params):
     engine._prefill_slot = counted_prefill
     server = SchedulerServer(sched).start()
     client = RemoteScheduler(("127.0.0.1", server.port), timeout=600)
+    work = serve_requests()
     try:
-        work = serve_requests()
         first_at = {}
         lock = threading.Lock()
 
@@ -1334,6 +1383,7 @@ def serve_phase(params):
         reset_counters()
         engine.decode_forwards = 0
         engine.stats.reset()
+        mark = program_mark(engine)
         t0 = time.perf_counter()
         reqs = [(client.submit(p, g, on_token=on_token(i)), time.perf_counter())
                 for i, (p, g) in enumerate(work)]
@@ -1352,6 +1402,7 @@ def serve_phase(params):
         fail(f"serve: bad completions {lens} {[r.error for r, _ in reqs]}")
     if sum(lens) < 0.9 * 16 * 32:  # a stop token ends a request early only by chance
         fail(f"serve: only {sum(lens)} tokens generated")
+    runs = runs_since(engine, mark, "serve")
     ttft = sorted((first_at[i] - t_sub) * 1e3 for i, (_, t_sub) in enumerate(reqs))
     forwards, n_pre = engine.decode_forwards, len(admitted)
     want = expected_launches("q4bf16", b8_forwards=forwards, prefills=n_pre)
@@ -1363,48 +1414,87 @@ def serve_phase(params):
         aggregate_tok_s=sum(lens) / wall,
         server_decode_tok_s=st["decode_tokens"] / st["decode_time"],
         decode_forwards=forwards, step_wall_ms=st["decode_time"] / forwards * 1e3,
-        prefill_s=st["prefill_time"], admissions=n_pre, **graph_stats(engine))
+        prefill_s=st["prefill_time"], admissions=n_pre, serve_runs=runs, **pre,
+        **graph_stats(engine))
     print(f"  {json.dumps(out)}")
     print(f"  launches: {launches} (want {want})")
     if forwards == 0 or launches != want:
         fail("launch counts do not match the serve path")
-    if out["replays"] != forwards:
-        fail(f"{forwards} decode forwards ran {out['replays']} graph replays")
+    if engine.programs.count != n:
+        fail(f"serve: {engine.programs.count - n} graphs captured while serving")
+    if (runs.get("prefill_slots") != n_pre or runs.get("sample") != n_pre
+            or runs.get("forwards") != forwards or not runs.get("decode_k")):
+        fail(f"serve: {n_pre} admissions and {forwards} decode forwards ran the programs "
+             f"{runs}")
+    # the same requests through a single-step scheduler on the same engine
+    single = ContinuousBatchingScheduler(engine, seed=0)
+    again = [single.submit(p, g) for p, g in work]
+    single.run()
+    if engine.programs.count != n:
+        fail("serve: the single-step rerun captured a graph")
+    same = [r.output == a.output for (r, _), a in zip(reqs, again)]
+    sampled = [g.temperature > 0 for _, g in work]
+    out["k_step_equals_single_step"] = same
+    print(f"  K-step ({SERVE_MULTI_STEP}) streams == single-step streams: {same} "
+          f"(sampled: {[i for i, x in enumerate(sampled) if x]})")
+    if not all(same):
+        fail("serve: K-step block streams differ from single-step streams")
     return launches, out
 
 
 def eager_steps(engine):
-    """Run the engine's decode program without its graph: the same step
-    function on the same fixed buffers, called directly at every step
+    """Run the engine's programs without their graphs: the same program
+    functions on the same fixed buffers, called directly at every run
     (what a CPU engine does)."""
     engine.programs.run = lambda key, fn, warm_up: fn()
 
 
 def graph_phase(params):
-    """Graph against eager greedy tokens: full-depth Vicuna q4bf16 at b1
-    (slot KV, 16 tokens), then 8 greedy requests through the paged b8
-    scheduler at 2 layers on a precompiled engine (one graph a window
-    bucket; the run captures none)."""
-    print("== graph phase: decode graphs against the eager step, greedy tokens")
+    """Graphs against the same programs run eagerly: full-depth Vicuna
+    q4bf16 at b1 (slot KV): the prefill logits bit for bit, 16 greedy
+    tokens and a sampled stream (T 0.7, top-p 0.95, seed 5: each draw a
+    function of (seed, step)) equal; then 8 greedy requests through the
+    paged b8 scheduler at 2 layers on a precompiled engine (the run
+    captures none)."""
+    print("== graph phase: every program's graph against the eager program")
     prompt = [[VICUNA.bos_token_id] + list(b"Tell me about graphs.")]
-    gen = GenerationConfig(max_new_tokens=16, temperature=0.0)
-    toks, stats = {}, {}
+    greedy = GenerationConfig(max_new_tokens=16, temperature=0.0)
+    sampled = GenerationConfig(max_new_tokens=16, temperature=0.7, top_p=0.95, seed=5)
+    toks, stats, logits = {}, {}, {}
     for mode in ("graph", "eager"):
         eng = InferenceEngine(VICUNA, params, max_batch=1, max_seq_len=1536, device="cuda")
         eng.cfg = VICUNA.replace(stop_tokens=())  # decode the full count
         if mode == "eager":
             eager_steps(eng)
-        toks[mode] = eng.generate(prompt, gen)[0]
-        # the step wall of a second run: the graphs were captured in the first
-        eng.stats.reset()
-        if eng.generate(prompt, gen)[0] != toks[mode]:
-            fail(f"b1 {mode}: a second run gave other tokens")
-        stats[f"b1_{mode}_step_ms"] = eng.stats.decode_time / eng.stats.decode_tokens * 1e3
-    print(f"  b1 full depth: graph {toks['graph']}, eager {toks['eager']}; step wall of a "
-          f"second run {stats['b1_graph_step_ms']:.3f} ms graph, "
-          f"{stats['b1_eager_step_ms']:.3f} ms eager")
-    if toks["graph"] != toks["eager"] or len(toks["graph"]) != 16:
-        fail("b1 graph and eager greedy tokens differ")
+        logits[mode] = eng.prefill(prompt)
+        mark = program_mark(eng)
+        for name, gen in (("greedy", greedy), ("sampled", sampled)):
+            toks[mode, name] = eng.generate(prompt, gen)[0]
+            # the step wall of a second run: the graphs were captured in the first
+            eng.stats.reset()
+            if eng.generate(prompt, gen)[0] != toks[mode, name]:
+                fail(f"b1 {mode} {name}: a second run gave other tokens")
+            stats[f"b1_{mode}_{name}_step_ms"] = (eng.stats.decode_time
+                                                   / eng.stats.decode_tokens * 1e3)
+        if mode == "graph":
+            runs = runs_since(eng, mark, "b1 graph")
+            print(f"  b1 graph runs over 4 generations: {runs}")
+            if runs != {"prefill": 4, "sample": 4, "decode": 60, "forwards": 60}:
+                fail(f"b1 graph: the generations ran the programs {runs}")
+        del eng
+    same_logits = torch.equal(logits["graph"], logits["eager"])
+    print(f"  b1 full depth: prefill logits graph == eager: {same_logits}; greedy graph "
+          f"{toks['graph', 'greedy']}, eager {toks['eager', 'greedy']}; sampled (T 0.7) graph "
+          f"{toks['graph', 'sampled']}, eager {toks['eager', 'sampled']}; step wall of a "
+          f"second run: greedy {stats['b1_graph_greedy_step_ms']:.3f} ms graph, "
+          f"{stats['b1_eager_greedy_step_ms']:.3f} ms eager; sampled "
+          f"{stats['b1_graph_sampled_step_ms']:.3f} ms graph, "
+          f"{stats['b1_eager_sampled_step_ms']:.3f} ms eager")
+    if not same_logits:
+        fail("b1 graph and eager prefill logits differ")
+    for name in ("greedy", "sampled"):
+        if toks["graph", name] != toks["eager", name] or len(toks["graph", name]) != 16:
+            fail(f"b1 graph and eager {name} tokens differ")
     cfg = VICUNA.replace(num_layers=2)
     small = init_random_params(cfg, "q4bf16", seed=0, device="cuda")
     work = serve_requests(8, sampled=lambda i: False)
@@ -1415,24 +1505,25 @@ def graph_phase(params):
             t0 = time.perf_counter()
             n = eng.precompile()
             stats["precompile_s"] = time.perf_counter() - t0
-            windows = {eng.decode_window(b) for b in eng.buckets} | {eng.max_seq_len}
             stats.update(graph_stats(eng))
             print(f"  b8 paged, 2 layers: precompile captured {n} graphs in "
                   f"{stats['precompile_s']:.2f} s (capture s {stats['capture_s']}), pool "
                   f"{stats['graph_pool_bytes']} bytes")
-            if n != len(windows) or eng.programs.count != n:
+            if n != len(eng.precompile_keys()) or eng.programs.count != n:
                 fail(f"precompile captured {eng.programs.count} graphs, returned {n}, "
-                     f"want {len(windows)}")
+                     f"want {len(eng.precompile_keys())}")
+            mark = program_mark(eng)
         else:
             eager_steps(eng)
         sched = ContinuousBatchingScheduler(eng, seed=0)
         reqs = [sched.submit(p, g) for p, g in work]
         sched.run()
         toks[mode] = [r.output for r in reqs]
-        if mode == "graph" and (eng.programs.count != n
-                                or eng.programs.replays != eng.decode_forwards):
-            fail("the precompiled b8 engine captured a graph while serving, or stepped "
-                 "outside its graphs")
+        if mode == "graph":
+            runs = runs_since(eng, mark, "b8 paged graph run")
+            if eng.programs.count != n or runs.get("prefill_slots") != len(work):
+                fail(f"the precompiled b8 engine captured a graph while serving, or ran "
+                     f"outside its graphs: {runs}")
     lens = [len(t) for t in toks["graph"]]
     print(f"  b8 paged scheduler: {sum(lens)} tokens {lens}, graph == eager: "
           f"{toks['graph'] == toks['eager']}")
@@ -1459,11 +1550,13 @@ def int8_auto_phase(params, quant="q4bf16"):
 
     engine._prefill_slot = counted_prefill
     reset_counters()
+    mark = program_mark(engine)
     t0 = time.perf_counter()
     reqs = [sched.submit(p, g) for p, g in serve_requests()[:8]]
     sched.run()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    runs = runs_since(engine, mark, f"{quant} int8 auto run")
     want = expected_launches(quant, b8_forwards=engine.decode_forwards, prefills=len(admitted))
     stats = dict(quant=quant, tokens=sum(len(r.output) for r in reqs), wall_s=wall,
                  decode_tok_s=engine.stats.decode_tps, decode_forwards=engine.decode_forwards,
@@ -1477,8 +1570,9 @@ def int8_auto_phase(params, quant="q4bf16"):
         fail("int8 auto run: a request did not complete")
     if engine.decode_forwards == 0 or launches != want:
         fail("int8 auto run: launch counts do not match the path")
-    if stats["replays"] != engine.decode_forwards:
-        fail("int8 auto run: a decode forward ran outside its graph")
+    if runs != {"prefill_slots": len(admitted), "sample": len(admitted),
+                "decode": engine.decode_forwards, "forwards": engine.decode_forwards}:
+        fail(f"int8 auto run: a prefill, draw or decode forward ran outside its graph: {runs}")
     return launches, stats
 
 
@@ -1538,6 +1632,7 @@ def model_serve_phase(params, cfg, quant, idle_share=False, page_dtype=torch.bfl
 
     work = serve_requests(8, cfg.vocab_size, sampled=lambda i: i == 7)
     reset_counters()
+    mark = program_mark(engine)
     dm.route = route_rows
     try:
         with finite_logits(f"{cfg.name} {quant} serve"):
@@ -1548,6 +1643,7 @@ def model_serve_phase(params, cfg, quant, idle_share=False, page_dtype=torch.bfl
     finally:
         dm.route = route
     launches = read_counters()
+    runs = runs_since(engine, mark, f"{cfg.name} serve")
     forwards, n_pre, L = engine.decode_forwards, len(admitted), cfg.num_layers
     want = expected_launches(quant, layers=L, b8_forwards=forwards, prefills=n_pre)
     lens = [len(r.output) for r in reqs]
@@ -1556,22 +1652,28 @@ def model_serve_phase(params, cfg, quant, idle_share=False, page_dtype=torch.bfl
                  step_wall_ms=engine.stats.decode_time / max(forwards, 1) * 1e3,
                  admissions=n_pre, prefill_s=engine.stats.prefill_time, **graph_stats(engine))
     print(f"  {json.dumps(stats)}")
-    # route runs in Python: at a prefill, and at each decode graph's
-    # warm-up step and capture (a replay runs no Python)
-    traced = 2 * stats["graphs"]
+    # route runs in Python only at each graph's warm-up step and capture (a
+    # replay runs no Python): a decode graph routes its 4L + 1 matmuls at m
+    # = 8, an admission graph its layer matmuls at m = its bucket and its
+    # lm head at m = 1
+    graphs = collections.Counter(k[0] for k in engine.programs.capture_seconds())
+    traced = 2 * graphs["decode"]
     m8 = routed.count((kinds["m8"], SERVE_BATCH))
     m1 = routed.count((kinds["m1"], 1))
     # m = 8 is a b8 decode, m = 1 a prefill's lm head, any other m a prefill
     stray = sorted({(k, m) for k, m in routed
                     if k != {SERVE_BATCH: kinds["m8"], 1: kinds["m1"]}.get(m, kinds["prefill"])})
     print(f"  launches: {launches} (want {want}); routed to {kinds['m8']} at m = 8: {m8} "
-          f"(want {(4 * L + 1) * traced}: {stats['graphs']} graphs, each warmed up and "
-          f"captured), to {kinds['m1']} at m = 1: {m1} (want {n_pre})")
+          f"(want {(4 * L + 1) * traced}: {graphs['decode']} decode graphs, each warmed up "
+          f"and captured), to {kinds['m1']} at m = 1: {m1} (want "
+          f"{2 * graphs['prefill_slots']}: {graphs['prefill_slots']} admission graphs); "
+          f"runs {runs}")
     if not all(r.done and r.output for r in reqs) or min(lens) < 1:
         fail(f"{cfg.name} serve: bad completions {lens}")
-    if forwards == 0 or launches != want or stats["replays"] != forwards:
-        fail(f"{cfg.name} serve: launch counts do not match the path")
-    if m8 != (4 * L + 1) * traced or m1 != n_pre or stray:
+    if forwards == 0 or launches != want or runs != {
+            "prefill_slots": n_pre, "sample": n_pre, "decode": forwards, "forwards": forwards}:
+        fail(f"{cfg.name} serve: launch counts or program runs do not match the path")
+    if m8 != (4 * L + 1) * traced or m1 != 2 * graphs["prefill_slots"] or stray:
         fail(f"{cfg.name} serve: matmuls routed off the path's kernels: {stray}")
     if idle_share:
         def rerun():
@@ -1810,9 +1912,10 @@ def spec_b1_phase(params):
               f"(want {want})")
         if launches != want:
             fail(f"spec b1 {name}: launch counts do not match the path")
-        if eng.programs.replays != eng.verify_forwards or not (
+        ran = runs_since(eng, (collections.Counter(), 0), f"spec b1 {name}")
+        if ran != {"prefill": 1, "verify": eng.verify_forwards} or not (
                 0 <= eng.verify_forwards - stats["passes"] <= 1):
-            fail(f"spec b1 {name}: {eng.programs.replays} replays for {stats['passes']} passes")
+            fail(f"spec b1 {name}: the programs {ran} for {stats['passes']} passes")
         if len(sink) != SPEC_TOKENS or stats["passes"] >= len(sink):
             fail(f"spec b1 {name}: {len(sink)} tokens in {stats['passes']} passes")
         if name == "no-draft":
@@ -1879,9 +1982,11 @@ def spec_b1_phase(params):
         print(f"  chat {name}: {[len(r) for r in replies]} chars, {eng.verify_forwards} verify "
               f"runs, {eng.programs.replays} replays, {chat_wall:.3f} s; launches {launches} "
               f"(want {want})")
-        if len(sinks) != len(turns) or launches != want or \
-                eng.programs.replays != eng.verify_forwards:
-            fail(f"spec chat {name}: the turns did not run the speculative path's counts")
+        ran = runs_since(eng, (collections.Counter(), 0), f"spec chat {name}")
+        if len(sinks) != len(turns) or launches != want or ran != {
+                "prefill": len(turns), "verify": eng.verify_forwards}:
+            fail(f"spec chat {name}: the turns did not run the speculative path's counts "
+                 f"({ran})")
         chats[name] = sinks
         out[f"chat_{name}_verify_runs"] = eng.verify_forwards
         if name == "no-draft":

@@ -5,25 +5,44 @@ The counterpart of ``mlc_llm_tpu/engine/engine.py``. Prefill lengths are
 padded to the same static buckets and attention reads a bucketed
 window, so the kernels see the same shapes as the reference's programs.
 
-The decode step is a step program (``engine/programs.py``), as JAX's
-jitted ``_decode_sample``: on a CUDA engine every decode step replays
-one captured CUDA graph, keyed by (batch, attention window) as JAX keys
-its program on shapes and the static ``attn_window``. The graph reads
-fixed buffers: the staged tokens and active mask, the cache's device
-lengths and page table; it runs the forward, the greedy argmax and the
-inactive rows' freeze. Sampled rows (T >= 1e-6) are drawn after the
-replay from the graph's logits with each slot's own generator. A K-step
-block is K replays fed by an in-stream copy. Prefill runs eagerly. On
-the CPU the same step function runs eagerly. The decode loop keeps the
-reference's pipelining: the next step is enqueued on the device before
-the previous step's token is read back.
+Every program the engine runs is a step program (``engine/programs.py``),
+as JAX jits every one: on a CUDA engine each run replays one captured
+CUDA graph, keyed as JAX keys its programs on shapes and static
+arguments. The keys (``top_k`` joins a key as ``("top_k", k)`` when it is
+not the default 64):
 
-The speculative verify pass (``engine/speculative.py``) is one more
-step program, keyed (batch, block width K, window) as JAX jits its
-verify program per shape and ``attn_window``: it writes K/V rows [len,
-len + K) of every slot, advances no length and returns each position's
-greedy token, read back once a pass (``verify``). The caller advances
-the host lengths by what the pass consumed.
+- ``("prefill", B, bucket, window)``: ``prefill``, a [B, bucket] block at
+  every slot (JAX's ``_prefill``); the chat session, the CLI and
+  speculation run it;
+- ``("prefill_slots", G, bucket, window)``: admission, a [G, bucket]
+  block into G target slots given as a device tensor. G = 1 is
+  ``_prefill_slot`` (slot or paged, fresh or append, a chunk, a prefix
+  adoption's suffix); G = 2, 4, ... is ``_prefill_slots`` (fresh, slot
+  layout), JAX's ``_prefill_slot``, ``_prefill_slot_paged`` and
+  ``_prefill_slots``;
+- ``("sample", G)``: the first-token sampler over a prefill's [G, V]
+  logits (JAX's ``_sample_perslot``);
+- ``("decode", B, window)``: one decode step, its forward, the in-graph
+  draw of every row and the inactive rows' freeze (``_decode_sample``);
+- ``("decode_k", B, K, window)``: K decode steps in one graph, the draws
+  at steps + i (``_decode_sample_k``);
+- ``("verify", B, K, window)``: the speculative verify pass
+  (``engine/speculative.py``): K/V rows [len, len + K) of every slot,
+  no length advanced, each position's greedy token.
+
+A program reads fixed buffers that the engine fills from pinned host
+memory before each run (tokens, target slots, starts, seq_lens, the
+active mask, seeds, steps, temperatures and top-p; the cache's device
+lengths and page table) and reads no host value, so a graph holds it.
+The host lengths ``cache.lengths`` stay the source of truth: the engine
+advances them after each run. Draws are keyed by (seed, step)
+(``ops/sampling.py``), so the streams are the same whether a step runs
+alone, inside a K-step block, replayed or eager. Outputs are copied out
+before the next run (the shared pool's rule). On the CPU the same
+functions run eagerly. ``precompile`` captures every program JAX's
+``precompile`` compiles. The decode loop keeps the reference's
+pipelining: the next step is enqueued on the device before the previous
+step's token is read back.
 
 KV layouts: ``"slot"`` (slot-contiguous [B, Smax] per slot), ``"paged"``
 (one shared page pool + per-slot page tables, ``models/paged_cache.py``)
@@ -35,9 +54,8 @@ decode kernel dequantizes inside its dots).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -45,19 +63,20 @@ import torch
 from ..models.config import ModelConfig
 from ..models.paged_cache import PageAllocator, PrefixCache, init_paged_kv_cache
 from ..models.transformer import (
-    forward,
+    forward_block,
     forward_decode,
     forward_verify,
     init_kv_cache,
     tree_map,
 )
 from ..ops import resolve_device, synchronize
-from ..ops.sampling import sample_rows, sample_token_perslot
+from ..ops.sampling import counter_uniform, sample_token_perslot
 from ..quant.groupwise import QuantizedTensor, pad_quantized_groups
 from .programs import StepPrograms
 from .stats import RuntimeStats
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+DEFAULT_TOP_K = 64
 
 
 @dataclasses.dataclass
@@ -70,7 +89,16 @@ class GenerationConfig:
     stop_tokens: Sequence[int] = ()
     seed: Optional[int] = None
     # nucleus-prefilter width; 0 = exact full-vocab top-p
-    top_k: int = 64
+    top_k: int = DEFAULT_TOP_K
+
+
+def _with_top_k(key: tuple, top_k: int) -> tuple:
+    return key if top_k == DEFAULT_TOP_K else key + (("top_k", top_k),)
+
+
+def _rows(x, n: int, dtype) -> np.ndarray:
+    """A host scalar or [n] vector as an [n] array of dtype."""
+    return np.broadcast_to(np.asarray(x, dtype), (n,))
 
 
 class InferenceEngine:
@@ -122,18 +150,26 @@ class InferenceEngine:
         if not self.buckets or self.buckets[-1] < self.max_seq_len:
             self.buckets = tuple(sorted({*self.buckets, self.max_seq_len}))
         self.stats = RuntimeStats()
-        # decode steps run (every run of the decode program, a graph
-        # replay on the card): each launches the paged decode kernel once
-        # per layer
+        # forwards run by the decode programs (a K-step block counts K):
+        # each launches the paged decode kernel once per layer; and by the
+        # prefill programs
         self.decode_forwards = 0
-        self.programs = StepPrograms(self.device)
-        # the decode program's fixed input buffers
-        self._step_tokens = torch.zeros((max_batch, 1), dtype=torch.int64, device=self.device)
-        self._step_active = torch.zeros((max_batch,), dtype=torch.int64, device=self.device)
-        # the verify program's fixed token buffers [B, K], by K; and its
-        # runs (each a graph replay on the card)
-        self._verify_tokens = {}
+        self.prefill_forwards = 0
         self.verify_forwards = 0
+        self.programs = StepPrograms(self.device)
+        # the programs' fixed input buffers: the decode step's tokens [B,
+        # 1], its [active, seed, step] rows and [temperature, top_p] rows;
+        # the prefill blocks' tokens by (G, bucket) and [slot, start,
+        # seq_len] rows by G; the sampler's logits, [seed, step] and
+        # [temperature, top_p] by G; the verify pass's tokens by K
+        B = max_batch
+        self._step_tokens = self._zeros((B, 1), torch.int64)
+        self._step_ints = self._zeros((3, B), torch.int64)
+        self._step_floats = self._zeros((2, B), torch.float32)
+        self._block_tokens = {}
+        self._block_ints = {}
+        self._sample_in = {}
+        self._verify_tokens = {}
         self.kv_layout = kv_layout
         self.page_size = page_size
         self.allocator = None
@@ -158,24 +194,69 @@ class InferenceEngine:
             self.cache = init_kv_cache(cfg, max_batch, self.max_seq_len, cache_dtype,
                                        device=self.device)
 
-    def precompile(self, *, progress: Optional[Callable[[str], None]] = None) -> int:
-        """Capture the decode program of every attention-window bucket at
-        max_batch, {decode_window(b) for b in buckets} and max_seq_len
-        (the JAX engine's decode windows), ahead of serving: one CUDA
-        graph each, after an eager warm-up step that advances no length.
-        Reports each through `progress` and returns the number captured.
-        A CPU engine captures nothing and returns 0. Prefill stays eager;
-        the kernels are built at first use."""
+    def _zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _upload(self, dst: torch.Tensor, rows) -> None:
+        """Fill the fixed buffer dst with host values (dst's shape) by a
+        copy from pinned memory that does not block."""
+        host = torch.as_tensor(np.ascontiguousarray(rows), dtype=dst.dtype).reshape(dst.shape)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        dst.copy_(host, non_blocking=True)
+
+    # ------------------------------------------------------------ precompile
+    def precompile_keys(self, multi_step: Union[int, Sequence[int], None] = None) -> List[tuple]:
+        """The programs ``precompile`` captures, in its order: JAX's
+        ``precompile`` program for program, at the default top_k. Per
+        bucket b at window decode_window(b): the batch prefill, the
+        single-slot admission and (slot layout) the grouped admissions;
+        the first-token sampler of each G the engine's paths use (1 for
+        an admission, the grouped G, max_batch for generate); per decode
+        window, the decode step and (multi_step: an int K or a sequence)
+        every K-step block."""
+        B = self.max_batch
+        # grouped admission (slot layout): the powers of two from 2 to B, as
+        # the scheduler rounds a group
+        groups = [] if self.kv_layout != "slot" else [
+            1 << i for i in range(1, B.bit_length())]
+        keys = []
+        for b in self.buckets:
+            w = self.decode_window(b)
+            keys += [("prefill", B, b, w), ("prefill_slots", 1, b, w)]
+            keys += [("prefill_slots", g, b, w) for g in groups]
+        keys += [("sample", g) for g in sorted({1, B, *groups})]
+        ks = (multi_step,) if isinstance(multi_step, int) else tuple(multi_step or ())
+        for w in sorted({self.decode_window(b) for b in self.buckets} | {self.max_seq_len}):
+            keys.append(("decode", B, w))
+            keys += [("decode_k", B, k, w) for k in ks]
+        return keys
+
+    def precompile(self, *, progress: Optional[Callable[[str], None]] = None,
+                   multi_step: Union[int, Sequence[int], None] = None) -> int:
+        """Capture every program of ``precompile_keys(multi_step)`` ahead
+        of serving, one CUDA graph each after its eager warm-up, so that
+        no request pays a capture mid-stream. Reports each key through
+        `progress` and returns the number captured. A CPU engine captures
+        nothing and returns 0. The warm-ups leave the state as they found
+        it: every block runs with seq_lens 0 from each slot's length and
+        every decode step with all slots inactive, so their junk K/V lies
+        at or past every valid length."""
         if self.device.type != "cuda":
             return 0
-        windows = sorted({self.decode_window(b) for b in self.buckets} | {self.max_seq_len})
-        # the warm-up writes its junk K/V at each slot's current length
-        self.cache.lengths_dev.copy_(self.cache.lengths)
-        for w in windows:
+        keys = self.precompile_keys(multi_step)
+        lengths = self.cache.lengths.numpy()
+        self._upload(self.cache.lengths_dev, lengths)
+        for key in keys:
+            if key[0].startswith("prefill"):
+                G = key[1]
+                self._block_buffers(G, key[2])
+                self._upload(self._block_ints[G],
+                             np.stack([np.arange(G), lengths[:G], np.zeros(G, np.int64)]))
             if progress is not None:
-                progress(f"decode window {w} (batch {self.max_batch})")
-            self.programs.capture(*self._decode_program_args(w))
-        return len(windows)
+                progress(" ".join(str(x) for x in key))
+            self.programs.capture(*self._program(key))
+        return len(keys)
 
     def decode_window(self, max_len_next: int) -> int:
         """Static attention-window bucket covering max_len_next."""
@@ -200,9 +281,6 @@ class InferenceEngine:
                 self.free_slot_pages(s, push=False)
             if freed:
                 self._push_table()
-
-    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(toks, np.int64)).to(self.device)
 
     # ----------------------------------------------------- paged-KV plumbing
     def pages_needed(self, slot: int, total_tokens: int) -> int:
@@ -259,7 +337,8 @@ class InferenceEngine:
         reset=False appends to the existing KV state (multi-turn chat).
         reserve_tokens: paged mode allocates pages for prompt +
         reserve_tokens up front (generate_stream passes max_new_tokens).
-        Returns last-token logits [B, V] f32 on the device."""
+        One run of the ("prefill", B, bucket, window) program. Returns
+        last-token logits [B, V] f32 on the device (a copy)."""
         B = self.max_batch
         if len(prompts) > B:
             raise ValueError(f"{len(prompts)} prompts for max_batch {B}")
@@ -290,9 +369,8 @@ class InferenceEngine:
             start_max = int(lens_host[: len(prompts)].max())
             window = self.decode_window(min(start_max + bucket, self.max_seq_len))
         t0 = time.perf_counter()
-        logits, self.cache = forward(
-            self.params, self.cfg, self._tokens(toks), self.cache,
-            seq_lens=torch.from_numpy(seq_lens), attn_window=window)
+        logits = self._run_block("prefill", toks, np.arange(B), lens_host, seq_lens, window)
+        self.cache.lengths += torch.from_numpy(seq_lens)
         synchronize(self.device)
         self.stats.prefill_time += time.perf_counter() - t0
         self.stats.prefill_tokens += int(sum(lens))
@@ -307,14 +385,15 @@ class InferenceEngine:
         n = len(prompts)
         logits = self.prefill(prompts, reset=reset, reserve_tokens=gen.max_new_tokens)
 
-        # one generator per slot, seeded from gen.seed: a request's draws
-        # depend only on its own seed and draw count
+        # per-slot uint32 seeds from gen.seed: slot b's draw at step s is a
+        # function of (seeds[b], s) alone, JAX's fold_in(PRNGKey(seed), s)
         base = gen.seed if gen.seed is not None else np.random.randint(0, 2**31 - 1)
-        seeds = np.random.SeedSequence(base).generate_state(B)
-        gens = [torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds]
+        seeds = np.random.SeedSequence(base).generate_state(B).astype(np.int64)
+        steps = np.zeros((B,), np.int64)
         temps = np.zeros((B,), np.float32)
         temps[:n] = gen.temperature
-        first = sample_token_perslot(logits, gens, temps, gen.top_p, gen.top_k)
+        first = self.sample(logits, seeds, steps, temps, gen.top_p, gen.top_k)
+        steps[:] = 1
 
         stop = set(gen.stop_tokens) | set(self.cfg.stop_tokens)
         emitted = [0] * n
@@ -323,7 +402,7 @@ class InferenceEngine:
         cur = first
         pending = [first]
         t0 = time.perf_counter()
-        steps = 0
+        n_steps = 0
         max_steps = min(gen.max_new_tokens, int(self.max_seq_len - cur_lens[:n].max()))
 
         def drain_one():
@@ -346,12 +425,13 @@ class InferenceEngine:
         try:
             for _ in range(max_steps - 1):
                 max_len_host += 1
-                nxt = self._decode_sample(cur[:, None], active, gens, temps, gen.top_p,
+                nxt = self._decode_sample(cur[:, None], active, seeds, steps, temps, gen.top_p,
                                           attn_window=self.decode_window(max_len_host + 1),
                                           top_k=gen.top_k)
+                steps[active] += 1
                 pending.append(nxt)
                 cur = nxt
-                steps += 1
+                n_steps += 1
                 yield from drain_one()
                 if done.all():
                     break
@@ -361,7 +441,7 @@ class InferenceEngine:
         finally:
             synchronize(self.device)
             self.stats.decode_time += time.perf_counter() - t0
-            self.stats.decode_tokens += steps * int(n)
+            self.stats.decode_tokens += n_steps * int(n)
 
     def generate(self, prompts: List[List[int]], gen: GenerationConfig = GenerationConfig(),
                  on_token: Optional[Callable[[int, int], None]] = None,
@@ -375,167 +455,228 @@ class InferenceEngine:
                 on_token(slot, tok)
         return out
 
-    # ------------------------------------------------------ scheduler hooks
-    def _stage_decode(self, tokens, active: np.ndarray) -> None:
-        """Fill the decode program's inputs: tokens [B, 1] (a device copy,
-        in stream order), the active mask and the host lengths (copies
-        from pinned host memory that do not block)."""
-        self._step_tokens.copy_(tokens)
-        host = torch.empty((2, self.max_batch), dtype=torch.int64,
-                           pin_memory=self.device.type == "cuda")
-        host[0] = torch.from_numpy(active.astype(np.int64))
-        host[1] = self.cache.lengths
-        self._step_active.copy_(host[0], non_blocking=True)
-        self.cache.lengths_dev.copy_(host[1], non_blocking=True)
+    # ------------------------------------------------------------ programs
+    def _program(self, key: tuple):
+        """(key, program, warm-up) of a program key (the module doc's
+        list). A program reads its fixed buffers and returns a tuple; its
+        warm-up runs it so that it advances nothing and leaves its junk
+        K/V at or past every valid length (a block with seq_lens 0, a
+        decode step with every slot inactive; a verify pass and the
+        sampler are their own warm-up)."""
+        kind = key[0]
+        top_k = key[-1][1] if isinstance(key[-1], tuple) else DEFAULT_TOP_K
+        if kind in ("prefill", "prefill_slots"):
+            _, G, S, window = key
+            toks, ints = self._block_buffers(G, S)
+            slots = None if kind == "prefill" else ints[0]
 
-    def _decode_program(self, attn_window: int):
-        """The decode step on the fixed buffers, what one graph holds:
-        the forward, then the argmax of every row, inactive rows keeping
-        their token. Reads no host value; advances the device lengths of
-        the active slots. Returns (logits [B, V] f32, next tokens [B])."""
-        active = self._step_active
-        logits = forward_decode(self.params, self.cfg, self._step_tokens, self.cache, active,
-                                attn_window=attn_window)
-        nxt = torch.where(active.bool(), torch.argmax(logits, dim=-1), self._step_tokens[:, 0])
-        return logits, nxt
+            def fn():
+                return (forward_block(self.params, self.cfg, toks, self.cache, slots, ints[1],
+                                      ints[2], attn_window=window),)
 
-    def _decode_program_args(self, attn_window: int):
-        """(key, program, warm-up) of the decode program of attn_window.
-        The warm-up runs it with every slot inactive: no length advances
-        and each slot's junk K/V lands at its length, as an inactive row's
-        does at every step."""
-        fn = functools.partial(self._decode_program, attn_window)
+            def warm_up():
+                staged = ints[2].clone()
+                ints[2].zero_()
+                fn()
+                ints[2].copy_(staged)
+
+            return key, fn, warm_up
+        if kind == "sample":
+            logits, ints, floats = self._sample_buffers(key[1])
+
+            def fn():
+                return (sample_token_perslot(logits, ints[0], ints[1], floats[0], floats[1],
+                                             top_k),)
+
+            return key, fn, fn
+        if kind == "verify":
+            _, B, K, window = key
+            toks = self._verify_buffer(K)
+
+            def fn():
+                logits = forward_verify(self.params, self.cfg, toks, self.cache,
+                                        attn_window=window)
+                return logits, torch.argmax(logits, dim=-1)
+
+            return key, fn, fn
+        if kind == "decode":
+            K, window = 1, key[2]
+        elif kind == "decode_k":
+            K, window = key[2], key[3]
+        else:
+            raise ValueError(f"unknown program key {key!r}")
+        fn = self._decode_fn(K, window, top_k, kind == "decode")
 
         def warm_up():
-            staged = self._step_active.clone()
-            self._step_active.zero_()
+            staged = self._step_ints[0].clone()
+            self._step_ints[0].zero_()
             fn()
-            self._step_active.copy_(staged)
+            self._step_ints[0].copy_(staged)
 
-        return ("decode", self.max_batch, attn_window), fn, warm_up
+        return key, fn, warm_up
 
-    def _decode_step(self, active: np.ndarray, generators, temperature, top_p, top_k: int,
-                     attn_window: int):
-        """Run the decode program on the staged inputs and draw the
-        sampled rows: returns [B] next tokens in a fresh tensor (the
-        graph's outputs are overwritten by its next replay)."""
-        logits, nxt = self.programs.run(*self._decode_program_args(attn_window))
+    def _decode_fn(self, K: int, window: int, top_k: int, single: bool):
+        """K decode steps on the fixed buffers, what one graph holds: the
+        K draws' uniforms at (seed, step + i), computed at once; per step
+        the forward, the draw of every row and the inactive rows keeping
+        their token; each step's tokens feed the next. Reads no host
+        value; advances the device lengths of the active slots by K.
+        Returns (logits [B, V] f32, tokens [B]) for a single step, ([K, B]
+        tokens,) for a block."""
+        active, seeds, steps = self._step_ints
+        temps, top_p = self._step_floats
+
+        def fn():
+            # the block's K draws' uniforms at once, at (seed, step + i)
+            u = counter_uniform(seeds.expand(K, -1), steps + torch.arange(
+                K, device=steps.device)[:, None])
+            tok, out = self._step_tokens, []
+            for i in range(K):
+                logits = forward_decode(self.params, self.cfg, tok, self.cache, active,
+                                        attn_window=window)
+                drawn = sample_token_perslot(logits, seeds, steps, temps, top_p, top_k,
+                                             uniform=u[i])
+                out.append(torch.where(active.bool(), drawn, tok[:, 0]))
+                tok = out[-1][:, None]
+            return (logits, out[0]) if single else (torch.stack(out),)
+
+        return fn
+
+    def _block_buffers(self, G: int, S: int):
+        if (G, S) not in self._block_tokens:
+            self._block_tokens[(G, S)] = self._zeros((G, S), torch.int64)
+        if G not in self._block_ints:
+            self._block_ints[G] = self._zeros((3, G), torch.int64)
+        return self._block_tokens[(G, S)], self._block_ints[G]
+
+    def _sample_buffers(self, G: int):
+        if G not in self._sample_in:
+            self._sample_in[G] = (self._zeros((G, self.cfg.vocab_size), torch.float32),
+                                  self._zeros((2, G), torch.int64),
+                                  self._zeros((2, G), torch.float32))
+        return self._sample_in[G]
+
+    def _verify_buffer(self, K: int):
+        if K not in self._verify_tokens:
+            self._verify_tokens[K] = self._zeros((self.max_batch, K), torch.int64)
+        return self._verify_tokens[K]
+
+    def _run_block(self, kind: str, tokens: np.ndarray, slots, starts, seq_lens,
+                   window: Optional[int]) -> torch.Tensor:
+        """Stage a [G, S] block (host tokens, target slots, starts,
+        seq_lens) and run its prefill program; returns a copy of its
+        logits [G, V]. The host lengths are the caller's to advance."""
+        G, S = tokens.shape
+        window = window or self.max_seq_len
+        toks, ints = self._block_buffers(G, S)
+        self._upload(toks, np.asarray(tokens, np.int64))
+        self._upload(ints, np.stack([_rows(slots, G, np.int64), _rows(starts, G, np.int64),
+                                     _rows(seq_lens, G, np.int64)]))
+        (logits,) = self.programs.run(*self._program((kind, G, S, window)))
+        self.prefill_forwards += 1
+        return logits.clone()
+
+    def sample(self, logits: torch.Tensor, seeds, steps, temperature, top_p,
+               top_k: int = DEFAULT_TOP_K) -> torch.Tensor:
+        """Draw one token per row of logits [G, V] (a prefill's) with the
+        ("sample", G) program: row g at (seeds[g], steps[g]) under its
+        temperature and top-p (host scalars or [G]); T < 1e-6 is argmax.
+        Returns [G] tokens on the device (a copy); nothing is read back."""
+        G = logits.shape[0]
+        buf, ints, floats = self._sample_buffers(G)
+        buf.copy_(logits)
+        self._upload(ints, np.stack([_rows(seeds, G, np.int64), _rows(steps, G, np.int64)]))
+        self._upload(floats, np.stack([_rows(temperature, G, np.float32),
+                                       _rows(top_p, G, np.float32)]))
+        (tok,) = self.programs.run(*self._program(_with_top_k(("sample", G), top_k)))
+        return tok.clone()
+
+    # ------------------------------------------------------ scheduler hooks
+    def _stage_decode(self, tokens, active: np.ndarray, seeds, steps, temperature,
+                      top_p) -> None:
+        """Fill the decode programs' inputs: tokens [B, 1] (a device copy,
+        in stream order), then the active mask, seeds, steps,
+        temperatures (0 on inactive rows), top-p and the host lengths
+        (copies from pinned host memory that do not block)."""
+        B = self.max_batch
+        self._step_tokens.copy_(tokens)
+        self._upload(self._step_ints, np.stack([active.astype(np.int64),
+                                                _rows(seeds, B, np.int64),
+                                                _rows(steps, B, np.int64)]))
+        self._upload(self._step_floats,
+                     np.stack([np.where(active, _rows(temperature, B, np.float32), 0.0),
+                               _rows(top_p, B, np.float32)]))
+        self._upload(self.cache.lengths_dev, self.cache.lengths.numpy())
+
+    def _decode_sample(self, tokens, active: np.ndarray, seeds, steps, temperature, top_p, *,
+                       attn_window: int, top_k: int = DEFAULT_TOP_K):
+        """One masked decode step with its draw, the ("decode", B,
+        window) program. tokens [B, 1] on the device; active [B] host
+        bools: inactive slots do not advance their length and keep their
+        token. seeds, steps: [B] host ints, slot b drawing at (seeds[b],
+        steps[b]); temperature, top_p: host scalars or [B]. Returns [B]
+        next tokens on the device, a copy; nothing is read back."""
+        self._stage_decode(tokens, active, seeds, steps, temperature, top_p)
+        key = _with_top_k(("decode", self.max_batch, attn_window), top_k)
+        _, nxt = self.programs.run(*self._program(key))
         self.decode_forwards += 1
-        out = nxt.clone()
-        temps = np.where(active, np.broadcast_to(temperature, active.shape), 0.0)
-        sample_rows(out, logits, generators, temps, top_p, top_k)
-        return out
-
-    def _decode_sample(self, tokens, active: np.ndarray, generators, temperature, top_p, *,
-                       attn_window: int, top_k: int = 64):
-        """One masked decode step + on-device sampling. tokens [B, 1] on
-        the device; active [B] host bools: inactive slots do not advance
-        their length and keep their token. temperature/top_p: host
-        scalars or [B]; inactive rows are argmax and draw nothing.
-        Returns [B] next tokens on the device, a fresh tensor; nothing is
-        read back."""
-        self._stage_decode(tokens, active)
-        out = self._decode_step(active, generators, temperature, top_p, top_k, attn_window)
         self.cache.lengths += torch.from_numpy(active.astype(np.int64))
-        return out
+        return nxt.clone()
 
-    def _decode_sample_k(self, tokens, active: np.ndarray, generators, temperature, top_p, *,
-                         attn_window: int, top_k: int = 64, k_steps: int = 4):
-        """k_steps decode steps in one block: K runs of the decode
-        program, each step's tokens fed to the next by an in-stream copy,
-        with no host readback inside; returns [K, B] tokens. Each
-        request's generator draws in the same order as K single steps,
-        so streams are identical. Stop detection happens at drain time:
-        rows past a stop are discarded by the host, and their junk KV
-        sits past the slot's valid length."""
-        self._stage_decode(tokens, active)
-        out = []
-        for i in range(k_steps):
-            if i:
-                self._step_tokens.copy_(out[-1][:, None])
-            out.append(self._decode_step(active, generators, temperature, top_p, top_k,
-                                         attn_window))
+    def _decode_sample_k(self, tokens, active: np.ndarray, seeds, steps, temperature, top_p, *,
+                         attn_window: int, top_k: int = DEFAULT_TOP_K, k_steps: int = 4):
+        """k_steps decode steps in one graph, the ("decode_k", B, K,
+        window) program, step i drawing at steps + i: the same tokens as
+        K single steps, with no host readback inside; returns [K, B]
+        tokens (a copy). Stop detection happens at drain time: rows past
+        a stop are discarded by the host, and their junk KV sits past the
+        slot's valid length."""
+        self._stage_decode(tokens, active, seeds, steps, temperature, top_p)
+        key = _with_top_k(("decode_k", self.max_batch, k_steps, attn_window), top_k)
+        (out,) = self.programs.run(*self._program(key))
+        self.decode_forwards += k_steps
         self.cache.lengths += k_steps * torch.from_numpy(active.astype(np.int64))
-        return torch.stack(out)
-
-    # ------------------------------------------------------ verify program
-    def _stage_verify(self, tokens: np.ndarray) -> None:
-        """Fill the verify program's inputs: the tokens [B, K] and the
-        host lengths, copies from pinned host memory that do not block."""
-        B, K = tokens.shape
-        buf = self._verify_tokens.get(K)
-        if buf is None:
-            buf = self._verify_tokens[K] = torch.zeros((B, K), dtype=torch.int64,
-                                                       device=self.device)
-        host = torch.empty((B * K + B,), dtype=torch.int64,
-                           pin_memory=self.device.type == "cuda")
-        host[:B * K] = torch.from_numpy(np.asarray(tokens, np.int64).reshape(-1))
-        host[B * K:] = self.cache.lengths
-        buf.copy_(host[:B * K].view(B, K), non_blocking=True)
-        self.cache.lengths_dev.copy_(host[B * K:], non_blocking=True)
-
-    def _verify_program(self, K: int, attn_window: int):
-        """The verify pass on the fixed buffers, what one graph holds:
-        the forward over the staged [B, K] block at the device lengths
-        (no length advances), then each position's argmax. Returns
-        (logits [B, K, V] f32, tokens [B, K])."""
-        logits = forward_verify(self.params, self.cfg, self._verify_tokens[K], self.cache,
-                                attn_window=attn_window)
-        return logits, torch.argmax(logits, dim=-1)
-
-    def _verify_program_args(self, K: int, attn_window: int):
-        """(key, program, warm-up) of the verify program. The warm-up is
-        the pass itself: its K/V rows [len, len + K) lie past every
-        slot's length, and the pass rewrites them."""
-        fn = functools.partial(self._verify_program, K, attn_window)
-        return ("verify", self.max_batch, K, attn_window), fn, fn
+        return out.clone()
 
     def verify(self, tokens: np.ndarray, attn_window: int) -> np.ndarray:
         """One verify pass over tokens [B, K] (host ints) appended at each
-        slot's length: writes their K/V, advances no length, and returns
-        the greedy token of every position [B, K], read back once (the
-        pass's one synchronous readback). Slot KV only."""
+        slot's length, the ("verify", B, K, window) program: writes their
+        K/V, advances no length, and returns the greedy token of every
+        position [B, K], read back once (the pass's one synchronous
+        readback). Slot KV only."""
         if self.kv_layout != "slot":
             raise ValueError("the speculative verify pass needs kv_layout='slot'")
-        self._stage_verify(tokens)
-        _, got = self.programs.run(*self._verify_program_args(tokens.shape[1], attn_window))
+        B, K = tokens.shape
+        self._upload(self._verify_buffer(K), np.asarray(tokens, np.int64))
+        self._upload(self.cache.lengths_dev, self.cache.lengths.numpy())
+        _, got = self.programs.run(*self._program(("verify", B, K, attn_window)))
         self.verify_forwards += 1
         return got.cpu().numpy()
 
     def _prefill_slot(self, tokens: np.ndarray, seq_len: int, slot: int, append: bool = False,
                       attn_window: Optional[int] = None):
         """Prefill ONE slot (tokens [1, S]) without touching the other
-        slots' KV state: continuous-batching admission. append starts
-        from the slot's existing length instead of 0. The slot layout
-        runs the forward on views of the slot's cache rows, the paged
-        layout on the slot's page-table row over the shared pools, so
-        the writes land in place and nothing is spliced back."""
+        slots' KV state: continuous-batching admission, the
+        ("prefill_slots", 1, S, window) program with the slot and its
+        start staged on the device. append starts from the slot's
+        existing length instead of 0 (a session turn, a later chunk, an
+        adopted prefix). The slot layout writes the slot's cache rows, the
+        paged layout the slot's pages through its page-table row."""
         start = int(self.cache.lengths[slot]) if append else 0
-        sub = self.cache.slot_view(slot, start)
-        logits, sub = forward(self.params, self.cfg, self._tokens(tokens), sub,
-                              seq_lens=[seq_len], attn_window=attn_window)
-        self.cache.lengths[slot] = sub.lengths[0]
+        logits = self._run_block("prefill_slots", tokens, slot, start, seq_len, attn_window)
+        self.cache.lengths[slot] = start + int(seq_len)
         return logits
 
     def _prefill_slots(self, tokens: np.ndarray, seq_lens: np.ndarray, slots: Sequence[int],
                        attn_window: Optional[int] = None):
         """Prefill G fresh slots in one forward (tokens [G, S]; slot
         layout only, every row starts at position 0): one weight read
-        for all G admissions. The rows' KV goes to a bucket-sized scratch
-        cache, then into each slot's rows."""
+        for all G admissions, the ("prefill_slots", G, S, window)
+        program writing each row straight into its slot's rows."""
         if self.kv_layout != "slot":
             raise ValueError("grouped admission prefill is slot-layout only")
-        G, S = tokens.shape
-        sub = init_kv_cache(self.cfg, G, S, self.cache_dtype, device=self.device)
-        logits, sub = forward(self.params, self.cfg, self._tokens(tokens), sub,
-                              seq_lens=torch.as_tensor(seq_lens, dtype=torch.int64),
-                              attn_window=attn_window)
-        c = self.cache
-        for g, slot in enumerate(slots):
-            c.k[:, slot, :, :S] = sub.k[:, g]
-            c.v[:, slot, :, :, :S] = sub.v[:, g]
-            if c.k_scale is not None:
-                c.k_scale[:, slot, :, :S] = sub.k_scale[:, g]
-                c.v_scale[:, slot, :, :S] = sub.v_scale[:, g]
-            c.lengths[slot] = int(seq_lens[g])
+        seq_lens = np.asarray(seq_lens, np.int64)
+        logits = self._run_block("prefill_slots", tokens, np.asarray(slots, np.int64), 0,
+                                 seq_lens, attn_window)
+        self.cache.lengths[list(slots)] = torch.from_numpy(seq_lens)
         return logits

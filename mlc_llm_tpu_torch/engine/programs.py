@@ -1,26 +1,36 @@
 """Step programs: one captured CUDA graph per program key.
 
-The counterpart of the JAX engine's jitted step programs
-(``mlc_llm_tpu/engine/engine.py`` ``_decode_sample``, ``_decode_sample_k``
-and ``precompile``): JAX compiles one device program per shape and
-static argument; the port captures one CUDA graph per key (the engine's
-decode step: batch and attention window) and replays it, so a step costs
-one graph launch on the host instead of one launch per kernel.
+The counterpart of the JAX engine's jitted programs
+(``mlc_llm_tpu/engine/engine.py``: ``_prefill``, ``_prefill_slot``,
+``_prefill_slots``, ``_sample_perslot``, ``_decode_sample``,
+``_decode_sample_k`` and ``precompile``): JAX compiles one device
+program per shape and static argument; the port captures one CUDA graph
+per key (the engine's programs: kind, batch or group, bucket, window,
+block width) and replays it, so a prefill, a decode step or a K-step
+block costs one graph launch on the host instead of one launch per
+kernel.
 
 A program is a function of fixed buffers: it reads its inputs from
 tensors that the caller fills before each run, writes the state it
-changes in place (the KV cache, the device lengths) and returns its
-outputs. On a CUDA device, the first run of a key (or ``capture``) runs
-a warm-up step eagerly on the capture stream, which makes the kernels'
-first-use host calls (``cudaFuncSetAttribute``, the streaming GEMVs'
-occupancy query) and the capture stream's zeroed ticket buffer
-(``ops.zeroed_tickets``); then it captures the function into a graph
-whose workspaces and outputs come from one memory pool that all the
-engine's graphs share (they replay one at a time, on one stream). Every
-run replays the graph and returns the graph's static outputs, which the
-next replay overwrites: the caller copies what it keeps. A capture or a
-replay that fails raises; nothing runs eagerly instead. On the CPU the
-function runs eagerly at every run.
+changes in place (the KV cache, the device lengths) and returns a tuple
+of outputs. On a CUDA device, the first run of a key (or ``capture``)
+runs a warm-up step eagerly on the capture stream, which makes the
+kernels' first-use host calls (``cudaFuncSetAttribute``, the streaming
+GEMVs' occupancy query) and the capture stream's zeroed ticket buffer
+(``ops.zeroed_tickets``); then it captures the function into a graph.
+Every run replays the graph and returns the graph's static outputs. A
+capture or a replay that fails raises; nothing runs eagerly instead. On
+the CPU the function runs eagerly at every run.
+
+The shared pool. All of an engine's graphs take their workspaces and
+outputs from one memory pool (they replay one at a time, on one
+stream), and a capture may be handed memory that another graph freed as
+scratch. So a replay of ANY program may overwrite another program's
+static outputs, not only a replay of the same one. The rule: copy out
+every output you keep before the next run of any program (the engine
+returns clones; a program that reads another's result, as the
+first-token sampler reads a prefill's logits, takes a copy into its own
+fixed input buffer).
 
 Launch counters stay exact: a graph's launches per kernel wrapper are
 recorded at capture and added at each replay; the warm-up's and the
@@ -28,12 +38,17 @@ capture's own are taken back out.
 
 Capture runs with ``capture_error_mode="thread_local"``: a CUDA call of
 another thread (the server's network thread) cannot break it, so graphs
-may be captured lazily while a server runs.
+may be captured lazily while a server runs. Python's garbage collector is
+off during a capture (``torch.cuda.graph`` collects once before it
+begins): a graph of another engine destroyed by a collection inside the
+capture would end it in ``cudaErrorStreamCaptureInvalidated``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, Set
 
@@ -56,7 +71,8 @@ class StepPrograms:
     def __init__(self, device: torch.device):
         self.device = device
         self.keys: Set[Hashable] = set()  # every key asked for, on any device
-        self.replays = 0
+        self.runs = collections.Counter()  # runs by key, on any device
+        self.replays = 0  # graph replays (CUDA): every run there
         self._programs: Dict[Hashable, _Program] = {}
         self._pool = None
         self._stream = None
@@ -68,6 +84,13 @@ class StepPrograms:
 
     def capture_seconds(self) -> Dict[Hashable, float]:
         return {k: p.seconds for k, p in self._programs.items()}
+
+    def runs_by_kind(self) -> Dict[str, int]:
+        """Runs by program kind (the key's first field)."""
+        out = collections.Counter()
+        for key, n in self.runs.items():
+            out[key[0]] += n
+        return dict(out)
 
     def pool_bytes(self) -> int:
         """Bytes the shared graph pool holds on the device (its segments
@@ -83,6 +106,7 @@ class StepPrograms:
         (after warm_up(), which must leave the state as it found it), then
         replay; returns the static outputs. CPU: returns fn()."""
         self.keys.add(key)
+        self.runs[key] += 1
         if self.device.type != "cuda":
             return fn()
         prog = self._programs.get(key) or self.capture(key, fn, warm_up)
@@ -113,9 +137,15 @@ class StepPrograms:
             current.wait_stream(self._stream)
             warmed = [w.launches for w in wrappers]
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                outputs = fn()
+            collecting = gc.isenabled()
+            gc.disable()  # torch.cuda.graph collects once before it begins
+            try:
+                with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    outputs = fn()
+            finally:
+                if collecting:
+                    gc.enable()
             launches = {w: w.launches - n for w, n in zip(wrappers, warmed) if w.launches != n}
         finally:
             for w, n in zip(wrappers, before):

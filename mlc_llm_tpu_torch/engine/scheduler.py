@@ -11,17 +11,20 @@ dispatch-ahead (``decode_ahead``), static and adaptive ``multi_step``
 blocks, the dispatch budget and the (slot, request-id) drain.
 
 Decode runs for ALL slots every step (inactive slots masked). Per-request
-temperature/top_p ride as [B] host vectors; each request samples from its
-own ``torch.Generator`` seeded from its seed, so its stream depends only
-on its seed and draw count. A decode result is read back without
+temperature/top_p ride as [B] host vectors; a request's draw at its n-th
+sampled token is keyed by (its seed, n), as JAX's fold_in(PRNGKey(seed),
+n) (``ops/sampling.py``), so its stream depends only on its seed, whatever
+else shares the batch and however the steps are grouped into blocks. A
+decode result is read back without
 blocking: a copy into pinned host memory is started with
 ``non_blocking=True`` and a ``torch.cuda.Event`` recorded after it; the
 result has "landed" when the event has completed (always, on the CPU).
 
-Every decode dispatch runs the engine's decode program (a CUDA graph
-replay on the card; K replays for a ``multi_step`` block) and gets a
-fresh token tensor back, so a readback in flight never sees a later
-step's tokens.
+Every admission runs one of the engine's prefill programs and its
+first-token sampler, and every decode dispatch its decode program or its
+K-step block (each a CUDA graph replay on the card), and gets a fresh
+token tensor back, so a readback in flight never sees a later step's
+tokens.
 
 Batched speculation (``speculative_k``): while every active request is
 greedy and transient, a step is one synchronous verify pass over a
@@ -41,7 +44,6 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..ops.sampling import sample_token_perslot
 from . import speculative
 from .engine import GenerationConfig, InferenceEngine
 
@@ -65,8 +67,7 @@ class Request:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     seed: int = 0  # resolved uint32 sampling seed (from gen.seed or the scheduler)
-    generator: Optional[torch.Generator] = None  # this request's draws
-    sampled: int = 0  # tokens sampled so far
+    sampled: int = 0  # tokens sampled so far (the step of the next draw)
     start_len: int = 0  # KV tokens already in the slot before this prompt
     pf_pos: int = 0  # prompt tokens already prefilled (chunked admission)
     # prefix-cache adoption: tokens known to precede req.prompt in the
@@ -175,8 +176,7 @@ class ContinuousBatchingScheduler:
                    else self._seed_rng.integers(0, 2**32, dtype=np.uint32))
         req = Request(
             id=next(self._ids), prompt=list(prompt), gen=gen, on_token=on_token,
-            pin_slot=pin_slot, append=append, submitted_at=time.perf_counter(), seed=seed,
-            generator=torch.Generator(device=self.engine.device).manual_seed(seed))
+            pin_slot=pin_slot, append=append, submitted_at=time.perf_counter(), seed=seed)
         self.pending.append(req)
         return req
 
@@ -291,10 +291,11 @@ class ContinuousBatchingScheduler:
             self._first_token[slot] = firsts[g:g + 1]
 
     def _sample_first(self, logits, reqs: List[Request], top_k: int):
-        return sample_token_perslot(
-            logits, [r.generator for r in reqs],
-            np.array([r.gen.temperature for r in reqs], np.float32),
-            np.array([r.gen.top_p for r in reqs], np.float32), top_k)
+        """Each request's first token, its draw at step 0, through the
+        engine's ("sample", G) program."""
+        return self.engine.sample(
+            logits, [r.seed for r in reqs], 0, [r.gen.temperature for r in reqs],
+            [r.gen.top_p for r in reqs], top_k)
 
     def _admit(self) -> None:
         self._admit_group()
@@ -545,14 +546,16 @@ class ContinuousBatchingScheduler:
         active = np.zeros((B,), bool)
         temp = np.zeros((B,), np.float32)
         topp = np.ones((B,), np.float32)
-        gens: List[Optional[torch.Generator]] = [None] * B
+        seeds = np.zeros((B,), np.int64)
+        steps = np.zeros((B,), np.int64)
         owners = []
         top_k = 64
         for slot, req in self.active.items():
             active[slot] = True
             temp[slot] = req.gen.temperature
             topp[slot] = req.gen.top_p
-            gens[slot] = req.generator
+            seeds[slot] = req.seed
+            steps[slot] = req.sampled
             req.sampled += k_steps or 1
             owners.append((slot, req.id))
             # exact sampling (top_k=0) wins; else the widest prefilter
@@ -560,12 +563,12 @@ class ContinuousBatchingScheduler:
         max_len = max((r.start_len + len(r.prompt) + len(r.output) + 2
                        for r in self.active.values()), default=2)
         if k_steps:
-            nxt = eng._decode_sample_k(self._cur_tokens, active, gens, temp, topp,
+            nxt = eng._decode_sample_k(self._cur_tokens, active, seeds, steps, temp, topp,
                                        attn_window=eng.decode_window(max_len + k_steps),
                                        top_k=top_k, k_steps=k_steps)  # [K, B]
             last = nxt[-1]
         else:
-            nxt = eng._decode_sample(self._cur_tokens, active, gens, temp, topp,
+            nxt = eng._decode_sample(self._cur_tokens, active, seeds, steps, temp, topp,
                                      attn_window=eng.decode_window(max_len), top_k=top_k)
             last = nxt
         # start the device->host copy now; the drain reads it later

@@ -121,8 +121,7 @@ def profile_ops(cfg, params, max_len: int, ctx_len: int, timer: Timer,
     rows.append((f"decode_attention[L={ctx_len}]x1layer", ms, attn_bytes / ms / 1e6))
 
     logits = torch.ones((1, cfg.vocab_size), dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ms = timer.op(lambda: sample_token(logits, gen, 0.7, 0.95), reps)
+    ms = timer.op(lambda: sample_token(logits, 0, 0, 0.7, 0.95), reps)
     rows.append(("sample_top_p", ms, 0.0))
     return rows
 
@@ -183,12 +182,10 @@ def main(argv=None):
     print(f"prefill[{args.prompt_len}]: {prefill_ms:.1f} ms "
           f"({args.prompt_len / prefill_ms * 1e3:.1f} tok/s)")
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-
     def decode(tok, n):
-        for _ in range(n):
+        for step in range(n):
             lg, _ = forward(params, cfg, tok, cache)
-            tok = sample_token(lg, gen, 0.7, 0.95)[:, None]
+            tok = sample_token(lg, 0, step, 0.7, 0.95)[:, None]
         return tok
 
     tok = decode(torch.argmax(logits, -1)[:, None], warm)

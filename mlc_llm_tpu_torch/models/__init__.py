@@ -5,6 +5,7 @@ from .paged_cache import PagedKVCache, init_paged_kv_cache
 from .transformer import (
     KVCache,
     forward,
+    forward_block,
     forward_decode,
     forward_verify,
     init_kv_cache,
@@ -16,6 +17,7 @@ __all__ = [
     "MODEL_REGISTRY",
     "get_config",
     "forward",
+    "forward_block",
     "forward_decode",
     "forward_verify",
     "init_random_params",

@@ -9,27 +9,26 @@ The counterpart of ``mlc_llm_tpu/models/paged_cache.py``, same layouts:
   point at page 0, the reserved null page, whose contents are garbage
   but always masked (positions >= length);
 - lengths: [B] valid tokens per slot, kept on the host (int64 CPU
-  tensor, as the slot cache's), with a host copy of the page table
-  (``table_host``) beside the device one: a prefill's write indices are
-  computed from both without a device sync. ``page_table`` and
-  ``lengths_dev`` (the device copy of the lengths that a decode step
-  reads and advances) are fixed buffers that live as long as the cache:
-  every update is an in-place copy, so a captured decode graph keeps
-  reading the current table and lengths;
+  tensor, as the slot cache's), the source of truth. ``page_table`` and
+  ``lengths_dev`` (the device copy of the lengths that a step reads and
+  advances) are fixed buffers that live as long as the cache: every
+  update is an in-place copy, so a captured graph keeps reading the
+  current table and lengths;
 - int8 mode: per-(head, position) absmax scales, k-scales
   [G, L, P, hb, ps] and v-scales [G, L, P, ps, hb].
 
 Writes are IN PLACE (JAX returns an updated copy that XLA aliases), as
 the slot path's are. The (page id, offset) of every written token is
-computed once per forward (a block's on the host, ``paged_write_index``;
-a decode step's on the device from the device table and lengths,
-``paged_decode_index``) and reused for all L layers: each layer's write
-is then one ``index_copy_`` per pool, not a copy per slot and page.
-Semantics are the JAX package's: page 0 is the null page, padded
-bucket tokens are written too, positions at or past the table's
+computed once per forward on the device, from the device table rows and
+starts (``paged_write_index``), and reused for all L layers: each
+layer's write is then one ``index_copy_`` per pool, not a copy per slot
+and page. Semantics are the JAX package's: page 0 is the null page,
+padded bucket tokens are written too, positions at or past the table's
 capacity are dropped (a decode write, S == 1, clamps its page column
 instead, as JAX does), and an unaligned append keeps the earlier tokens
-of the page it starts in.
+of the page it starts in. A dropped position is written to the null
+page rather than left out, so that a block always makes the same number
+of writes (no host value, no data-dependent shape: a graph holds it).
 
 The tensor-parallel routing of the JAX module (``paged_flash_tp_enabled``,
 ``paged_flash_decode_tp``) is not ported yet (ROADMAP.md queue 1, its
@@ -56,12 +55,9 @@ class PagedKVCache:
     lengths: torch.Tensor             # [B] int64, host
     k_scale: Optional[torch.Tensor] = None  # [G, L, P, hb, ps] (int8 mode)
     v_scale: Optional[torch.Tensor] = None  # [G, L, P, ps, hb] (int8 mode)
-    table_host: Optional[torch.Tensor] = None  # host copy of page_table
     lengths_dev: Optional[torch.Tensor] = None  # [B] int64, pool device
 
     def __post_init__(self):
-        if self.table_host is None:
-            self.table_host = self.page_table.to("cpu", torch.int32)
         if self.lengths_dev is None:
             self.lengths_dev = self.lengths.to(self.k_pages.device, copy=True)
 
@@ -76,18 +72,7 @@ class PagedKVCache:
     def set_page_table(self, table) -> None:
         """Install a host page table [B, max_pages]: one upload, in place
         into the device table."""
-        self.table_host = torch.as_tensor(np.array(table, np.int32))
-        self.page_table.copy_(self.table_host)
-
-    def slot_view(self, slot: int, start: int) -> "PagedKVCache":
-        """One slot's view: the shared pools, its table row, its start
-        length. Writes through it touch only the slot's own pages."""
-        return PagedKVCache(
-            k_pages=self.k_pages, v_pages=self.v_pages,
-            page_table=self.page_table[slot:slot + 1],
-            lengths=torch.tensor([start], dtype=torch.int64),
-            k_scale=self.k_scale, v_scale=self.v_scale,
-            table_host=self.table_host[slot:slot + 1])
+        self.page_table.copy_(torch.as_tensor(np.array(table, np.int32)))
 
 
 def default_head_block(num_kv_heads: int) -> int:
@@ -170,13 +155,11 @@ def gather_pages_scale_v(scales, l, table, maxp: int):
 
 @dataclasses.dataclass
 class PagedWriteIndex:
-    """Where a forward's new tokens land: ``flat`` [N] holds page_id*ps +
-    offset (a row of a layer's [P*ps] pool rows) for each written (b, s),
-    in b-major order; ``sel`` [N] lists those (b, s) as b*S + s, or is
-    None when every one of the B*S tokens is written."""
+    """Where a forward's new tokens land: ``flat`` [B*S] holds page_id*ps
+    + offset (a row of a layer's [P*ps] pool rows) for each written (b,
+    s), in b-major order; every one of the B*S tokens is written."""
 
     flat: torch.Tensor
-    sel: Optional[torch.Tensor]
     page_size: int
     _kidx: Optional[torch.Tensor] = None
 
@@ -190,63 +173,40 @@ class PagedWriteIndex:
         return self._kidx
 
 
-def paged_write_index(table, start, S: int, page_size: int, device) -> PagedWriteIndex:
-    """The write positions of an S-token block appended at each slot's
-    start (host table [B, maxp], host start [B]). Decode (S == 1) clamps
-    the page column to the table's last; a block drops its positions at
-    or past the table's capacity (the JAX ``posv < cap`` mask)."""
-    table = np.asarray(table, np.int64)
-    start = np.asarray(start, np.int64)
-    B, maxp = table.shape
+def paged_write_index(table, start, S: int, page_size: int) -> PagedWriteIndex:
+    """The write positions of an S-token block appended at each row's
+    start: table [B, maxp] (the rows' page-table rows) and start [B] are
+    tensors on one device, and everything is computed there. Decode (S ==
+    1) clamps the page column to the table's last; a block sends its
+    positions at or past the table's capacity (the JAX ``posv < cap``
+    mask) to the null page, page 0."""
     ps = page_size
-    pos = start[:, None] + np.arange(S)[None, :]
-    keep = np.ones_like(pos, bool) if S == 1 else pos < maxp * ps
-    pid = table[np.arange(B)[:, None], np.minimum(pos // ps, maxp - 1)]
-    flat = (pid * ps + pos % ps).reshape(-1)
-    keep = keep.reshape(-1)
-    sel = None
-    if not keep.all():
-        sel = np.nonzero(keep)[0]
-        flat = flat[sel]
-        sel = torch.from_numpy(sel).to(device)
-    return PagedWriteIndex(flat=torch.from_numpy(flat).to(device), sel=sel, page_size=ps)
-
-
-def paged_decode_index(page_table, lengths, page_size: int) -> PagedWriteIndex:
-    """The write positions of a decode step (S == 1) from the device
-    table [B, maxp] and the device lengths [B]: ``paged_write_index`` at S
-    = 1 (the page column clamped to the table's last, every token
-    written), computed on the device with no host value."""
-    maxp = page_table.shape[1]
-    col = torch.clamp(lengths // page_size, max=maxp - 1)
-    pid = page_table.gather(1, col[:, None].to(torch.int64))[:, 0].to(torch.int64)
-    return PagedWriteIndex(flat=pid * page_size + lengths % page_size, sel=None,
-                           page_size=page_size)
-
-
-def _pick(rows, index: PagedWriteIndex):
-    return rows if index.sel is None else rows[:, index.sel]
+    maxp = table.shape[1]
+    pos = start.to(torch.int64)[:, None] + torch.arange(S, device=table.device)[None, :]
+    col = torch.clamp(pos // ps, max=maxp - 1)
+    pid = table.gather(1, col).to(torch.int64)
+    if S > 1:
+        pid = torch.where(pos < maxp * ps, pid, torch.zeros_like(pid))
+    return PagedWriteIndex(flat=(pid * ps + pos % ps).reshape(-1), page_size=ps)
 
 
 def write_rows_paged(pages, rows, l: int, index: PagedWriteIndex) -> None:
     """rows [G, B*S, hb*D] (b-major) into layer l of a page pool."""
     G, _, P, ps, hbD = pages.shape
-    pages[:, l].view(G, P * ps, hbD).index_copy_(1, index.flat,
-                                                 _pick(rows, index).to(pages.dtype))
+    pages[:, l].view(G, P * ps, hbD).index_copy_(1, index.flat, rows.to(pages.dtype))
 
 
 def write_scale_rows_paged_k(scales, rows, l: int, index: PagedWriteIndex) -> None:
     """rows [G, B*S, hb] into layer l of the k-scales [G, L, P, hb, ps]."""
     G, _, P, hb, ps = scales.shape
-    vals = _pick(rows, index).to(scales.dtype).reshape(G, -1)
+    vals = rows.to(scales.dtype).reshape(G, -1)
     scales[:, l].view(G, P * hb * ps).index_copy_(1, index.k_scale_index(hb), vals)
 
 
 def write_scale_rows_paged_v(scales, rows, l: int, index: PagedWriteIndex) -> None:
     """rows [G, B*S, hb] into layer l of the v-scales [G, L, P, ps, hb]."""
     G, _, P, ps, hb = scales.shape
-    scales[:, l].view(G, P * ps, hb).index_copy_(1, index.flat,
-                                                 _pick(rows, index).to(scales.dtype))
+    scales[:, l].view(G, P * ps, hb).index_copy_(1, index.flat, rows.to(scales.dtype))
 
 
 # The JAX package's write functions, for one layer and a table and start
@@ -254,8 +214,8 @@ def write_scale_rows_paged_v(scales, rows, l: int, index: PagedWriteIndex) -> No
 # calls the write_*rows_paged functions for every layer.
 
 def _index(device, table, start, S, ps):
-    return paged_write_index(torch.as_tensor(table).cpu().numpy(),
-                             torch.as_tensor(start).cpu().numpy(), S, ps, device)
+    return paged_write_index(torch.as_tensor(table, device=device),
+                             torch.as_tensor(start, device=device), S, ps)
 
 
 def write_tokens_paged_k(pages, new, l: int, table, start):

@@ -10,21 +10,25 @@ fp16 clamp. The layer loop is a Python loop (the JAX ``lax.scan``);
 stacked quantized weights are read in place by the kernels at a pointer
 offset. KV writes are in place.
 
-On the paged cache, a decode step (S == 1) attends through
-``ops.paged_attention.paged_flash_decode`` (the CUDA kernel on the card,
-its plain version on the CPU); prefill and any S > 1 block gather the
-windowed pages and run ``attend_cache``. The paged path never takes a
-flash-prefill branch.
+On the paged cache, a decode step (one token at every slot) attends
+through ``ops.paged_attention.paged_flash_decode`` (the CUDA kernel on
+the card, its plain version on the CPU); prefill and any other block
+gather the target slots' windowed pages and run ``attend_cache``. The
+paged path never takes a flash-prefill branch.
 
-Two entry points share one body. ``forward`` is driven from the host:
+Every entry point shares one body. ``forward`` is driven from the host:
 the start lengths come from the cache's host mirror, which it advances.
-``forward_decode`` is one decode step that reads no host value (the
-device lengths ``cache.lengths_dev``, the device page table, a device
-``seq_lens``) and advances the device lengths only, so that a CUDA
-graph can hold it (``engine/programs.py``). ``forward_verify`` is the
-speculative verify pass on the same terms (slot cache only): an S-token
-block written at the device lengths, every position's logits, no
-length advanced.
+``forward_block`` reads no host value, so that a CUDA graph can hold it
+(``engine/programs.py``): the target slots [G] (or every slot in order),
+their starts and ``seq_lens`` are device tensors, the slot cache's rows
+are picked by ``index_select`` and scattered to by those slots, the
+paged write positions come from the device page table
+(``paged_write_index``), and it sets ``cache.lengths_dev`` of the target
+slots to start + seq_lens; the host mirror is the caller's to advance.
+``forward_decode`` is one decode step on those terms (every slot, at
+the device lengths) and ``forward_verify`` the speculative verify pass
+(slot cache only): an S-token block written at the device lengths, every
+position's logits, no length advanced.
 """
 
 from __future__ import annotations
@@ -57,7 +61,6 @@ from .paged_cache import (
     gather_pages_scale_k,
     gather_pages_scale_v,
     gather_pages_v,
-    paged_decode_index,
     paged_write_index,
     write_rows_paged,
     write_scale_rows_paged_k,
@@ -74,8 +77,8 @@ class KVCache:
     """k: [L, B, Hkv, Smax, D]; v: [L, B, Hkv, D, Smax] (D-major);
     lengths: [B] valid token count per slot, kept on the host (int64 CPU
     tensor), the source of truth; lengths_dev: its device copy, a fixed
-    buffer that a decode step reads and advances (staged from the host
-    mirror before each step).
+    buffer that a step reads and advances (staged from the host mirror
+    before each step).
 
     int8 mode: k/v hold per-element int8 codes and k_scale/v_scale hold
     per-(layer, slot, head, position) absmax/127 scales [L, B, Hkv,
@@ -99,16 +102,6 @@ class KVCache:
     @property
     def batch(self) -> int:
         return self.k.shape[1]
-
-    def slot_view(self, slot: int, start: int) -> "KVCache":
-        """One slot's cache rows as views (writes land in place) with
-        its own start length."""
-        def rows(t):
-            return None if t is None else t[:, slot:slot + 1]
-
-        return KVCache(k=rows(self.k), v=rows(self.v),
-                       lengths=torch.tensor([start], dtype=torch.int64),
-                       k_scale=rows(self.k_scale), v_scale=rows(self.v_scale))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: Optional[int] = None,
@@ -210,6 +203,8 @@ class _PagedStep:
     index: PagedWriteIndex
     lengths: torch.Tensor  # [B] int32 on the device (pre-advance)
     maxp: int              # pages in the attention window
+    table: torch.Tensor    # the target slots' page-table rows [G, max_pages]
+    decode: bool           # one token at every slot: the paged decode kernel
 
 
 def _pool_rows(x, G):
@@ -234,11 +229,11 @@ def _attend_paged(q, k, v, cache: PagedKVCache, l, step: _PagedStep, start_dev, 
         write_rows_paged(cache.k_pages, _pool_rows(k, G), l, step.index)
         write_rows_paged(cache.v_pages, _pool_rows(v, G), l, step.index)
     qt = q.transpose(1, 2)
-    if S == 1:
+    if step.decode:
         return paged_flash_decode(qt.contiguous(), cache.k_pages, cache.v_pages,
                                   cache.k_scale, cache.v_scale, cache.page_table,
                                   step.lengths, l, num_pages_window=step.maxp, head_dim=d)
-    table = cache.page_table
+    table = step.table
     kc = gather_pages_k(cache.k_pages, l, table, step.maxp, d)
     vc = gather_pages_v(cache.v_pages, l, table, step.maxp, d)
     ksc = vsc = None
@@ -248,20 +243,22 @@ def _attend_paged(q, k, v, cache: PagedKVCache, l, step: _PagedStep, start_dev, 
     return attend_cache(qt, kc, vc, ksc, vsc, start_dev)
 
 
-def slot_write_index(start_dev, S: int, smax: int):
-    """(slot rows [B, 1], positions [B, S]) of an S-token block written at
-    each slot's start, the start clamped so the block fits (start =
-    min(start, smax - S), as jax.lax.dynamic_update_slice clamps it),
-    from device values only."""
+def slot_write_index(start_dev, S: int, smax: int, slots=None):
+    """(slot rows [G, 1], positions [G, S]) of an S-token block written at
+    each target slot's start (slots [G], or None for every slot in
+    order), the start clamped so the block fits (start = min(start, smax
+    - S), as jax.lax.dynamic_update_slice clamps it), from device values
+    only."""
     st = torch.clamp(start_dev, max=smax - S)
-    rows = torch.arange(st.shape[0], device=st.device)[:, None]
-    return rows, st[:, None] + torch.arange(S, device=st.device)[None, :]
+    rows = torch.arange(st.shape[0], device=st.device) if slots is None else slots
+    return rows[:, None], st[:, None] + torch.arange(S, device=st.device)[None, :]
 
 
-def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window):
+def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window, slots):
     """Write only the new tokens, IN PLACE (JAX returns an updated copy
     that XLA aliases): one batched scatter a buffer at `slot_index`
-    (``slot_write_index``). Then attend the window."""
+    (``slot_write_index``). Then attend the window of the target slots'
+    rows (slots [G]: an index_select of those rows; None: every row)."""
     smax = cache.max_len
     kt, vt = k.transpose(1, 2), v.permute(0, 2, 3, 1)  # [B,H,S,D], [B,H,D,S]
     ks = vs = None
@@ -276,15 +273,19 @@ def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window)
         cache.k_scale[l][rows, :, pos] = ks.transpose(1, 2)
         cache.v_scale[l][rows, :, pos] = vs.transpose(1, 2)
     W = attn_window or smax
-    ksc = vsc = None
-    if ks is not None:
-        ksc, vsc = cache.k_scale[l, :, :, :W], cache.v_scale[l, :, :, :W]
-    return attend_cache(q.transpose(1, 2), cache.k[l, :, :, :W], cache.v[l, :, :, :, :W],
-                        ksc, vsc, start_dev)
+
+    def window(t):  # positions on axis 3 of k and the scales, last of D-major v
+        if t is None:
+            return None
+        t = t[l, ..., :W] if t is cache.v else t[l, :, :, :W]
+        return t if slots is None else t.index_select(0, slots)
+
+    return attend_cache(q.transpose(1, 2), window(cache.k), window(cache.v),
+                        window(cache.k_scale), window(cache.v_scale), start_dev)
 
 
 def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
-           positions, slot_index, start_dev, attn_window: Optional[int],
+           positions, slot_index, slots, start_dev, attn_window: Optional[int],
            paged: Optional[_PagedStep]):
     B, S, _ = h.shape
     nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -304,7 +305,7 @@ def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
     if paged is not None:
         attn = _attend_paged(q, k, v, cache, l, paged, start_dev, d)
     else:
-        attn = _attend_slot(q, k, v, cache, l, slot_index, start_dev, attn_window)
+        attn = _attend_slot(q, k, v, cache, l, slot_index, start_dev, attn_window, slots)
     attn = attn.transpose(1, 2).reshape(B, S, nh * d)
     attn_out = qmatmul_stacked(attn, weights["wo"], l, lp.get("bo"))
     return _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg)
@@ -327,34 +328,42 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
     seq_lens = (torch.full((B,), S, dtype=torch.int64) if seq_lens is None
                 else torch.as_tensor(seq_lens, dtype=torch.int64).cpu())
     dev = tokens.device
-    start_dev = cache.lengths.to(dev)
-    index = None
-    if isinstance(cache, PagedKVCache) and S > 1:
-        # a block's write positions from the host table and lengths (no
-        # device sync); a decode step's come from the device table
-        index = paged_write_index(cache.table_host, cache.lengths, S, cache.page_size, dev)
-    logits = _forward(params, cfg, tokens, cache, start_dev, seq_lens.to(dev), index,
+    logits = _forward(params, cfg, tokens, cache, None, cache.lengths.to(dev), seq_lens.to(dev),
                       last_only, attn_window)
     cache.lengths += seq_lens
     return logits, cache
 
 
 @torch.no_grad()
-def forward_decode(params: Params, cfg: ModelConfig, tokens, cache, seq_lens, *,
-                   attn_window: Optional[int] = None):
-    """One decode step (tokens [B, 1]) that reads no host value: the
-    starts are ``cache.lengths_dev``, the paged write positions come from
-    the device page table (``paged_decode_index``), seq_lens is a [B]
-    int64 device tensor (1 active, 0 frozen). Advances
-    ``cache.lengths_dev`` by seq_lens, in place; the host mirror is the
-    caller's to advance. Returns the f32 logits [B, V]."""
-    logits = _forward(params, cfg, tokens, cache, cache.lengths_dev, seq_lens, None, True,
+def forward_block(params: Params, cfg: ModelConfig, tokens, cache, slots, starts, seq_lens, *,
+                  attn_window: Optional[int] = None, last_only: bool = True):
+    """A token block (tokens [G, S]) that reads no host value: row g is
+    written into slot slots[g] from position starts[g] (slots None: row g
+    is slot g, G == B), seq_lens[g] of its tokens real. slots, starts and
+    seq_lens are [G] int64 device tensors. Sets ``cache.lengths_dev`` of
+    the target slots to starts + seq_lens, in place; the host mirror is
+    the caller's to advance. Returns the f32 logits ([G, V] at each row's
+    last real token if last_only, else [G, S, V])."""
+    logits = _forward(params, cfg, tokens, cache, slots, starts, seq_lens, last_only,
                       attn_window)
-    cache.lengths_dev += seq_lens
+    end = starts + seq_lens
+    if slots is None:
+        cache.lengths_dev.copy_(end)
+    else:
+        cache.lengths_dev.index_copy_(0, slots, end)
     return logits
 
 
-@torch.no_grad()
+def forward_decode(params: Params, cfg: ModelConfig, tokens, cache, seq_lens, *,
+                   attn_window: Optional[int] = None):
+    """One decode step (tokens [B, 1]) at the device lengths
+    ``cache.lengths_dev``, which it advances by seq_lens ([B] int64 on
+    the device: 1 active, 0 frozen); the paged write positions come from
+    the device page table. Returns the f32 logits [B, V]."""
+    return forward_block(params, cfg, tokens, cache, None, cache.lengths_dev, seq_lens,
+                         attn_window=attn_window)
+
+
 def forward_verify(params: Params, cfg: ModelConfig, tokens, cache, *,
                    attn_window: Optional[int] = None):
     """The speculative verify pass (tokens [B, S]) that reads no host
@@ -365,16 +374,15 @@ def forward_verify(params: Params, cfg: ModelConfig, tokens, cache, *,
     only. Returns the f32 logits [B, S, V] of every position."""
     if isinstance(cache, PagedKVCache):
         raise ValueError("the speculative verify pass needs the slot KV cache")
-    zeros = torch.zeros_like(cache.lengths_dev)
-    return _forward(params, cfg, tokens, cache, cache.lengths_dev, zeros, None, False,
-                    attn_window)
+    return forward_block(params, cfg, tokens, cache, None, cache.lengths_dev,
+                         torch.zeros_like(cache.lengths_dev), attn_window=attn_window,
+                         last_only=False)
 
 
-def _forward(params, cfg: ModelConfig, tokens, cache, start_dev, seq_lens, index,
+def _forward(params, cfg: ModelConfig, tokens, cache, slots, start_dev, seq_lens,
              last_only: bool, attn_window: Optional[int]):
-    """The decoder body on device values: start_dev and seq_lens [B]
-    int64 on the tokens' device; index the paged write positions of an S
-    > 1 block (None: computed here, S == 1 only)."""
+    """The decoder body on device values: slots [G] (None: every slot in
+    order), start_dev and seq_lens [G] int64 on the tokens' device."""
     B, S = tokens.shape
     dev = tokens.device
     positions = start_dev[:, None] + torch.arange(S, device=dev)[None, :]
@@ -385,13 +393,14 @@ def _forward(params, cfg: ModelConfig, tokens, cache, start_dev, seq_lens, index
         maxp = cache.page_table.shape[1]
         if attn_window is not None:
             maxp = min(maxp, -(-attn_window // ps))
-        if index is None:
-            index = paged_decode_index(cache.page_table, start_dev, ps)
+        table = cache.page_table if slots is None else cache.page_table.index_select(0, slots)
         # the write positions and kernel lengths once per forward, for all
         # L layers
-        paged = _PagedStep(index=index, lengths=start_dev.to(torch.int32), maxp=maxp)
+        paged = _PagedStep(index=paged_write_index(table, start_dev, S, ps),
+                           lengths=start_dev.to(torch.int32), maxp=maxp, table=table,
+                           decode=S == 1 and slots is None)
     else:
-        slot_index = slot_write_index(start_dev, S, cache.max_len)
+        slot_index = slot_write_index(start_dev, S, cache.max_len, slots)
 
     emb = params["embed"]["w"]
     h = take_dequantize(emb, tokens) if isinstance(emb, QuantizedTensor) else emb[tokens]
@@ -401,7 +410,7 @@ def _forward(params, cfg: ModelConfig, tokens, cache, start_dev, seq_lens, index
     for l in range(cfg.num_layers):
         lp = {k: v[l] for k, v in small.items()}
         h = _layer(h, lp, weights, cache, l, cfg, rot_cos, rot_sin, positions, slot_index,
-                   start_dev, attn_window, paged)
+                   slots, start_dev, attn_window, paged)
 
     h = _norm(h, params["final_ln"]["w"], params["final_ln"].get("b"), cfg)
     if last_only:

@@ -50,7 +50,8 @@ def attend(q, k, v, q_pos, *, mask_value: float = -1e30, v_transposed: bool = Fa
     kpos = torch.arange(Smax, device=q.device)[None, None, :]
     qabs = q_pos.to(q.device)[:, None, None] + torch.arange(Sq, device=q.device)[None, :, None]
     valid = kpos <= qabs  # [B, Sq, Smax]
-    scores = torch.where(valid[:, None], scores, torch.full_like(scores, mask_value))
+    # in place: a graph's pool holds one [B, H, Sq, Smax] f32 matrix less
+    scores.masked_fill_(~valid[:, None], mask_value)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     vt = v.transpose(-1, -2) if v_transposed else v
     return _f32_product(probs, vt).to(q.dtype)

@@ -27,11 +27,12 @@ wrapper runs the plain version on CPU tensors and launches the kernel on
 CUDA tensors, or raises. ``paged_flash_decode.launches``
 counts kernel launches only.
 
-Split-KV: the kernel walks the window in splits of ``split_pages(...)``
-pages, each from an empty softmax state (with bf16 pages the
-probabilities round against the split's own running max), and its last
-split to finish combines the partials in split order, in the same
-launch. ``paged_flash_decode_plain(..., pages_per_split=pps)`` repeats
+Split-KV: the kernel walks the window in splits of ``launch_plan``'s
+pages (``split_pages`` over the page table's width, so that a slot's
+splits do not depend on the window), each from an empty softmax state
+(with bf16 pages the probabilities round against the split's own running
+max), and its last split to finish combines the partials in split order,
+in the same launch. ``paged_flash_decode_plain(..., pages_per_split=pps)`` repeats
 that split and combine; with the default ``None`` it walks the whole
 window as one split, and the CPU path calls it so.
 """
@@ -93,13 +94,19 @@ def split_pages(num_pages: int, batch: int, kv_heads: int, rep: int, head_dim: i
 
 def launch_plan(q, k_pages, page_table, num_pages_window: int):
     """(pages per split, splits) of the kernel's launch on these shapes:
-    `split_pages` over the window min(num_pages_window, maxp). Reads no
-    tensor, so the slots' lengths never reach the plan."""
+    the pages per split of `split_pages` over the table's width maxp, and
+    as many splits as cover the window min(num_pages_window, maxp). Reads
+    no tensor, so the slots' lengths never reach the plan; and a slot's
+    splits are the same whatever the window, so its result does not
+    depend on the window the batch's longest slot sets (a split past its
+    pages is empty and weighs 0 in the combine): a request's stream does
+    not depend on what shares its steps."""
     B, Hq, _, D = q.shape
     G, _, _, _, hbD = k_pages.shape
-    np_ = min(num_pages_window, page_table.shape[1])
+    maxp = page_table.shape[1]
+    np_ = min(num_pages_window, maxp)
     hkv = G * (hbD // D)
-    pps = split_pages(np_, B, hkv, Hq // hkv, D)
+    pps = min(split_pages(maxp, B, hkv, Hq // hkv, D), np_)
     return pps, -(-np_ // pps)
 
 

@@ -19,10 +19,14 @@ the generation back.
 
 ``--speculative K`` turns on batched prompt-lookup speculation on the
 slot KV cache (``--speculative-max-batch``: at most that many active
-requests, default 2). ``--precompile`` captures the decode step's CUDA
-graph of every attention-window bucket before serving and prints their
-count and seconds; without it each graph, and each verify pass's, is
-captured at its key's first run.
+requests, default 2). ``--precompile`` captures, before serving, the
+CUDA graph of every program JAX's precompile compiles: each bucket's
+prefill and admission (grouped too, slot layout), the first-token
+samplers, each window's decode step and, with ``--multi-step``, each
+K-step block it can pick (``multi_step_compile_ks``); it prints their
+count and seconds. A precompiled server then captures no graph while it
+serves fresh admissions; without it each graph (and each verify
+pass's) is captured at its key's first run.
 """
 
 from __future__ import annotations
@@ -39,6 +43,22 @@ def _multi_step_arg(v: str):
             int(v.split(":", 1)[1])  # validate
         return v
     return int(v)
+
+
+def multi_step_compile_ks(multi_step):
+    """K values precompile should warm for a --multi-step setting:
+    the static K, or every power-of-two block the adaptive policy can
+    pick (scheduler._choose_k rounds down to powers of two)."""
+    if multi_step is None:
+        return None
+    if isinstance(multi_step, str):
+        kmax = int(multi_step.split(":", 1)[1]) if ":" in multi_step else 8
+        ks, p = [], 2
+        while p <= kmax:
+            ks.append(p)
+            p *= 2
+        return tuple(ks) or None
+    return multi_step
 
 
 def build_engine(args):
@@ -78,7 +98,8 @@ def run_server(args) -> None:
     engine = build_engine(args)
     if args.precompile:
         t0 = time.time()
-        n = engine.precompile(progress=lambda m: print(f"precompile: {m}", flush=True))
+        n = engine.precompile(progress=lambda m: print(f"precompile: {m}", flush=True),
+                              multi_step=multi_step_compile_ks(args.multi_step))
         print(f"precompiled {n} programs in {time.time() - t0:.1f}s", flush=True)
     sched = build_scheduler(args, engine)
     server = SchedulerServer(sched, host=args.host, port=args.port)
@@ -148,8 +169,9 @@ def make_parser() -> argparse.ArgumentParser:
                     help="decode steps kept in flight before blocking on the oldest "
                          "token readback (stop detection lags this many tokens)")
     ap.add_argument("--precompile", action="store_true",
-                    help="capture the decode step's CUDA graph of every attention-window "
-                         "bucket before serving (none on the CPU)")
+                    help="capture every program's CUDA graph before serving: each "
+                         "bucket's prefills, the samplers, each window's decode step and "
+                         "the --multi-step blocks (none on the CPU)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8100)
     ap.add_argument("--seed", type=int, default=None)

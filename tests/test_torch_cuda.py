@@ -899,13 +899,15 @@ def test_cuda_decode_graph_matches_eager_step(vicuna2, batch):
         runs.append((eng, seen, toks, launches))
     (geng, gseen, gtoks, glaunch), (eeng, eseen, etoks, elaunch) = runs
     assert gtoks == etoks and all(len(t) == 12 for t in gtoks)
-    assert len(gseen) == len(eseen) == 11
-    for (gl, gn), (el, en) in zip(gseen, eseen):
-        assert torch.equal(gl, el) and torch.equal(gn, en)
-    # a replay counts the launches of the step it replays, and nothing else
+    # the prefill, the first-token draw and 11 decode steps
+    assert len(gseen) == len(eseen) == 13
+    for g, e in zip(gseen, eseen):
+        assert all(torch.equal(a, b) for a, b in zip(g, e))
+    # a replay counts the launches of the program it replays, and nothing else
     assert glaunch == elaunch and sum(glaunch) > 0
-    assert geng.programs.count == len(geng.programs.keys) >= 1
-    assert geng.programs.replays == geng.decode_forwards == 11
+    assert geng.programs.count == len(geng.programs.keys) >= 3
+    assert geng.programs.runs_by_kind() == {"prefill": 1, "sample": 1, "decode": 11}
+    assert geng.programs.replays == 13 and geng.decode_forwards == 11
     assert eeng.programs.count == 0
     # the capture stream's tickets are left zero by the replays
     from mlc_llm_tpu_torch.ops import _TICKETS
@@ -924,11 +926,13 @@ def test_cuda_precompile_captures_every_window(vicuna2):
 
     eng, _ = _graph_engine(vicuna2, 8)
     windows = {eng.decode_window(b) for b in eng.buckets} | {eng.max_seq_len}
-    assert eng.precompile() == len(windows) == eng.programs.count
-    assert {k[2] for k in eng.programs.keys} == windows
+    assert eng.precompile() == len(eng.precompile_keys()) == eng.programs.count
+    assert {k[2] for k in eng.programs.keys if k[0] == "decode"} == windows
     assert eng.programs.pool_bytes() > 0
-    eng.generate(_graph_prompts(8), GenerationConfig(max_new_tokens=4, temperature=0.0))
-    assert eng.programs.count == len(windows)  # every step replays a precompiled graph
+    n = eng.programs.count
+    eng.generate(_graph_prompts(8), GenerationConfig(max_new_tokens=4, temperature=0.7, seed=1))
+    # the prefill, the draw and every step replay a precompiled graph
+    assert eng.programs.count == n and eng.programs.replays == 5
 
 
 @pytest.mark.cuda
@@ -936,7 +940,7 @@ def test_cuda_scheduler_decode_ahead_same_tokens(vicuna2):
     from mlc_llm_tpu_torch.engine import GenerationConfig
     from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
 
-    # dispatch-ahead and K-step blocks (K replays a dispatch) change when
+    # dispatch-ahead and K-step blocks (one graph a block) change when
     # tokens are read back, never which
     outs = []
     for kw in (dict(decode_ahead=0), dict(decode_ahead=2), dict(multi_step=4)):
@@ -950,8 +954,11 @@ def test_cuda_scheduler_decode_ahead_same_tokens(vicuna2):
                 for i, p in enumerate(_graph_prompts(6))]
         sched.run()
         assert all(r.done and len(r.output) == 10 for r in reqs)
-        assert eng.programs.replays == eng.decode_forwards > 0
-        assert bool(blocks) == ("multi_step" in kw)
+        runs = eng.programs.runs
+        assert eng.programs.replays == sum(runs.values())
+        assert eng.decode_forwards == sum(n * (k[2] if k[0] == "decode_k" else 1)
+                                          for k, n in runs.items() if k[0].startswith("decode"))
+        assert bool(blocks) == ("multi_step" in kw) == any(k[0] == "decode_k" for k in runs)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1] == outs[2]
 
@@ -1037,11 +1044,12 @@ def test_cuda_verify_graph_matches_eager_verify(vicuna2, monkeypatch):
     (geng, gseen, gtoks, gstats), (_, eseen, etoks, estats) = runs
     assert gtoks == etoks and gstats == estats and len(gtoks) == 40
     assert gstats["accepted_drafts"] > 0
-    assert len(gseen) == len(eseen) == gstats["passes"]
-    for (gl, gt), (el, et) in zip(gseen, eseen):
-        assert torch.equal(gl, el) and torch.equal(gt, et)
-    assert geng.programs.replays == geng.verify_forwards == gstats["passes"]
-    assert {k[:3] for k in geng.programs.keys} == {("verify", 1, 8)}
+    assert len(gseen) == len(eseen) == gstats["passes"] + 1  # and the prefill
+    for g, e in zip(gseen, eseen):
+        assert all(torch.equal(a, b) for a, b in zip(g, e))
+    assert geng.programs.runs_by_kind() == {"prefill": 1, "verify": gstats["passes"]}
+    assert geng.programs.replays == geng.verify_forwards + 1
+    assert {k[:3] for k in geng.programs.keys if k[0] == "verify"} == {("verify", 1, 8)}
     assert geng.programs.count == len(geng.programs.keys)
 
 
@@ -1083,9 +1091,144 @@ def test_cuda_scheduler_speculation_matches_no_draft_run(vicuna2, monkeypatch):
                 for p in prompts]
         sched.run()
         assert all(r.done and len(r.output) == 16 for r in reqs)
-        assert eng.programs.replays == eng.verify_forwards + eng.decode_forwards
+        kinds = eng.programs.runs_by_kind()
+        assert eng.programs.replays == sum(kinds.values())
+        assert (kinds["verify"], kinds.get("decode", 0)) == (eng.verify_forwards,
+                                                             eng.decode_forwards)
         outs.append([r.output for r in reqs])
         passes.append(eng.verify_forwards)
         _Replay.refs = {tuple(p): o for p, o in zip(prompts, outs[0])}
     assert outs[0] == outs[1] == outs[2]
     assert 0 < passes[2] < passes[0]
+
+
+# Every engine program a graph: the prefill programs (one graph per (G,
+# bucket, window), the target slots a device tensor), the first-token
+# sampler, the decode step with its in-graph draw and the K-step block, at
+# 2 layers against the same programs run eagerly.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_cuda_prefill_graph_matches_eager_prefill(vicuna2, layout):
+    from mlc_llm_tpu_torch.engine import InferenceEngine
+
+    cfg, params = vicuna2
+    kw = dict(kv_layout="paged", page_size=128) if layout == "paged" else {}
+    prompts = _graph_prompts(3)
+    outs = []
+    for eager in (False, True):
+        eng = InferenceEngine(cfg, params, max_batch=4, max_seq_len=2048, device="cuda", **kw)
+        if eager:
+            eng.programs.run = lambda key, fn, warm_up: fn()
+        got = [eng.prefill(prompts[:2], reserve_tokens=8)]
+        # admissions into slots 3 then 2 (fresh), then a segment appended to 3
+        for slot, p, append in ((3, prompts[2], False), (2, prompts[0][:40], False),
+                                (3, prompts[1][:20], True)):
+            if eng.allocator is not None:
+                if not append:
+                    eng.free_slot_pages(slot)
+                total = int(eng.cache.lengths[slot]) * append + len(p) + 8
+                eng.assign_pages(slot, eng.pages_needed(slot, total))
+            bucket = eng.bucket_for(len(p))
+            toks = torch.zeros((1, bucket), dtype=torch.int64)
+            toks[0, :len(p)] = torch.tensor(p)
+            start = int(eng.cache.lengths[slot]) if append else 0
+            got.append(eng._prefill_slot(toks.numpy(), len(p), slot, append,
+                                         attn_window=eng.decode_window(start + bucket)))
+        torch.cuda.synchronize()
+        cache = eng.cache
+        names = ("k_pages", "v_pages") if layout == "paged" else ("k", "v")
+        outs.append((got, [getattr(cache, n).clone() for n in names], cache.lengths.clone(),
+                     eng.programs.count, eng.programs.keys))
+    (g, gkv, glen, gcount, gkeys), (e, ekv, elen, ecount, _) = outs
+    assert all(torch.equal(a, b) for a, b in zip(g, e))  # logits bit for bit
+    assert all(torch.equal(a, b) for a, b in zip(gkv, ekv))  # the KV rows too
+    assert torch.equal(glen, elen) and gcount == len(gkeys) >= 2 and ecount == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sampled_stream_graph_equals_eager(vicuna2):
+    from mlc_llm_tpu_torch.engine import GenerationConfig
+
+    prompts = _graph_prompts(1)
+    gen = GenerationConfig(max_new_tokens=12, temperature=0.7, top_p=0.95, seed=5)
+    streams = []
+    for eager in (False, True):
+        eng, seen = _graph_engine(vicuna2, 1, eager)
+        streams.append(eng.generate(prompts, gen)[0])
+    assert streams[0] == streams[1] and len(streams[0]) == 12
+    greedy = _graph_engine(vicuna2, 1)[0].generate(
+        prompts, GenerationConfig(max_new_tokens=12, temperature=0.0))[0]
+    assert streams[0] != greedy  # the draws are not argmax
+
+
+@pytest.mark.cuda
+def test_cuda_k_step_block_matches_single_steps(vicuna2):
+    import numpy as np
+
+    engines = [_graph_engine(vicuna2, 8)[0] for _ in range(2)]
+    prompts = _graph_prompts(8)
+    for eng in engines:
+        eng.prefill(prompts, reserve_tokens=16)
+    active = np.ones(8, bool)
+    active[5] = False
+    seeds, steps = np.arange(8) + 100, np.ones(8, np.int64)
+    temps = np.where(np.arange(8) % 3 == 0, 0.7, 0.0).astype(np.float32)
+    tok = torch.arange(8, device="cuda")[:, None] + 7
+    window = engines[0].decode_window(max(len(p) for p in prompts) + 8)
+    block = engines[0]._decode_sample_k(tok, active, seeds, steps, temps, 0.95,
+                                        attn_window=window, k_steps=4)
+    single, cur = [], tok
+    for i in range(4):
+        single.append(engines[1]._decode_sample(cur, active, seeds, steps + i, temps, 0.95,
+                                                attn_window=window))
+        cur = single[-1][:, None]
+    assert torch.equal(block, torch.stack(single))
+    assert engines[0].programs.runs_by_kind()["decode_k"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_precompiled_server_captures_nothing(vicuna2):
+    from mlc_llm_tpu_torch.engine import GenerationConfig
+    from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from mlc_llm_tpu_torch.serve import multi_step_compile_ks
+
+    eng, _ = _graph_engine(vicuna2, 8)
+    n = eng.precompile(multi_step=multi_step_compile_ks("auto:4"))
+    assert n == len(eng.precompile_keys((2, 4))) == eng.programs.count
+    work = [(p, GenerationConfig(max_new_tokens=10, temperature=0.7 if i % 4 == 3 else 0.0,
+                                 seed=i)) for i, p in enumerate(_graph_prompts(12))]
+    outs = []
+    for kw in (dict(multi_step="auto:4"), {}):
+        sched = ContinuousBatchingScheduler(eng, seed=0, **kw)
+        reqs = [sched.submit(p, g) for p, g in work]
+        sched.run()
+        outs.append([r.output for r in reqs])
+    assert eng.programs.count == n  # serving captured no graph
+    kinds = eng.programs.runs_by_kind()
+    assert eng.programs.replays == sum(kinds.values()) and kinds["decode_k"] > 0
+    assert kinds["prefill_slots"] == kinds["sample"] == 2 * len(work)
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_does_not_depend_on_the_window():
+    # tolerance 0: kernel 7 under the wrapper's plan (pages per split from
+    # the table's width) gives a slot the same bits at windows 4, 8 and 16
+    # pages of a 16-page table: Vicuna-7B's b8 shape, slots within 4 pages
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, H, D, ps, maxp, hb = 8, 32, 128, 128, 16, 8
+    shape = (H // hb, 1, B * maxp + 1, ps, hb * D)
+    kp, vp = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    table = (torch.randperm(B * maxp, generator=torch.Generator().manual_seed(1)) + 1)
+    table = table.int().reshape(B, maxp).cuda()
+    lengths = torch.randint(0, 4 * ps, (B,), generator=g, device="cuda", dtype=torch.int32)
+    q = torch.randn((B, H, 1, D), generator=g, device="cuda").to(torch.bfloat16)
+    outs = [pa.paged_flash_decode(q, kp, vp, None, None, table, lengths, 0,
+                                  num_pages_window=w, head_dim=D) for w in (4, 8, 16)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert [pa.launch_plan(q, kp, table, w) for w in (4, 8, 16)] == [(2, 2), (2, 4), (2, 8)]

@@ -4,9 +4,9 @@ On a CUDA engine every decode step replays one captured graph; on the
 CPU the same step function runs eagerly through the same fixed buffers.
 These tests hold that function against the engine's decode path as it
 was before the step became a program (``forward`` on the host lengths,
-then ``sample_token_perslot``), bit for bit: both run the same plain
-kernels in the same order, so logits, tokens and the KV cache agree
-exactly (tolerance 0). They also hold the pieces that make the step
+then ``sample_token_perslot`` at the same (seed, step)), bit for bit:
+both run the same plain kernels in the same order, so logits, tokens
+and the KV cache agree exactly (tolerance 0). They also hold the pieces that make the step
 capturable: the step reads no host mirror, the device write index and
 the batched slot scatter equal the host index and the per-slot loop,
 and a repeated workload asks for no new step program. Greedy tokens
@@ -57,14 +57,15 @@ def _cache_tensors(cache):
     return {n: t for n, t in out.items() if t is not None}
 
 
-def _eager_step(eng, tokens, active, gens, temps, top_p, window):
+def _eager_step(eng, tokens, active, seeds, steps, temps, top_p, window):
     """The decode step as the engine ran it before it became a step
     program: forward from the host lengths, then the per-slot sampler."""
     logits, eng.cache = forward(eng.params, eng.cfg, tokens, eng.cache,
                                 seq_lens=torch.from_numpy(active.astype(np.int64)),
                                 attn_window=window)
-    t = np.where(active, temps, 0.0)
-    nxt = sample_token_perslot(logits, gens, t, top_p, 64)
+    t = torch.from_numpy(np.where(active, temps, 0.0).astype(np.float32))
+    nxt = sample_token_perslot(logits, torch.tensor(seeds), torch.tensor(steps), t,
+                               torch.full(t.shape, top_p), 64)
     return logits, torch.where(torch.from_numpy(active), nxt, tokens[:, 0])
 
 
@@ -79,31 +80,34 @@ def test_step_program_matches_eager_forward(model, kv):
     seen = []
     run = eng.programs.run
     eng.programs.run = lambda *a: seen.append(run(*a)) or seen[-1]
-    gens = [torch.Generator().manual_seed(5), None]
-    ref_gens = [torch.Generator().manual_seed(5), None]
+    seeds = np.array([5, 9])
     active = np.array([True, False])  # slot 1 frozen
     tok = torch.tensor([[11], [13]])
     frozen = int(eng.cache.lengths[1])
     for step, temp in enumerate((0.0, 0.0, 0.8)):
         temps = np.array([temp, 0.7], np.float32)
-        got = eng._decode_sample(tok, active, gens, temps, 0.9, attn_window=16, top_k=64)
-        want_logits, want = _eager_step(ref, tok, active, ref_gens, temps, 0.9, 16)
+        steps = np.array([step, step])
+        got = eng._decode_sample(tok, active, seeds, steps, temps, 0.9, attn_window=16,
+                                 top_k=64)
+        want_logits, want = _eager_step(ref, tok, active, seeds, steps, temps, 0.9, 16)
         assert torch.equal(seen[-1][0], want_logits), step
         assert torch.equal(got, want), step
         assert int(got[1]) == 13 and int(eng.cache.lengths[1]) == frozen
         tok = got[:, None]
-    # a K-step block against K eager steps
+    # a K-step block against K eager steps at steps 3 and 4
     temps = np.array([0.8, 0.0], np.float32)
-    block = eng._decode_sample_k(tok, active, gens, temps, 0.9, attn_window=32, k_steps=2)
+    block = eng._decode_sample_k(tok, active, seeds, np.array([3, 3]), temps, 0.9,
+                                 attn_window=32, k_steps=2)
     for i in range(2):
-        want_logits, want = _eager_step(ref, tok, active, ref_gens, temps, 0.9, 32)
-        assert torch.equal(seen[-2 + i][0], want_logits) and torch.equal(block[i], want)
+        _, want = _eager_step(ref, tok, active, seeds, np.array([3 + i] * 2), temps, 0.9, 32)
+        assert torch.equal(block[i], want)
         tok = want[:, None]
     a, b = _cache_tensors(eng.cache), _cache_tensors(ref.cache)
     assert a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
     assert int(eng.cache.lengths[0]) == len(prompts[0]) + 5
-    assert eng.decode_forwards == 5 and eng.programs.keys == {
-        ("decode", 2, 16), ("decode", 2, 32)}
+    assert eng.decode_forwards == 5
+    assert {k for k in eng.programs.keys if k[0].startswith("decode")} == {
+        ("decode", 2, 16), ("decode_k", 2, 2, 32)}
 
 
 @pytest.mark.parametrize("kv", ["slot-bf16", "paged-int8"])
@@ -115,13 +119,13 @@ def test_step_reads_no_host_mirror(kv):
     for poison, eng in zip((False, True), engs):
         eng.prefill([[3, 9, 27, 81, 17], [7, 1, 4, 2]], reserve_tokens=8)
         active = np.array([True, True])
-        eng._stage_decode(torch.tensor([[11], [13]]), active)
+        eng._stage_decode(torch.tensor([[11], [13]]), active, [1, 2], [0, 0], 0.8, 0.9)
         lengths = eng.cache.lengths.clone()
         if poison:
             eng.cache.lengths[:] = 10_000
             if kv.startswith("paged"):
-                eng.cache.table_host = torch.full_like(eng.cache.table_host, 999)
-        logits, nxt = eng.programs.run(*eng._decode_program_args(16))
+                eng._table_np[:] = 999
+        logits, nxt = eng.programs.run(*eng._program(("decode", 2, 16)))
         outs.append((logits.clone(), nxt.clone(), eng.cache.lengths_dev.clone()))
         eng.cache.lengths.copy_(lengths)
     assert all(torch.equal(a, b) for a, b in zip(*outs))
@@ -133,14 +137,18 @@ def test_step_reads_no_host_mirror(kv):
 @pytest.mark.parametrize("lengths", [[13, 7, 0], [63, 64, 8], [40, 16, 23]],
                          ids=["mid-page", "at-capacity", "page-starts"])
 def test_device_write_index_matches_host(lengths):
-    # tolerance 0: integer indices
+    # tolerance 0: integer indices. The host rule of a decode write (S ==
+    # 1): the page column clamped to the table's last, every token written
     rng = np.random.default_rng(1)
     table = rng.permutation(np.arange(1, 40))[:24].reshape(3, 8).astype(np.int32)
-    want = tpc.paged_write_index(table, np.array(lengths), 1, 8, "cpu")
-    got = tpc.paged_decode_index(torch.from_numpy(table), torch.tensor(lengths), 8)
-    assert want.sel is None and got.sel is None
-    assert torch.equal(got.flat, want.flat)
-    assert torch.equal(got.k_scale_index(2), want.k_scale_index(2))
+    pos = np.array(lengths)
+    pid = table[np.arange(3), np.minimum(pos // 8, 7)].astype(np.int64)
+    want = torch.from_numpy(pid * 8 + pos % 8)
+    got = tpc.paged_write_index(torch.from_numpy(table), torch.tensor(lengths), 1, 8)
+    assert torch.equal(got.flat, want)
+    hh = np.arange(2)
+    kidx = ((pid[:, None] * 2 + hh[None]) * 8 + (pos % 8)[:, None]).reshape(-1)
+    assert torch.equal(got.k_scale_index(2), torch.from_numpy(kidx))
 
 
 def _old_slot_write(cache, l, k, v, starts):
@@ -173,7 +181,8 @@ def test_batched_slot_scatter_matches_loop(dtype, S):
     q, k, v = (torch.randn((3, S, H, D), generator=g).to(torch.bfloat16) for _ in range(3))
     new, old = (init_kv_cache(cfg, 3, smax, dtype=dtype, device="cpu") for _ in range(2))
     start_dev = torch.tensor(starts)
-    out = _attend_slot(q, k, v, new, l, slot_write_index(start_dev, S, smax), start_dev, None)
+    out = _attend_slot(q, k, v, new, l, slot_write_index(start_dev, S, smax), start_dev, None,
+                       None)
     _old_slot_write(old, l, k, v, starts)
     for name in ("k", "v", "k_scale", "v_scale"):
         a, b = getattr(new, name), getattr(old, name)
@@ -204,7 +213,8 @@ def test_repeated_workload_asks_no_new_step_program(layout):
 
     workload()
     keys = set(eng.programs.keys)
-    assert keys and all(k[:2] == ("decode", 2) for k in keys)
+    assert {k[0] for k in keys} == {"prefill", "prefill_slots", "sample", "decode"}
+    assert all(k[:2] == ("decode", 2) for k in keys if k[0] == "decode")
     workload()
     assert eng.programs.keys == keys
     assert eng.precompile() == 0 and eng.programs.count == 0  # the CPU captures nothing
@@ -225,4 +235,4 @@ def test_greedy_tokens_match_jax_engine(layout):
     eng = InferenceEngine(get_config("tiny-llama"), tp, device="cpu", **kw)
     got = eng.generate(prompts, GenerationConfig(max_new_tokens=10, temperature=0.0))
     assert got == want
-    assert {k[2] for k in eng.programs.keys} == {16, 32}
+    assert {k[2] for k in eng.programs.keys if k[0] == "decode"} == {16, 32}

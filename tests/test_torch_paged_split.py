@@ -148,3 +148,35 @@ def test_split_plan_ignores_lengths():
                                           pages_per_split=pps)
         assert torch.isfinite(out.float()).all()
     assert len(plans) == 1
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+def test_split_plan_does_not_depend_on_the_window(pages):
+    # tolerance 0: the plan takes its pages per split from the table's
+    # width, so a slot within every window below gets the same splits
+    # (the ones past its pages empty) and the same bits, whatever window
+    # the batch's longest slot sets: Vicuna-7B's b8 shape (32 kv-heads, D
+    # 128), a 16-page table, slots within 4 pages
+    rng = np.random.default_rng(7)
+    B, H, D, ps, maxp = 8, 32, 128, 8, 16
+    hb = jpc.default_head_block(H)
+    shape = (H // hb, 1, B * maxp + 1, ps, hb * D)
+    ks = vs = None
+    if pages == "int8":
+        kp, vp = (torch.randint(-127, 128, shape, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((H // hb, 1, B * maxp + 1) + s) * 0.02 + 1e-3
+                  for s in ((hb, ps), (ps, hb)))
+    else:
+        kp, vp = (torch.randn(shape).to(torch.bfloat16) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(B * maxp)[:B * maxp] + 1).int().reshape(B, maxp)
+    lengths = torch.from_numpy(rng.integers(0, 4 * ps, B)).int()
+    q = torch.randn((B, H, 1, D)).to(torch.bfloat16)
+    outs, plans = [], []
+    for window in (4, 8, 16):
+        pps, nsplit = pa.launch_plan(q, kp, table, window)
+        plans.append((pps, nsplit))
+        outs.append(pa.paged_flash_decode_plain(q, kp, vp, ks, vs, table, lengths, 0,
+                                                num_pages_window=window, head_dim=D,
+                                                pages_per_split=pps))
+    assert plans == [(2, 2), (2, 4), (2, 8)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])

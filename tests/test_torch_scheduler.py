@@ -380,14 +380,19 @@ def test_admission_clamp_keeps_newest_end(params):
 
 def test_sampler_draws_depend_only_on_own_generator():
     """Identical logits rows under different batch compositions give
-    identical draws: a row's draw reads only its own generator."""
+    identical draws: a row's draw reads only its own (seed, step), the
+    generator of its stream."""
     row = torch.from_numpy(np.random.default_rng(4).standard_normal(256).astype(np.float32))
     other = torch.from_numpy(np.random.default_rng(5).standard_normal((3, 256)).astype(np.float32))
 
     def draws(batch, pos, temps, n=6):
-        gens = [torch.Generator().manual_seed(100 + i) for i in range(len(batch))]
-        gens[pos] = torch.Generator().manual_seed(42)
-        return [int(sample_token_perslot(batch, gens, temps, 0.95)[pos]) for _ in range(n)]
+        B = len(batch)
+        seeds = torch.arange(100, 100 + B)
+        seeds[pos] = 42
+        return [int(sample_token_perslot(batch, seeds, torch.full((B,), step),
+                                         torch.tensor(temps, dtype=torch.float32),
+                                         torch.full((B,), 0.95))[pos])
+                for step in range(n)]
 
     a = draws(row[None], 0, [0.9])
     b = draws(torch.stack([other[0], other[1], row, other[2]]), 2, [0.0, 1.3, 0.9, 0.7])

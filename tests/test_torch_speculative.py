@@ -115,7 +115,8 @@ def test_speculative_matches_greedy_at_window_edge(params):
     stats = {}
     got = generate_speculative(eng, prompt, max_new_tokens=100, draft_k=8, stats=stats)
     assert got == want, (len(got), len(want), stats)
-    assert any(k[2] == 1 for k in eng.programs.keys)  # the edge's S = 1 passes
+    # the edge's S = 1 passes
+    assert any(k[0] == "verify" and k[2] == 1 for k in eng.programs.keys)
 
 
 def test_speculative_reuses_programs(params):
@@ -124,7 +125,9 @@ def test_speculative_reuses_programs(params):
     eng = _engine(params, max_seq_len=64)
     generate_speculative(eng, [5, 6, 7, 5, 6, 7], max_new_tokens=8, draft_k=4)
     progs, keys = eng._speculative_programs, set(eng.programs.keys)
-    assert keys and all(k[:3] == ("verify", 1, 4) for k in keys)
+    verify = {k for k in keys if k[0] == "verify"}
+    assert verify and all(k[:3] == ("verify", 1, 4) for k in verify)
+    assert {k[0] for k in keys - verify} == {"prefill"}  # the prompt's prefill program
     generate_speculative(eng, [5, 6, 7, 5, 6, 7], max_new_tokens=8, draft_k=4)
     assert eng._speculative_programs is progs and eng.programs.keys == keys
 
