@@ -4,11 +4,12 @@
 
 Phases (any failed check exits non-zero before the last line):
 
-1. card identity (nvidia-smi name and power limit), then the seven kernel
+1. card identity (nvidia-smi name and power limit), then the eight kernel
    sources are built from csrc/ with nvcc, one process per source, all at
    once (build seconds printed, and ptxas's registers, shared memory,
    spills and performance notes of the five sources on the wgmma
-   mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp; then
+   mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp, and of
+   kernel 8, flash_prefill; then
    each gemm_plane instantiation's registers, spills and C7512 notes: the
    m tile of 256 must be there for int3/u16, fp4 and int8, in bf16 and in
    f16, without spills; and each instantiation of the weight-streaming
@@ -16,7 +17,12 @@ Phases (any failed check exits non-zero before the last line):
    there, without spills);
 2. kernel phase: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes of the main paths, with kernel,
-   plain, bound and library times: at the Vicuna-7B shapes q4bf16 (qsplit
+   plain, bound and library times: kernel 8 (the reset prefill's causal
+   flash attention) on the forward's strided q, k and v at Vicuna-7B's
+   (1, 32, 1024, 128) and (1, 32, 2048, 128) in bf16, the G = 2 admission
+   (2, 32, 1024, 128), (1, 32, 1024, 128) in f16 and f32, and MOSS's (1,
+   24, 1024, 256) in bf16 (library: scaled_dot_product_attention(
+   is_causal=True)); at the Vicuna-7B shapes q4bf16 (qsplit
    GEMV at m=1, 3 and 8: m = 8 is the b1 verify pass at K = 8; GEMM at
    m=32, the b8 scheduler's verify pass at K = 4, m=128 and m=2048, and on
    the flat lm head at m=32 and 128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
@@ -68,6 +74,19 @@ Phases (any failed check exits non-zero before the last line):
    (window 512, stride 256, 2048 tokens: every window's layer matmuls and
    its lm head at m = 512 on gemm_qs, launches held) and evaluate
    --profile;
+5a. flash phases, on the same params: a b1 chat on bf16 slot KV whose
+   first turn is a 1559-token prompt (the reset prefill at bucket 2048:
+   kernel 8 once a layer), then a short append turn (none), the two
+   prefills' program keys apart by their flash flag; a 1500-token reset
+   prefill's logits held against the same block through
+   forward_block(prefill_flash=False) (attend) at LOGIT_RTOL; then the b8
+   slot scheduler, precompiled, admits four greedy requests of 1500,
+   1800, 1024 and 1300 tokens (the first two as one G = 2 admission;
+   kernel 8 3L times) with the same streams as on an engine that runs its
+   programs eagerly; q3f16_s16 on f16 slot KV (phase 8b) and MOSS (phase
+   10) each run one 1100-token flash prefill held the same way. Every
+   other path (paged, int8, short prompts) is held to 0 launches of
+   kernel 8;
 5b. speculation phase, on the same params: (a) b1 slot KV, the motif
    prompt of scripts/spec_bench.py (64 tokens) through speculative_stream
    at K = 8 with three drafters: one that proposes nothing (the no-draft
@@ -190,6 +209,7 @@ from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
 from mlc_llm_tpu_torch.engine.session import ChatConfig, ChatSession
 from mlc_llm_tpu_torch.models import (
     forward,
+    forward_block,
     get_config,
     init_kv_cache,
     init_paged_kv_cache,
@@ -198,6 +218,7 @@ from mlc_llm_tpu_torch.models import (
 from mlc_llm_tpu_torch.models.hf_loader import params_from_hf
 from mlc_llm_tpu_torch.models.transformer import pad_params, param_bytes, tree_map
 from mlc_llm_tpu_torch.ops import KERNELS, build_kernels, load_kernel
+from mlc_llm_tpu_torch.ops import attention as att
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import matmul as mm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
@@ -297,6 +318,11 @@ SOURCES = {
                    "mlc_llm_tpu/ops/pallas/dequant_matmul.py:725"),
     "paged_flash_decode": ("mlc_llm_tpu_torch/csrc/paged_flash_decode.cu",
                            "mlc_llm_tpu/ops/pallas/paged_attention.py:145"),
+    # flash_prefill (mlc_llm_tpu/ops/attention.py:125) calls JAX's library
+    # kernel, whose pallas_call body is _flash_attention_kernel_single_batch
+    # (jax 0.9.0, jax/experimental/pallas/ops/tpu/flash_attention.py:342)
+    "flash_prefill": ("mlc_llm_tpu_torch/csrc/flash_prefill.cu",
+                      "mlc_llm_tpu/ops/attention.py:125"),
 }
 QSPLIT_F32 = dataclasses.replace(QUANT_PRESETS["q4f32"], layout="qsplit")
 # (label, spec, shapes, lm head in f32, [(kernel, {shape: ms})]): the m of
@@ -464,7 +490,7 @@ def fail(msg: str):
 
 COUNTED = {"gemv_qs": dm.gemv_qs, "gemm_qs": dm.gemm_qs, "gemv_gp": dm.gemv_gp,
            "gemm_pairs": dm.gemm_pairs, "gemv_gp3": dm.gemv_gp3, "gemm_plane": dm.gemm_plane,
-           "paged_flash_decode": pa.paged_flash_decode}
+           "paged_flash_decode": pa.paged_flash_decode, "flash_prefill": att.flash_prefill}
 
 
 def reset_counters():
@@ -750,12 +776,87 @@ def paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window,
     return rows
 
 
+# kernel 8's cases: (label, B, query heads, kv-heads, S, D, dtype): a reset
+# prefill at Vicuna-7B's buckets 1024 and 2048, the grouped admission at G =
+# 2, the f16 body (q3f16_s16) and the f32 body (q4f32 and f32 on Vicuna),
+# and MOSS (D 256)
+FLASH_CASES = [
+    ("vicuna", 1, 32, 32, 1024, 128, torch.bfloat16),
+    ("vicuna", 1, 32, 32, 2048, 128, torch.bfloat16),
+    ("vicuna G=2", 2, 32, 32, 1024, 128, torch.bfloat16),
+    ("vicuna", 1, 32, 32, 1024, 128, torch.float16),
+    ("vicuna", 1, 32, 32, 1024, 128, torch.float32),
+    ("moss", 1, MOSS.num_heads, MOSS.num_kv_heads, 1024, MOSS.head_dim, torch.bfloat16),
+]
+
+
+def flash_bound(B, hq, hkv, S, D, esize, flops):
+    """Least time (ms) of one causal flash prefill: q and o (hq heads) and
+    k and v (hkv heads) moved once, against `flops` for the 2 * B * hq * S^2
+    * D operations of the two causal products (half the square each)."""
+    nbytes = (2 * hq + 2 * hkv) * B * S * D * esize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * B * hq * S * S * D / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_rows(gen, flush):
+    """flash_prefill at each FLASH_CASES shape, q, k and v the strided views
+    of one [B, S, (hq + 2 hkv) D] projection as the forward hands them
+    over; the library yardstick is scaled_dot_product_attention(is_causal=
+    True) on the same views (the port never calls it)."""
+    rows = []
+    for label, B, hq, hkv, S, D, dt in FLASH_CASES:
+        qkv = torch.randn((B, S, (hq + 2 * hkv) * D), generator=gen, device="cuda").to(dt)
+        q, k, v = (t.reshape(B, S, -1, D).transpose(1, 2)
+                   for t in qkv.split([hq * D, hkv * D, hkv * D], dim=-1))
+
+        def run_kernel():
+            return att.flash_prefill(q, k, v)
+
+        def run_plain():
+            return att.flash_prefill_plain(q, k, v)
+
+        def run_library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, **({"enable_gqa": True} if hq != hkv else {}))
+
+        got, want = run_kernel(), run_plain()
+        lib = run_library()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        f32 = dt == torch.float32
+        tol = F32_KERNEL_TOL if f32 else dict(atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        ok = got.dtype == dt and torch.allclose(got.float(), want.float(), **tol)
+        esize = torch.empty((), dtype=dt).element_size()
+        b_ms, b_by = flash_bound(B, hq, hkv, S, D, esize, F32_FMA_FLOPS if f32 else BF16_FLOPS)
+        dts = str(dt).replace("torch.", "")
+        name = f"{label} b{B} S{S} D{D} {dts}"
+        row = dict(kernel="flash_prefill", shape=name, dtype=dts, m=B * S, k=S, n=hq, d=D,
+                   max_abs_err=err, ms=time_ms(run_kernel, flush, 20),
+                   plain_ms=time_ms(run_plain, flush, 3),
+                   library_ms=time_ms(run_library, flush, 20), bound_ms=b_ms, bound_by=b_by)
+        row["tflops"] = 2 * B * hq * S * S * D / (row["ms"] * 1e-3) / 1e12
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        print(f"  flash_prefill {name}: max_abs_err={err:.3g} (library vs plain {lib_err:.3g}) "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"{row['tflops']:.1f} TFLOP/s, {row['vs_library']:.2f}x library, "
+              f"{row['ms'] / b_ms:.1f}x bound")
+        if not ok:
+            fail(f"flash_prefill {name} disagrees with its plain version (max {err})")
+        rows.append(row)
+        del qkv, q, k, v, got, want, lib
+    return rows
+
+
 def kernel_phase():
     print("== kernel phase (torch.backends.cuda.matmul.allow_tf32 = False)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
-    rows = matmul_rows(gen, flush) + paged_rows(gen, flush)
+    rows = flash_rows(gen, flush) + matmul_rows(gen, flush) + paged_rows(gen, flush)
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -1060,12 +1161,15 @@ PATH_KERNELS = {"q4bf16": {"prefill": "gemm_qs", "m1": "gemv_qs", "m8": "gemv_qs
 
 
 def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0,
-                      b8_forwards=0):
+                      b8_forwards=0, flash_prefills=0):
     """Launch counts a path implies: per prefill 4L layer matmuls and the
     lm head at m=1; per b1 decode step 4L + 1 matmuls at m=1; per b8
-    decode forward 4L + 1 matmuls at m=8 and L paged decodes."""
+    decode forward 4L + 1 matmuls at m=8 and L paged decodes; per reset
+    prefill of at least 1024 tokens on the slot cache (flash_prefills of
+    the prefills) L flash attentions (kernel 8)."""
     k, L = PATH_KERNELS[quant], layers
     want = dict.fromkeys(COUNTED, 0)
+    want["flash_prefill"] += L * flash_prefills
     want[k["prefill"]] += 4 * L * prefills
     want[k["m1"]] += (4 * L + 1) * b1_steps + prefills
     want[k["m8"]] += (4 * L + 1) * b8_forwards
@@ -1136,6 +1240,17 @@ def graph_stats(engine):
                 graph_pool_bytes=engine.programs.pool_bytes())
 
 
+def flash_prefills_since(engine, mark, cfg):
+    """The prefill programs run since `mark` that take kernel 8: a reset
+    or fresh block (the key's flash flag) whose bucket and head dim pass
+    the gate, on a cache that is not int8."""
+    if engine.cache_dtype == torch.int8:
+        return 0
+    delta = collections.Counter(engine.programs.runs) - mark[0]
+    return sum(n for key, n in delta.items() if key[0].startswith("prefill") and key[-1]
+               and att.flash_prefill_supported(key[2], cfg.head_dim))
+
+
 def program_mark(engine):
     """A mark of the engine's program runs (by key) and graph replays."""
     return collections.Counter(engine.programs.runs), engine.programs.replays
@@ -1199,6 +1314,9 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
     wall = time.perf_counter() - t0
     launches = read_counters()
     runs = runs_since(engine, mark, f"{cfg.name} {quant} chat")
+    # a turn re-encoded from position 0 at bucket >= 1024 is a flash reset
+    # prefill (MOSS's long template at its 1024 bucket)
+    flash = flash_prefills_since(engine, mark, cfg)
     steps = engine.stats.decode_tokens
     stats = dict(model=cfg.name, quant=quant, kv=kv, param_bytes=nbytes, prefill_ms=ttft,
                  decode_tok_s=engine.stats.decode_tps, decode_steps=steps,
@@ -1212,8 +1330,8 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
                 "forwards": steps}:
         fail(f"{len(prompts)} turns of {steps} decode steps ran the programs {runs}")
     want = expected_launches(quant, layers=cfg.num_layers, b1_steps=steps,
-                             prefills=len(prompts))
-    print(f"  launches: {launches} (want {want})")
+                             prefills=len(prompts), flash_prefills=flash)
+    print(f"  launches: {launches} (want {want}; {flash} flash reset prefills)")
     if steps == 0 or launches != want:
         fail("launch counts do not match the chat path")
     if idle_share:
@@ -1232,6 +1350,180 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
               f"of kernels -> device idle share {stats['device_idle_share']:.4f} of its "
               f"{turn_wall:.3f} s wall")
     return launches, stats
+
+
+# the flash chat's first turn: 1386 bytes of text, 1559 tokens with the
+# vicuna template (ByteTokenizer: a token a byte), so the reset prefill runs
+# the 2048 bucket
+FLASH_TURN = " ".join(
+    f"Paragraph {i}: the reset prefill attends over its own keys and values, tile by tile, "
+    "with the online softmax kept in registers." for i in range(11))
+
+
+def flash_logits_check(engine, cfg, label, n, seed=11):
+    """One reset prefill of n >= 1024 random tokens through the engine's
+    program (a graph replay: kernel 8 once a layer), its logits held
+    against the same block through forward_block(..., prefill_flash=False)
+    run eagerly (attend over the cache), as a share of the largest |logit|,
+    at LOGIT_RTOL: kernel 8 rounds p against its key tiles' running max
+    and attend rounds the normalised probabilities, each to the compute
+    type, and the random full-width layers amplify a rounding that goes the
+    other way as they do card against CPU (4.2% there). Leaves the engine
+    reset."""
+    toks = [int(t) for t in np.random.default_rng(seed).integers(3, cfg.vocab_size, n)]
+    engine.reset()
+    reset_counters()
+    got = engine.prefill([toks])
+    torch.cuda.synchronize()
+    counts = read_counters()
+    launches = counts["flash_prefill"]
+    bucket = engine.bucket_for(n)
+    block = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+    block[0, :n] = torch.tensor(toks, device="cuda")
+    engine.reset()
+    want = forward_block(engine.params, cfg, block, engine.cache, None,
+                         torch.zeros(1, dtype=torch.int64, device="cuda"),
+                         torch.tensor([n], device="cuda"),
+                         attn_window=engine.decode_window(bucket), prefill_flash=False)
+    torch.cuda.synchronize()
+    engine.reset()
+    share = ((got - want).abs().max() / want.abs().max()).item()
+    same_top = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    out = dict(tokens=n, bucket=bucket, flash_launches=launches, logit_share=share,
+               argmax_equal=same_top, launches=counts)
+    print(f"  {label}: a {n}-token reset prefill (bucket {bucket}) ran kernel 8 {launches} "
+          f"times (want {cfg.num_layers}); its logits against attend's: {share:.4g} of max "
+          f"|logit| (limit {LOGIT_RTOL}), argmax equal {same_top}")
+    if launches != cfg.num_layers or not torch.isfinite(got).all() or share > LOGIT_RTOL:
+        fail(f"{label}: the flash reset prefill did not run kernel 8 once a layer, or its "
+             f"logits are not finite or differ from attend's")
+    return out
+
+
+def flash_chat_phase(params, cfg=VICUNA, quant="q4bf16"):
+    """b1 chat on a bf16 slot cache whose first turn is a 1559-token
+    prompt (the reset prefill at bucket 2048: kernel 8 once a layer), then
+    a short append turn (attend over the history: no kernel 8), launch
+    counts held to the path's and the logits of every forward finite; the
+    program keys of the two prefills differ in their flash flag; then
+    flash_logits_check on the same engine and the graph pool's bytes."""
+    print(f"== flash chat phase: {cfg.name} {quant}, bf16 slot cache, batch 1, a "
+          f"{len(FLASH_TURN)}-byte first turn")
+    engine = InferenceEngine(cfg, params, max_batch=1, max_seq_len=2048, device="cuda")
+    session = ChatSession(engine, ByteTokenizer(), cfg,
+                          ChatConfig(temperature=0.0, max_gen_len=16, max_window_size=2048))
+    reset_counters()
+    mark = program_mark(engine)
+    per_turn, prefill_ms = [], []
+    with finite_logits(f"{cfg.name} {quant} flash chat"):
+        for prompt in (FLASH_TURN, "Thanks, bye."):
+            before = engine.stats.prefill_time
+            session.ask(prompt)
+            prefill_ms.append((engine.stats.prefill_time - before) * 1e3)
+            per_turn.append(read_counters()["flash_prefill"])
+    launches = read_counters()
+    runs = runs_since(engine, mark, f"{cfg.name} flash chat")
+    steps = engine.stats.decode_tokens
+    keys = sorted(k for k in engine.programs.keys if k[0] == "prefill")
+    want = expected_launches(quant, layers=cfg.num_layers, b1_steps=steps, prefills=2,
+                             flash_prefills=1)
+    stats = dict(model=cfg.name, quant=quant, prefill_tokens=engine.stats.prefill_tokens,
+                 prefill_ms=prefill_ms, flash_launches_by_turn=per_turn, decode_steps=steps,
+                 prefill_keys=[list(k) for k in keys], **graph_stats(engine))
+    print(f"  prefill ms per turn {[round(t, 2) for t in prefill_ms]}; kernel 8 launches after "
+          f"each turn {per_turn}; prefill keys {keys}; runs {runs}; pool "
+          f"{stats['graph_pool_bytes']} bytes; launches {launches} (want {want})")
+    # the reset at bucket 2048 (window 2048) with the flag; the append
+    # without it, at the history's window 2048
+    if (per_turn != [cfg.num_layers] * 2 or launches != want
+            or [k[-1] for k in keys] != [False, True] or keys[1][2:4] != (2048, 2048)
+            or keys[0][3] != 2048
+            or runs != {"prefill": 2, "sample": 2, "decode": steps, "forwards": steps}):
+        fail("flash chat: kernel 8 did not run once a layer on the first turn only, or the "
+             "turns' programs or launches are not the path's")
+    check = flash_logits_check(engine, cfg, f"{cfg.name} {quant}", 1500)
+    check.pop("launches")
+    stats["logits"] = check
+    del engine, session
+    return launches, stats
+
+
+FLASH_SCHED_LENS = (1500, 1800, 1024, 1300)  # buckets 2048, 2048, 1024, 2048
+
+
+def flash_scheduler_phase(params, cfg=VICUNA):
+    """The b8 slot scheduler admits four greedy requests of 1024-2000
+    tokens: the first two together (a G = 2 grouped admission at bucket
+    2048), the others one by one (buckets 1024 and 2048), each a flash
+    prefill (kernel 8 once a layer a forward: 3L). Run on an engine that
+    precompile() captured (no graph captured while serving, every run a
+    replay), then on a fresh engine whose programs run eagerly: the
+    streams are equal."""
+    print(f"== flash scheduler phase: {cfg.name} q4bf16, b8 slot cache, 4 requests of "
+          f"{FLASH_SCHED_LENS} tokens")
+    rng = np.random.default_rng(7)
+    work = [([int(t) for t in rng.integers(3, cfg.vocab_size, n)],
+             GenerationConfig(max_new_tokens=16, temperature=0.0)) for n in FLASH_SCHED_LENS]
+    outs, stats = {}, {}
+    for mode in ("graph", "eager"):
+        eng = InferenceEngine(cfg, params, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                              device="cuda")
+        if mode == "graph":
+            t0 = time.perf_counter()
+            n = eng.precompile()
+            stats["precompile_s"] = time.perf_counter() - t0
+            stats["precompiled"] = n
+            mark = program_mark(eng)
+        else:
+            eager_steps(eng)
+        groups = []
+        grouped = eng._prefill_slots
+        eng._prefill_slots = lambda toks, *a, **kw: groups.append(toks.shape) or grouped(
+            toks, *a, **kw)
+        sched = ContinuousBatchingScheduler(eng, seed=0)
+        reset_counters()
+        t0 = time.perf_counter()
+        reqs = [sched.submit(p, g) for p, g in work]
+        sched.run()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        outs[mode] = [r.output for r in reqs]
+        stats[f"{mode}_wall_s"] = wall
+        stats[f"{mode}_launches"] = launches
+        print(f"  {mode}: {wall:.2f} s, grouped admissions {groups}, kernel 8 launches "
+              f"{launches['flash_prefill']} (want {3 * cfg.num_layers}), tokens "
+              f"{[len(o) for o in outs[mode]]}")
+        if launches["flash_prefill"] != 3 * cfg.num_layers or groups != [(2, 2048)]:
+            fail(f"flash scheduler {mode}: kernel 8 launches or grouped admissions are not "
+                 "the path's")
+        if mode == "graph":
+            runs = runs_since(eng, mark, "flash scheduler")
+            stats.update(graph_stats(eng), runs_served=runs)
+            print(f"  precompile captured {n} graphs in {stats['precompile_s']:.1f} s, pool "
+                  f"{stats['graph_pool_bytes']} bytes; the run's replays {runs}")
+            if eng.programs.count != n or runs.get("prefill_slots") != 3:
+                fail(f"flash scheduler: a graph was captured while serving, or the run ran "
+                     f"outside its graphs: {runs}")
+            paths_launches = launches
+        del eng, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  streams graph == eager: {outs['graph'] == outs['eager']}")
+    if outs["graph"] != outs["eager"] or min(len(o) for o in outs["graph"]) < 1:
+        fail("flash scheduler: the precompiled and eager streams differ")
+    return paths_launches, stats
+
+
+def flash_prefill_phase(params, cfg, quant, cache_dtype=torch.bfloat16, n=1100):
+    """flash_logits_check on a b1 slot engine of cfg with a cache_dtype
+    cache (MOSS: D = 256; q3f16_s16 on f16 KV: the f16 body)."""
+    print(f"== flash prefill: {cfg.name} {quant}, {KV_NAMES[cache_dtype]} slot cache, batch 1")
+    engine = InferenceEngine(cfg, params, max_batch=1, max_seq_len=min(cfg.max_seq_len, 2048),
+                             cache_dtype=cache_dtype, device="cuda")
+    out = flash_logits_check(engine, cfg, f"{cfg.name} {quant}", n)
+    out.update(graph_stats(engine))
+    del engine
+    return out.pop("launches"), out
 
 
 def checkpoint_phase(tmp):
@@ -2126,9 +2418,9 @@ def main():
     # the wgmma sources are built in any case, so that ptxas reports them
     # on a warm csrc/build/ too
     logs = build_kernels(KERNELS, extra_flags=("-Xptxas", "-v"),
-                         force=WGMMA_SOURCES + STREAM_SOURCES)
+                         force=WGMMA_SOURCES + STREAM_SOURCES + ("flash_prefill",))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in WGMMA_SOURCES:
+    for name in WGMMA_SOURCES + ("flash_prefill",):
         print(f"  ptxas, {name}.cu:")
         print("\n".join(ptxas_summary(logs[name])))
     # every gemm_plane instantiation: registers, spills, serialized wgmma;
@@ -2173,6 +2465,12 @@ def main():
               f"allocated")
         with phase_seconds("chat phase"):
             paths["chat"], chat_stats = chat_phase(params)
+        torch.cuda.empty_cache()
+        with phase_seconds("flash chat phase"):
+            paths["flash_chat"], flash_chat_stats = flash_chat_phase(params)
+        torch.cuda.empty_cache()
+        with phase_seconds("flash scheduler phase"):
+            paths["flash_scheduler"], flash_sched_stats = flash_scheduler_phase(params)
         torch.cuda.empty_cache()
         with phase_seconds("speculation phase"):
             spec_paths, spec_b1 = spec_b1_phase(params)
@@ -2219,6 +2517,9 @@ def main():
         paths["q3f16_chat"], q3f16_chat_stats = chat_phase(
             params, "q3f16_s16", torch.float16, idle_share=True)
         torch.cuda.empty_cache()
+        paths["q3f16_flash"], q3f16_flash_stats = flash_prefill_phase(
+            params, VICUNA, "q3f16_s16", torch.float16)
+        torch.cuda.empty_cache()
         paths["q3f16_serve"], q3f16_serve_stats = model_serve_phase(
             params, VICUNA, "q3f16_s16", idle_share=True, page_dtype=torch.float16)
         del params
@@ -2252,6 +2553,8 @@ def main():
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         paths["moss_chat"], moss_chat_stats = chat_phase(params, "q4bf16", cfg=MOSS)
         torch.cuda.empty_cache()
+        paths["moss_flash"], moss_flash_stats = flash_prefill_phase(params, MOSS, "q4bf16")
+        torch.cuda.empty_cache()
         paths["moss_serve"], moss_serve_stats = model_serve_phase(params, MOSS, "q4bf16",
                                                                   idle_share=True)
         del params
@@ -2272,7 +2575,8 @@ def main():
             "gemm_pairs": ("q4f32", "w_in", 128, "rp_chat"),
             "gemv_gp3": ("q3bf16_s16", "w_in", 1, "q3_chat"),
             "gemm_plane": ("q3bf16_s16", "w_in", 128, "q3_chat"),
-            "paged_flash_decode": (None, "vicuna b8 bfloat16 KV", SERVE_BATCH, "serve")}
+            "paged_flash_decode": (None, "vicuna b8 bfloat16 KV", SERVE_BATCH, "serve"),
+            "flash_prefill": (None, "vicuna b1 S1024 D128 bfloat16", 1024, "flash_chat")}
     for kname, (quant, shape, m, path) in tops.items():
         mine = [r for r in rows if r["kernel"] == kname]
         top = next(r for r in mine
@@ -2298,6 +2602,8 @@ def main():
                       "q3f16_serve": q3f16_serve_stats, **neox_stats,
                       "moss_chat": moss_chat_stats,
                       "moss_serve": moss_serve_stats, "graph": graph_phase_stats,
+                      "flash_chat": flash_chat_stats, "flash_scheduler": flash_sched_stats,
+                      "flash_q3f16": q3f16_flash_stats, "flash_moss": moss_flash_stats,
                       "speculation_b1": spec_b1, "speculation_scheduler": spec_sched}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,11 +11,11 @@ CUDA graph, keyed as JAX keys its programs on shapes and static
 arguments. The keys (``top_k`` joins a key as ``("top_k", k)`` when it is
 not the default 64):
 
-- ``("prefill", B, bucket, window)``: ``prefill``, a [B, bucket] block at
-  every slot (JAX's ``_prefill``); the chat session, the CLI and
+- ``("prefill", B, bucket, window, flash)``: ``prefill``, a [B, bucket]
+  block at every slot (JAX's ``_prefill``); the chat session, the CLI and
   speculation run it;
-- ``("prefill_slots", G, bucket, window)``: admission, a [G, bucket]
-  block into G target slots given as a device tensor. G = 1 is
+- ``("prefill_slots", G, bucket, window, flash)``: admission, a [G,
+  bucket] block into G target slots given as a device tensor. G = 1 is
   ``_prefill_slot`` (slot or paged, fresh or append, a chunk, a prefix
   adoption's suffix); G = 2, 4, ... is ``_prefill_slots`` (fresh, slot
   layout), JAX's ``_prefill_slot``, ``_prefill_slot_paged`` and
@@ -29,6 +29,16 @@ not the default 64):
 - ``("verify", B, K, window)``: the speculative verify pass
   (``engine/speculative.py``): K/V rows [len, len + K) of every slot,
   no length advanced, each position's greedy token.
+
+``flash`` is JAX's static ``prefill_flash``: the block is a reset prefill
+(every row from position 0) on the slot layout, so its attention may run
+the causal flash kernel over the block itself (``models/transformer.py``).
+It is part of the key because a graph captured with the branch would skip
+the history if it were replayed for an append of the same bucket and
+window. It is set for a reset ``prefill``, a fresh admission and a
+grouped one on the slot layout, as JAX's ``engine.py:727`` and its
+scheduler's ``prefill_flash=not append`` and ``True`` (``scheduler.py:514,
+336``) set it; paged blocks never take it.
 
 A program reads fixed buffers that the engine fills from pinned host
 memory before each run (tokens, target slots, starts, seq_lens, the
@@ -214,17 +224,18 @@ class InferenceEngine:
         the first-token sampler of each G the engine's paths use (1 for
         an admission, the grouped G, max_batch for generate); per decode
         window, the decode step and (multi_step: an int K or a sequence)
-        every K-step block."""
+        every K-step block. The prefills are the reset and fresh ones
+        JAX compiles: flash on the slot layout."""
         B = self.max_batch
+        slot = self.kv_layout == "slot"
         # grouped admission (slot layout): the powers of two from 2 to B, as
         # the scheduler rounds a group
-        groups = [] if self.kv_layout != "slot" else [
-            1 << i for i in range(1, B.bit_length())]
+        groups = [1 << i for i in range(1, B.bit_length())] if slot else []
         keys = []
         for b in self.buckets:
             w = self.decode_window(b)
-            keys += [("prefill", B, b, w), ("prefill_slots", 1, b, w)]
-            keys += [("prefill_slots", g, b, w) for g in groups]
+            keys += [("prefill", B, b, w, slot), ("prefill_slots", 1, b, w, slot)]
+            keys += [("prefill_slots", g, b, w, True) for g in groups]
         keys += [("sample", g) for g in sorted({1, B, *groups})]
         ks = (multi_step,) if isinstance(multi_step, int) else tuple(multi_step or ())
         for w in sorted({self.decode_window(b) for b in self.buckets} | {self.max_seq_len}):
@@ -337,8 +348,9 @@ class InferenceEngine:
         reset=False appends to the existing KV state (multi-turn chat).
         reserve_tokens: paged mode allocates pages for prompt +
         reserve_tokens up front (generate_stream passes max_new_tokens).
-        One run of the ("prefill", B, bucket, window) program. Returns
-        last-token logits [B, V] f32 on the device (a copy)."""
+        One run of the ("prefill", B, bucket, window, flash) program, flash
+        for a reset on the slot layout. Returns last-token logits [B, V]
+        f32 on the device (a copy)."""
         B = self.max_batch
         if len(prompts) > B:
             raise ValueError(f"{len(prompts)} prompts for max_batch {B}")
@@ -369,7 +381,8 @@ class InferenceEngine:
             start_max = int(lens_host[: len(prompts)].max())
             window = self.decode_window(min(start_max + bucket, self.max_seq_len))
         t0 = time.perf_counter()
-        logits = self._run_block("prefill", toks, np.arange(B), lens_host, seq_lens, window)
+        logits = self._run_block("prefill", toks, np.arange(B), lens_host, seq_lens, window,
+                                 reset and self.kv_layout != "paged")
         self.cache.lengths += torch.from_numpy(seq_lens)
         synchronize(self.device)
         self.stats.prefill_time += time.perf_counter() - t0
@@ -466,13 +479,13 @@ class InferenceEngine:
         kind = key[0]
         top_k = key[-1][1] if isinstance(key[-1], tuple) else DEFAULT_TOP_K
         if kind in ("prefill", "prefill_slots"):
-            _, G, S, window = key
+            _, G, S, window, flash = key
             toks, ints = self._block_buffers(G, S)
             slots = None if kind == "prefill" else ints[0]
 
             def fn():
                 return (forward_block(self.params, self.cfg, toks, self.cache, slots, ints[1],
-                                      ints[2], attn_window=window),)
+                                      ints[2], attn_window=window, prefill_flash=flash),)
 
             def warm_up():
                 staged = ints[2].clone()
@@ -562,17 +575,18 @@ class InferenceEngine:
         return self._verify_tokens[K]
 
     def _run_block(self, kind: str, tokens: np.ndarray, slots, starts, seq_lens,
-                   window: Optional[int]) -> torch.Tensor:
+                   window: Optional[int], flash: bool) -> torch.Tensor:
         """Stage a [G, S] block (host tokens, target slots, starts,
-        seq_lens) and run its prefill program; returns a copy of its
-        logits [G, V]. The host lengths are the caller's to advance."""
+        seq_lens) and run its prefill program (flash: every row starts at
+        position 0, see the module doc); returns a copy of its logits [G,
+        V]. The host lengths are the caller's to advance."""
         G, S = tokens.shape
         window = window or self.max_seq_len
         toks, ints = self._block_buffers(G, S)
         self._upload(toks, np.asarray(tokens, np.int64))
         self._upload(ints, np.stack([_rows(slots, G, np.int64), _rows(starts, G, np.int64),
                                      _rows(seq_lens, G, np.int64)]))
-        (logits,) = self.programs.run(*self._program((kind, G, S, window)))
+        (logits,) = self.programs.run(*self._program((kind, G, S, window, bool(flash))))
         self.prefill_forwards += 1
         return logits.clone()
 
@@ -657,26 +671,30 @@ class InferenceEngine:
                       attn_window: Optional[int] = None):
         """Prefill ONE slot (tokens [1, S]) without touching the other
         slots' KV state: continuous-batching admission, the
-        ("prefill_slots", 1, S, window) program with the slot and its
-        start staged on the device. append starts from the slot's
+        ("prefill_slots", 1, S, window, flash) program with the slot and
+        its start staged on the device. append starts from the slot's
         existing length instead of 0 (a session turn, a later chunk, an
-        adopted prefix). The slot layout writes the slot's cache rows, the
+        adopted prefix). A fresh row on the slot layout is flash (JAX's
+        scheduler passes ``prefill_flash=not append``; its paged program
+        has no flash). The slot layout writes the slot's cache rows, the
         paged layout the slot's pages through its page-table row."""
         start = int(self.cache.lengths[slot]) if append else 0
-        logits = self._run_block("prefill_slots", tokens, slot, start, seq_len, attn_window)
+        logits = self._run_block("prefill_slots", tokens, slot, start, seq_len, attn_window,
+                                 not append and self.kv_layout == "slot")
         self.cache.lengths[slot] = start + int(seq_len)
         return logits
 
     def _prefill_slots(self, tokens: np.ndarray, seq_lens: np.ndarray, slots: Sequence[int],
                        attn_window: Optional[int] = None):
         """Prefill G fresh slots in one forward (tokens [G, S]; slot
-        layout only, every row starts at position 0): one weight read
-        for all G admissions, the ("prefill_slots", G, S, window)
-        program writing each row straight into its slot's rows."""
+        layout only, every row starts at position 0, so flash, as JAX's
+        scheduler asks): one weight read for all G admissions, the
+        ("prefill_slots", G, S, window, True) program writing each row
+        straight into its slot's rows."""
         if self.kv_layout != "slot":
             raise ValueError("grouped admission prefill is slot-layout only")
         seq_lens = np.asarray(seq_lens, np.int64)
         logits = self._run_block("prefill_slots", tokens, np.asarray(slots, np.int64), 0,
-                                 seq_lens, attn_window)
+                                 seq_lens, attn_window, True)
         self.cache.lengths[list(slots)] = torch.from_numpy(seq_lens)
         return logits

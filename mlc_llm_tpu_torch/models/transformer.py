@@ -14,7 +14,14 @@ On the paged cache, a decode step (one token at every slot) attends
 through ``ops.paged_attention.paged_flash_decode`` (the CUDA kernel on
 the card, its plain version on the CPU); prefill and any other block
 gather the target slots' windowed pages and run ``attend_cache``. The
-paged path never takes a flash-prefill branch.
+paged path never takes a flash-prefill branch. On the slot cache, a
+``prefill_flash`` block (the caller asserts every row starts at position
+0: a reset prefill) whose length and head dim pass
+``ops.attention.flash_prefill_supported`` writes its K/V into the cache
+and then attends over its own post-rotary K/V in the compute dtype
+through ``flash_prefill`` (kernel 8), reading nothing of the cache, as
+JAX's branch does (``mlc_llm_tpu/models/transformer.py:335-345``); the
+int8 cache never takes it.
 
 Every entry point shares one body. ``forward`` is driven from the host:
 the start lengths come from the cache's host mirror, which it advances.
@@ -39,7 +46,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..ops import resolve_device
-from ..ops.attention import attend_cache
+from ..ops.attention import attend_cache, flash_prefill, flash_prefill_supported
 from ..ops.matmul import qmatmul, qmatmul_stacked
 from ..ops.paged_attention import paged_flash_decode
 from ..quant.groupwise import (
@@ -254,11 +261,13 @@ def slot_write_index(start_dev, S: int, smax: int, slots=None):
     return rows[:, None], st[:, None] + torch.arange(S, device=st.device)[None, :]
 
 
-def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window, slots):
+def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window, slots,
+                 prefill_flash: bool = False):
     """Write only the new tokens, IN PLACE (JAX returns an updated copy
     that XLA aliases): one batched scatter a buffer at `slot_index`
     (``slot_write_index``). Then attend the window of the target slots'
-    rows (slots [G]: an index_select of those rows; None: every row)."""
+    rows (slots [G]: an index_select of those rows; None: every row), or,
+    for a flash reset prefill on a non-int8 cache, the block's own K/V."""
     smax = cache.max_len
     kt, vt = k.transpose(1, 2), v.permute(0, 2, 3, 1)  # [B,H,S,D], [B,H,D,S]
     ks = vs = None
@@ -272,6 +281,10 @@ def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window,
     if ks is not None:
         cache.k_scale[l][rows, :, pos] = ks.transpose(1, 2)
         cache.v_scale[l][rows, :, pos] = vs.transpose(1, 2)
+    elif prefill_flash and flash_prefill_supported(q.shape[1], q.shape[-1]):
+        # the block is the whole context: causal attention over its own K/V
+        # in the compute dtype, nothing read back from the cache
+        return flash_prefill(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     W = attn_window or smax
 
     def window(t):  # positions on axis 3 of k and the scales, last of D-major v
@@ -286,7 +299,7 @@ def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window,
 
 def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
            positions, slot_index, slots, start_dev, attn_window: Optional[int],
-           paged: Optional[_PagedStep]):
+           paged: Optional[_PagedStep], prefill_flash: bool = False):
     B, S, _ = h.shape
     nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h_mlp_in = None
@@ -305,7 +318,8 @@ def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
     if paged is not None:
         attn = _attend_paged(q, k, v, cache, l, paged, start_dev, d)
     else:
-        attn = _attend_slot(q, k, v, cache, l, slot_index, start_dev, attn_window, slots)
+        attn = _attend_slot(q, k, v, cache, l, slot_index, start_dev, attn_window, slots,
+                            prefill_flash)
     attn = attn.transpose(1, 2).reshape(B, S, nh * d)
     attn_out = qmatmul_stacked(attn, weights["wo"], l, lp.get("bo"))
     return _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg)
@@ -313,7 +327,8 @@ def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
 
 @torch.no_grad()
 def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
-            seq_lens=None, last_only: bool = True, attn_window: Optional[int] = None):
+            seq_lens=None, last_only: bool = True, attn_window: Optional[int] = None,
+            prefill_flash: bool = False):
     """Run the decoder over a token block appended at each slot's length.
 
     tokens: [B, S] integer tensor on the params' device. cache: a
@@ -321,6 +336,9 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
     (<= S, host ints); tokens beyond are right-padding whose junk K/V is
     rewritten before it is ever read. attn_window bounds the cache
     positions read (caller guarantees lengths + S <= attn_window).
+    prefill_flash: the caller asserts every slot starts at position 0 (a
+    reset prefill); the slot cache's attention then runs the causal flash
+    kernel over the block itself where the gate lets it (JAX's argument).
     Returns (logits f32 [B, V] at each slot's last real token if
     last_only, else [B, S, V]; the cache, updated in place, its host
     lengths advanced by seq_lens)."""
@@ -329,23 +347,25 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
                 else torch.as_tensor(seq_lens, dtype=torch.int64).cpu())
     dev = tokens.device
     logits = _forward(params, cfg, tokens, cache, None, cache.lengths.to(dev), seq_lens.to(dev),
-                      last_only, attn_window)
+                      last_only, attn_window, prefill_flash)
     cache.lengths += seq_lens
     return logits, cache
 
 
 @torch.no_grad()
 def forward_block(params: Params, cfg: ModelConfig, tokens, cache, slots, starts, seq_lens, *,
-                  attn_window: Optional[int] = None, last_only: bool = True):
+                  attn_window: Optional[int] = None, last_only: bool = True,
+                  prefill_flash: bool = False):
     """A token block (tokens [G, S]) that reads no host value: row g is
     written into slot slots[g] from position starts[g] (slots None: row g
     is slot g, G == B), seq_lens[g] of its tokens real. slots, starts and
     seq_lens are [G] int64 device tensors. Sets ``cache.lengths_dev`` of
     the target slots to starts + seq_lens, in place; the host mirror is
-    the caller's to advance. Returns the f32 logits ([G, V] at each row's
-    last real token if last_only, else [G, S, V])."""
+    the caller's to advance. prefill_flash: every row starts at position 0
+    (see ``forward``). Returns the f32 logits ([G, V] at each row's last
+    real token if last_only, else [G, S, V])."""
     logits = _forward(params, cfg, tokens, cache, slots, starts, seq_lens, last_only,
-                      attn_window)
+                      attn_window, prefill_flash)
     end = starts + seq_lens
     if slots is None:
         cache.lengths_dev.copy_(end)
@@ -380,7 +400,7 @@ def forward_verify(params: Params, cfg: ModelConfig, tokens, cache, *,
 
 
 def _forward(params, cfg: ModelConfig, tokens, cache, slots, start_dev, seq_lens,
-             last_only: bool, attn_window: Optional[int]):
+             last_only: bool, attn_window: Optional[int], prefill_flash: bool = False):
     """The decoder body on device values: slots [G] (None: every slot in
     order), start_dev and seq_lens [G] int64 on the tokens' device."""
     B, S = tokens.shape
@@ -410,7 +430,7 @@ def _forward(params, cfg: ModelConfig, tokens, cache, slots, start_dev, seq_lens
     for l in range(cfg.num_layers):
         lp = {k: v[l] for k, v in small.items()}
         h = _layer(h, lp, weights, cache, l, cfg, rot_cos, rot_sin, positions, slot_index,
-                   slots, start_dev, attn_window, paged)
+                   slots, start_dev, attn_window, paged, prefill_flash)
 
     h = _norm(h, params["final_ln"]["w"], params["final_ln"].get("b"), cfg)
     if last_only:

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every source under csrc/: the kernels of the port's paths
 KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp", "dequant_gemm_pairs",
-           "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode")
+           "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode", "flash_prefill")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # the kernels' ticket buffers, by device and stream: see zeroed_tickets;
@@ -167,7 +167,8 @@ def kernel_wrappers() -> tuple:
     kernel, and nowhere else (``engine/programs.py`` adds a captured
     graph's launches at each replay)."""
     from . import dequant_matmul as dm
+    from .attention import flash_prefill
     from .paged_attention import paged_flash_decode
 
     return (dm.gemv_qs, dm.gemm_qs, dm.gemv_gp, dm.gemm_pairs, dm.gemv_gp3, dm.gemm_plane,
-            paged_flash_decode)
+            paged_flash_decode, flash_prefill)

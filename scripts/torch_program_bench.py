@@ -17,6 +17,11 @@ has what it needs:
   host wall (median of 5, synchronized), device kernel time (torch.profiler
   over 3 runs) and the device idle share, 1 - device / wall; and the
   graph admission's costliest kernels;
+- slot_prefill: a 1000- and a 1500-token prompt (buckets 1024 and 2048,
+  the reset prefill's flash buckets on trees with kernel 8) through
+  ``prefill`` on a fresh b1 slot engine (max_seq_len 2048) each, as a
+  graph: host wall, device time, idle share, the graph pool's bytes (the
+  one prefill graph's) and the costliest kernels;
 - b1_step: a 64-token prompt, then 64 new tokens at T 0.7, top-p 0.95,
   seed 0 and greedy, on a b1 slot engine: the decode step's wall (a
   second run), device time a step and idle share;
@@ -116,6 +121,19 @@ def admission(cfg, params, Engine, has_programs):
         if mode == "eager" and has_programs:
             _eager(eng)
         out[f"slot_b1_{mode}"] = _timed(lambda: eng.prefill([prompt]))
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def slot_prefill(cfg, params, Engine):
+    out = {}
+    for n in (1000, 1500):
+        prompt = [int(t) for t in np.random.default_rng(n).integers(3, cfg.vocab_size, n)]
+        eng = Engine(cfg, params, max_batch=1, max_seq_len=2048, device="cuda")
+        run = lambda: eng.prefill([prompt])  # noqa: E731
+        out[f"tokens_{n}"] = dict(_timed(run), pool_bytes=eng.programs.pool_bytes(),
+                                  top_kernels=_top(run))
         del eng
         torch.cuda.empty_cache()
     return out
@@ -228,7 +246,7 @@ def main(argv=None):
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--label", default="change")
     ap.add_argument("--layers", type=int, default=32)
-    ap.add_argument("--only", default="admission,b1_step,k_block,serve")
+    ap.add_argument("--only", default="admission,slot_prefill,b1_step,k_block,serve")
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -250,6 +268,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         if name == "admission":
             res[name] = admission(cfg, params, InferenceEngine, has_programs)
+        elif name == "slot_prefill" and has_programs:
+            res[name] = slot_prefill(cfg, params, InferenceEngine)
         elif name == "b1_step":
             res[name] = b1_step(cfg, params, InferenceEngine, GenerationConfig)
         elif name == "k_block" and has_programs:

@@ -1232,3 +1232,88 @@ def test_cuda_paged_decode_does_not_depend_on_the_window():
                                   num_pages_window=w, head_dim=D) for w in (4, 8, 16)]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     assert [pa.launch_plan(q, kp, table, w) for w in (4, 8, 16)] == [(2, 2), (2, 4), (2, 8)]
+
+
+# kernel 8: the reset prefill's causal flash attention, at Vicuna-7B's (D
+# 128) and MOSS's (D 256) head dims, in bf16, f16 and f32, with GQA and in
+# the forward's strided [B, S, H, D] layout
+def _flash_inputs(B, Hq, Hkv, S, D, dtype, strided, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided:  # q, k, v as the forward hands them over: views of one qkv
+        qkv = torch.randn((B, S, (Hq + 2 * Hkv) * D), generator=g, device="cuda").to(dtype)
+        return tuple(t.reshape(B, S, -1, D).transpose(1, 2)
+                     for t in qkv.split([Hq * D, Hkv * D, Hkv * D], dim=-1))
+    return tuple(torch.randn((B, h, S, D), generator=g, device="cuda").to(dtype)
+                 for h in (Hq, Hkv, Hkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("B,Hq,Hkv,S,strided", [(1, 8, 8, 1024, False), (2, 8, 2, 256, True),
+                                                (1, 4, 1, 2048, True)])
+def test_cuda_flash_prefill_matches_plain(B, Hq, Hkv, S, strided, D, dtype):
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import attention as att
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, D, dtype, strided)
+    before = att.flash_prefill.launches
+    got = att.flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert att.flash_prefill.launches == before + 1
+    assert got.shape == (B, Hq, S, D) and got.dtype == dtype
+    want = att.flash_prefill_plain(q, k, v)
+    # p rounds against the running max of the kernel's key tiles and against
+    # the row's max in the plain version; the f32 sums run in another order
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32_TOL if dtype == torch.float32 else TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((1, 4, 1024, 80), torch.bfloat16),
+                                         ((1, 4, 1000, 128), torch.bfloat16),
+                                         ((1, 4, 1024, 128), torch.int8)])
+def test_cuda_flash_prefill_unsupported_raises(shape, dtype):
+    # a CUDA tensor the kernel does not take raises; nothing falls back
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import attention as att
+
+    x = torch.zeros(shape, dtype=dtype, device="cuda")
+    before = att.flash_prefill.launches
+    with pytest.raises(NotImplementedError):
+        att.flash_prefill(x, x, x)
+    assert att.flash_prefill.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_flash_reset_and_append_replay_their_own_graphs():
+    # a reset prefill at bucket 2048 replays a graph with kernel 8 once a
+    # layer; the same bucket and window from position 0 without the flag
+    # (an append on an empty slot) replays another graph, through attend;
+    # both agree with the plain forward on the CPU at the card's tolerance
+    _need_gpu()
+    from mlc_llm_tpu_torch.engine import InferenceEngine
+    from mlc_llm_tpu_torch.models import get_config, init_random_params
+    from mlc_llm_tpu_torch.ops import attention as att
+
+    cfg = get_config("tiny-llama").replace(hidden_size=256, intermediate_size=512, num_heads=2,
+                                           num_kv_heads=2, max_seq_len=2048)
+    params = init_random_params(cfg, "bf16", seed=0, device="cuda")
+    eng = InferenceEngine(cfg, params, max_batch=1, device="cuda")
+    prompt = [int(t) for t in torch.randint(3, 256, (1100,), generator=torch.Generator()
+                                            .manual_seed(0))]
+    before = att.flash_prefill.launches
+    flash = eng.prefill([prompt])
+    assert att.flash_prefill.launches == before + cfg.num_layers
+    eng.reset()
+    plain = eng.prefill([prompt], reset=False)
+    assert att.flash_prefill.launches == before + cfg.num_layers
+    assert eng.programs.keys == {("prefill", 1, 2048, 2048, True),
+                                 ("prefill", 1, 2048, 2048, False)}
+    assert eng.programs.count == 2
+    cpu = InferenceEngine(cfg, params, max_batch=1, device="cpu")
+    want = cpu.prefill([prompt])
+    for got in (flash, plain):
+        torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)

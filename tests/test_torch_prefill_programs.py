@@ -184,9 +184,11 @@ def test_slot_prefill_programs_match_jax(model, kv):
             group=G)
         tl = _untouched(eng, slots, lambda: eng._prefill_slots(toks, lens, slots, attn_window=16))
         _check(jeng, eng, jl, tl, list(zip(slots, lens)))
-    assert eng.programs.keys == {("prefill", 4, 16, 16), ("prefill_slots", 1, 16, 16),
-                                 ("prefill_slots", 1, 16, 32), ("prefill_slots", 2, 16, 16),
-                                 ("prefill_slots", 4, 16, 16)}
+    # JAX's programs: its static prefill_flash is the key's last field
+    assert eng.programs.keys == {("prefill", 4, 16, 16, True), ("prefill_slots", 1, 16, 16, True),
+                                 ("prefill_slots", 1, 16, 32, False),
+                                 ("prefill_slots", 2, 16, 16, True),
+                                 ("prefill_slots", 4, 16, 16, True)}
 
 
 @pytest.mark.parametrize("model,kv", [("tiny-llama", "int8"), ("tiny-gpt_neox", "bf16")],
@@ -304,8 +306,9 @@ def _jax_precompile_keys(jeng, multi_step, monkeypatch):
             keys.add(("decode", args[1].shape[0], kw["attn_window"]))
         elif kind == "decode_k":
             keys.add(("decode_k", args[1].shape[0], kw["k_steps"], kw["attn_window"]))
-        else:
-            keys.add((kind,) + args[1].shape + (kw["attn_window"],))
+        else:  # the paged programs have no prefill_flash
+            keys.add((kind,) + args[1].shape + (kw["attn_window"],
+                                                kw.get("prefill_flash", False)))
     assert n == len(log)
     return keys
 

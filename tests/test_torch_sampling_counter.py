@@ -133,7 +133,9 @@ def test_k_step_block_equals_single_steps(tiny, layout):
     assert torch.equal(block.cache.lengths, single.cache.lengths)
     names = ("k_pages", "v_pages") if layout == "paged" else ("k", "v")
     assert all(torch.equal(getattr(block.cache, n), getattr(single.cache, n)) for n in names)
-    assert block.programs.runs == {("prefill", 3, 16, 16): 1, ("decode_k", 3, 4, 32): 1}
+    # the reset prefill's flash flag is set on the slot layout only
+    assert block.programs.runs == {("prefill", 3, 16, 16, layout == "slot"): 1,
+                                   ("decode_k", 3, 4, 32): 1}
 
 
 def test_scheduler_multi_step_streams_equal_single_steps(tiny):
