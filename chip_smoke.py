@@ -2447,6 +2447,14 @@ def main():
             e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in stream):
         fail(f"stream_kernel instantiations missing or spilling: {stream}")
     stream_blocks_check()
+    # kernel 8's wgmma body in bf16 and f16 at D = 128 and 256: its two
+    # warpgroups hold a 64 x D f32 accumulator and must not spill
+    fp = ptxas_entries(logs["flash_prefill"], r"\S*flash_prefill_wg\S*")
+    for e in fp:
+        print(f"  flash_prefill_wg {e['name']}: {e['regs']} registers, spill stores "
+              f"{e['spill_stores']} B, loads {e['spill_loads']} B")
+    if len(fp) != 4 or any(e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in fp):
+        fail(f"flash_prefill_wg instantiations missing or spilling: {fp}")
 
     with phase_seconds("kernel phase"):
         rows = kernel_phase()

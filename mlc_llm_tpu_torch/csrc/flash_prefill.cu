@@ -1,5 +1,5 @@
 // Causal flash attention of a reset prefill: a block's queries against the
-// block's own keys and values, with the online softmax.
+// block's own keys and values, with the online softmax (kernel 8).
 //
 // Replaces the Pallas TPU kernel behind mlc_llm_tpu/ops/attention.py
 // flash_prefill: jax.experimental.pallas.ops.tpu.flash_attention's
@@ -13,6 +13,10 @@
 //   the online softmax keeps m and l in f32; p = exp(s - m) is summed into
 //   l in f32 and rounded to v's type before the P.V product, which
 //   accumulates in f32; the output is acc / l, rounded once to q's type.
+// The bf16/f16 body folds the scale and log2(e) into one f32 constant c:
+// the running max m is kept over the raw s (the same maximum: the scale is
+// positive) and p = exp2(s * c - m * c), one FMA and ex2 a score. That is
+// exp(s * scale - m * scale) reformulated, not a new rounding point.
 // q, k, v [B, H, S, D] with any strides whose last dimension is contiguous
 // (the forward hands over its [B, S, H, D] projections as they are); Hkv
 // divides Hq and query head h reads kv-head h / (Hq / Hkv) (JAX repeats the
@@ -22,34 +26,66 @@
 // Bound on the H100: at S = 1024 and 2048 with D = 128 the work is
 // 2 * B * H * S^2 * D causal operations against 4 * B * H * S * D * 2 bytes
 // of q, k, v and o, ~S/4 operations a byte: near the bf16 ridge (~295) at
-// S = 1024, above it at 2048, so the tensor cores and the bytes bound it
-// about equally. What the design does:
-//   * one block per (64-query tile, head, batch), four warps of 16 query
-//     rows; the tiles with the most keys are scheduled first;
-//   * Q is staged once in shared memory; K and V tiles (64 keys at D = 128,
-//     32 at D = 256, so that the f32 output accumulator of 16 x D a warp
-//     fits the registers) are staged by cp.async into two buffers, the next
-//     tile loading while the current one computes; rows are padded by 16
-//     bytes so ldmatrix reads them without bank conflicts;
-//   * bf16 and f16 run both products on the tensor cores with
-//     mma.sync.m16n8k16 and f32 accumulation: S = Q K^T from ldmatrix
-//     fragments, the scores stay in registers, P is rounded to v's type in
-//     registers and fed as the A fragment of P V (V fragments by
-//     ldmatrix.trans); nothing of the [S, S] matrix reaches memory;
-//   * tiles above the diagonal are never loaded; a warp skips a tile whose
-//     keys all lie above its rows; the diagonal tile is masked;
-//   * f32 runs a CUDA-core body: a block of 8 warps holds 32 query rows (4 a
-//     warp) against 32-key tiles; lane j computes key j's scores with float4
-//     reads of a padded K row, the warp reduces max and sum by shuffles, and
-//     each lane accumulates D / 32 output columns.
-// wgmma and TMA, a persistent schedule and warp specialisation are later
-// work.
+// S = 1024, above it at 2048. Between the two products the exponentials
+// (one MUFU op a score) take about half the products' tensor-core time
+// unless they overlap them, and every 128-query block reads its K and V
+// tiles again from L2. What the bf16/f16 design does:
+//   * one block per (head, batch, 128-query tile), the heads varying
+//     fastest, so that the tiles with the most keys go first across the
+//     whole grid (with the query tiles fastest, the last heads' heaviest
+//     tiles start last: 7-33% slower); two warpgroups of 64 query rows
+//     each, and thread 0 issues every TMA load. There is no producer
+//     warpgroup: ptxas (CUDA 12.9) grants a block of three warpgroups, or
+//     two and a warp, 168 registers a thread whether or not setmaxnreg
+//     moves them, and the consumers spilled (232 bytes at D = 128, 652 at
+//     D = 256) and ran 14-98% slower; two warpgroups alone get up to 255,
+//     and the body takes 200 at D = 128 and 231 at D = 256;
+//   * TMA over 4-D tensor maps (D, S, H, B) built on the host from the
+//     strides at each launch (passed __grid_constant__; a captured graph
+//     keeps them by value), in the 128-byte swizzle: a row is D / 64 boxes
+//     of 64 elements. Q is loaded once; K and V tiles (BN = 128 keys at D =
+//     128, 64 at D = 256, so that the 64 x D f32 output accumulator fits:
+//     64 or 128 registers a thread) go through a ring of two stages with
+//     their own full/empty mbarriers: K of tile t + 1 is loaded as soon as
+//     both warpgroups' Q K^T of tile t - 1 is done, V when their P V is;
+//   * both products on wgmma with f32 accumulators: S = Q K^T (m64nBNk16,
+//     Q and K from shared memory, both K-major); O += P V with P in
+//     registers (the score accumulator of keys 16 kk .. 16 kk + 15 is the A
+//     fragment of step kk as it lies, rounded to v's type) and V read
+//     MN-major (D contiguous) through the transpose-B form;
+//   * within a warpgroup, Q K^T of tile t and P V of tile t - 1 are issued
+//     together and the softmax of tile t runs while that P V is on the
+//     tensor cores (wgmma.wait_group 1). Ping-pong between the warpgroups
+//     (taking turns to issue, so that one's softmax runs under the other's
+//     products) cost 3-8% at S = 2048 and D = 256 and moved S = 1024 by
+//     under 1% (scripts/torch_ablation.py --kernel flash_prefill): not
+//     built in;
+//   * tiles above the diagonal are neither loaded nor computed; only a
+//     warpgroup's last tile crosses its diagonal and is masked (one a block
+//     at BN = 128, two at BN = 64, where the first warpgroup skips the last
+//     tile, all above its rows);
+//   * the output is staged in the warpgroup's half of Q's buffer in the
+//     same swizzle and written by a TMA store into the strided output.
+// On the H100 the body is bound by its loads, not its products: with both
+// wgmma products taken out it keeps 72-83% of its time (scripts/
+// torch_ablation.py --kernel flash_prefill); each 128-query block reads its
+// K/V tiles again from L2.
+// f32 runs a CUDA-core body: a block of 8 warps holds 32 query rows (4 a
+// warp) against 32-key tiles; lane j computes key j's scores with float4
+// reads of a padded K row, the warp reduces max and sum by shuffles, and
+// each lane accumulates D / 32 output columns. Its redesign (3xTF32 on
+// wgmma, as the f32 GEMMs do) is later work.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "dequant_wgmma.cuh"
 
 namespace {
 
@@ -85,216 +121,420 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  // c[16 x 8] += a[16 x 16] b[16 x 8], f32 accumulation
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // two f32 values rounded to the type, lo in the low half
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  }
-};
-
 // ---------------------------------------------------------------- bf16 / f16
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kTcRows = 16 * kTcWarps;  // query rows a block
+template <typename T>
+constexpr bool kIsBF16 = std::is_same<T, __nv_bfloat16>::value;
+
+constexpr int kRows = 128;     // query rows a block: two warpgroups of 64
+constexpr int kThreads = 256;  // two warpgroups: up to 255 registers a thread
+constexpr int kAtom = 128;     // bytes of a swizzled row: 64 elements
 
 template <int D>
-struct TcTile {
-  static constexpr int kKeys = D == 256 ? 32 : 64;  // keys a K/V tile
-  static constexpr int kLd = D + 8;                 // a staged row, elements: +16 bytes
-  static constexpr int kSmemElems = (kTcRows + 4 * kKeys) * kLd;  // Q, 2 x K, 2 x V
+struct Tile {
+  static constexpr int kBN = D == 128 ? 128 : 64;  // keys a K/V tile
+  static constexpr int kStages = 2;                 // K/V ring stages
+  static constexpr int kQBytes = kRows * D * 2;     // [D / 64][128 rows][64]
+  static constexpr int kKVBytes = kBN * D * 2;      // [D / 64][BN rows][64]
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;  // + alignment
+};
+
+// q, k, v and o as 4-D maps over (D, S, H, B), boxes of 64 x rows x 1 x 1
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+
+// a wgmma descriptor in the 128-byte swizzle: K-major operands (Q, K) use
+// sbo = 1024 (8 rows of 128 bytes) and no lbo; the MN-major V uses lbo =
+// the distance between its 64-column blocks and sbo = 1024 (8 keys)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d = A B (scale_d = 0) or d += A B, m64 x N x k16, A and B K-major in
+// shared memory (descriptors), f32 accumulators
+template <int N, typename T>
+struct SS;
+// d += A B, m64 x N x k16, A in registers (four T x 2 words), B MN-major in
+// shared memory (the transpose-B form)
+template <int N, typename T>
+struct RS;
+
+template <typename T>
+struct SS<64, T> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    if constexpr (kIsBF16<T>)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+          "%32, %33, p, 1, 1, 0, 0;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+          : "l"(a), "l"(b), "r"(scale_d));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+          "%32, %33, p, 1, 1, 0, 0;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+          : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <typename T>
+struct SS<128, T> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    if constexpr (kIsBF16<T>)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+          "%64, %65, p, 1, 1, 0, 0;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+          : "l"(a), "l"(b), "r"(scale_d));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+          "%64, %65, p, 1, 1, 0, 0;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+          : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <typename T>
+struct RS<128, T> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t* a, uint64_t b) {
+    if constexpr (kIsBF16<T>)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+          "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+          "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <typename T>
+struct RS<256, T> {
+  static __device__ __forceinline__ void mma(float (&d)[128], const uint32_t* a, uint64_t b) {
+    if constexpr (kIsBF16<T>)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+          "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+          "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Q K^T of one K tile into s: D / 16 steps, A the warpgroup's 64 rows of Q
+// and B the tile's BN keys, both K-major in the 128-byte swizzle (column
+// block kk / 4, 32 bytes a step within it); one wgmma group
+template <typename T, int D>
+__device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBN / 2], uint32_t q_addr,
+                                         uint32_t k_addr) {
+  constexpr int BN = Tile<D>::kBN;
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    SS<BN, T>::mma(s, desc_sw128(q_addr + (kk / 4) * kRows * kAtom + (kk % 4) * 32, 16, 1024),
+                   desc_sw128(k_addr + (kk / 4) * BN * kAtom + (kk % 4) * 32, 16, 1024), kk > 0);
+  wg::wgmma_commit();
+}
+
+// o += P V of one V tile: BN / 16 steps, A the packed P words of step kk,
+// B keys 16 kk .. 16 kk + 15 of V, MN-major: 8 keys a 1024-byte atom, the
+// 64-column blocks BN * 128 bytes apart; one wgmma group
+template <typename T, int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[Tile<D>::kBN / 4],
+                                         uint32_t v_addr) {
+  constexpr int BN = Tile<D>::kBN;
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    RS<D, T>::mma(o, p + 4 * kk, desc_sw128(v_addr + kk * 16 * kAtom, BN * kAtom, 1024));
+  wg::wgmma_commit();
+}
+
+// A thread's two query rows (row g and g + 8 of its warp's 16): the running
+// max of the raw scores, this thread's share of the running sum, and the
+// rescale that o still owes for the last max
+struct Rows {
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, al_a = 0.f, al_b = 0.f;
+};
+
+// The online softmax of one tile's scores, in place (s becomes p, f32).
+// Accumulator layout: s[4j + {0,1}] = (row a, key 8j + 2cq + {0,1}),
+// s[4j + {2,3}] = (row b, the same keys). A diagonal tile masks the keys
+// above each row.
+template <int N>
+__device__ __forceinline__ void softmax(float (&s)[N], Rows& r, bool diag, int key0, int row_a,
+                                        int row_b, float c) {
+  if (diag) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const int col = key0 + 8 * j;
+      if (col > row_a) s[4 * j] = -INFINITY;
+      if (col + 1 > row_a) s[4 * j + 1] = -INFINITY;
+      if (col > row_b) s[4 * j + 2] = -INFINITY;
+      if (col + 1 > row_b) s[4 * j + 3] = -INFINITY;
+    }
+  }
+  float mx_a = r.m_a, mx_b = r.m_b;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  // a row lives on the 4 threads of a quad
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  // tile 0 holds key 0, at or below every row: the max is finite from it
+  // on, and the first rescale is exp2(-inf) = 0 (o and l are still 0)
+  r.al_a = ex2((r.m_a - mx_a) * c);
+  r.al_b = ex2((r.m_b - mx_b) * c);
+  r.m_a = mx_a;
+  r.m_b = mx_b;
+  const float nm_a = -mx_a * c, nm_b = -mx_b * c;
+  float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], c, nm_a));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], c, nm_a));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], c, nm_b));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], c, nm_b));
+    rs_a += s[4 * j] + s[4 * j + 1];
+    rs_b += s[4 * j + 2] + s[4 * j + 3];
+  }
+  r.l_a = r.l_a * r.al_a + rs_a;
+  r.l_b = r.l_b * r.al_b + rs_b;
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const Rows& r) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= r.al_a;
+    o[4 * j + 1] *= r.al_a;
+    o[4 * j + 2] *= r.al_b;
+    o[4 * j + 3] *= r.al_b;
+  }
+}
+
+// p rounded to T in pairs: word i = (s[2i], s[2i + 1]), so words 4 kk ..
+// 4 kk + 3 are the A fragment of P V's step kk as the scores lie
+template <typename T, int N>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[N / 2], const float (&s)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) p[i] = wg::bits(wg::Vec2<T>::pair(s[2 * i], s[2 * i + 1]));
+}
+
+// one consumer warp's share of a stage's release
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  if (lane == 0) wg::mbar_arrive(bar);
+}
+
+// The ring's loads, issued by one thread (thread 0, in the first consumer
+// warpgroup): tile t of K or V into stage t % kStages once both consumer
+// warpgroups have released the tile that stage held before
+template <int D>
+struct Loader {
+  static constexpr int BN = Tile<D>::kBN, kStages = Tile<D>::kStages;
+  const Maps& maps;
+  uint8_t *sk, *sv;
+  uint64_t *k_full, *v_full, *k_empty, *v_empty;
+  int hk, b;
+
+  __device__ __forceinline__ void load(const CUtensorMap* map, uint8_t* ring, uint64_t* full,
+                                       uint64_t* empty, int t) const {
+    const int s = t % kStages;
+    wg::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+    wg::mbar_expect_tx(&full[s], Tile<D>::kKVBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+      tma_load_4d(ring + s * Tile<D>::kKVBytes + cb * BN * kAtom, map, &full[s], cb * 64, t * BN,
+                  hk, b);
+  }
+  __device__ __forceinline__ void k(int t) const { load(&maps.k, sk, k_full, k_empty, t); }
+  __device__ __forceinline__ void v(int t) const { load(&maps.v, sv, v_full, v_empty, t); }
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads) flash_prefill_tc(Args a) {
-  using Tile = TcTile<D>;
-  constexpr int BN = Tile::kKeys, LD = Tile::kLd, CH = D / 8;  // 16-byte chunks a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // [64][LD]
-  T* sK = sQ + kTcRows * LD;               // [2][BN][LD]
-  T* sV = sK + 2 * BN * LD;                // [2][BN][LD]
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_prefill_wg(const __grid_constant__ Maps maps, const int rep, const float c) {
+  using W = Tile<D>;
+  constexpr int BN = W::kBN, kStages = W::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sk = sq + W::kQBytes;             // [kStages][kKVBytes]
+  uint8_t* sv = sk + kStages * W::kKVBytes;  // [kStages][kKVBytes]
+  __shared__ __align__(8) uint64_t q_full, k_full[kStages], v_full[kStages], k_empty[kStages],
+      v_empty[kStages];
 
-  const int qb = gridDim.x - 1 - blockIdx.x;  // the tiles with the most keys first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.rep;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* qg = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h +
-                static_cast<long long>(qb) * kTcRows * a.qs.s;
-  const T* kg = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const T* vg = static_cast<const T*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // the tiles with the most keys first
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, cq = lane % 4;
+  const int r0 = qb * kRows + wgi * 64;  // the warpgroup's first query row
+  const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+  // the warpgroup's tiles: those with a key at or below one of its rows;
+  // the last one, and only it, crosses the diagonal. The block's: the
+  // second warpgroup's, one more than the first's at BN = 64
+  const int n_tiles = (r0 + 64 + BN - 1) / BN;
+  const int n_block = (qb + 1) * kRows / BN;
+  const bool issuer = tid == 0;
+  const Loader<D> load{maps, sk, sv, k_full, v_full, k_empty, v_empty, h / rep, b};
 
-  for (int i = tid; i < kTcRows * CH; i += kTcThreads) {
-    const int r = i / CH, c = i % CH;
-    cp_async16(sQ + r * LD + c * 8, qg + r * a.qs.s + c * 8);
+  if (issuer) {
+    wg::mbar_init(&q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(&k_full[s], 1);
+      wg::mbar_init(&v_full[s], 1);
+      wg::mbar_init(&k_empty[s], 8);  // one arrival a consumer warp
+      wg::mbar_init(&v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    wg::mbar_expect_tx(&q_full, W::kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+      tma_load_4d(sq + cb * kRows * kAtom, &maps.q, &q_full, cb * 64, qb * kRows, h, b);
+    for (int t = 0; t < kStages && t < n_block; ++t) {
+      load.k(t);
+      load.v(t);
+    }
   }
-  auto load_kv = [&](int t, int buf) {
-    const T* kt = kg + static_cast<long long>(t) * BN * a.ks.s;
-    const T* vt = vg + static_cast<long long>(t) * BN * a.vs.s;
-    T* dk = sK + buf * BN * LD;
-    T* dv = sV + buf * BN * LD;
-    for (int i = tid; i < BN * CH; i += kTcThreads) {
-      const int r = i / CH, c = i % CH;
-      cp_async16(dk + r * LD + c * 8, kt + r * a.ks.s + c * 8);
-      cp_async16(dv + r * LD + c * 8, vt + r * a.vs.s + c * 8);
-    }
-  };
-  // keys [0, (qb + 1) * 64): every tile at or below the diagonal
-  const int n_tiles = (qb + 1) * kTcRows / BN;
-  load_kv(0, 0);
-  cp_async_commit();
+  __syncthreads();
 
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = qb * kTcRows + warp * 16;  // the warp's first query row
-  const int r_lo = row0 + g, r_hi = row0 + g + 8;
-  float acc[D / 8][4];
+  const uint32_t q_addr = smem_u32(sq) + wgi * 64 * kAtom;  // the warpgroup's 64 rows of Q
+  const uint32_t k_addr = smem_u32(sk), v_addr = smem_u32(sv);
+  float o[D / 2], s[BN / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;  // l: this thread's share
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+  uint32_t p[BN / 4];
+  Rows r;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) load_kv(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    const int key0 = t * BN;
-    if (key0 <= row0 + 15) {  // some key of the tile is at or below a row of this warp
-      const T* cK = sK + (t & 1) * BN * LD;
-      const T* cV = sV + (t & 1) * BN * LD;
-      float s[BN / 8][4];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4];
-        ldsm_x4(qa, sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nn = 0; nn < BN / 16; ++nn) {
-          uint32_t kb[4];
-          ldsm_x4(kb, cK + (nn * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-          Mma<T>::run(s[2 * nn], qa, kb[0], kb[1]);
-          Mma<T>::run(s[2 * nn + 1], qa, kb[2], kb[3]);
-        }
-      }
-      // scale, mask above the diagonal, the tile's row max
-      const bool diag = key0 + BN - 1 > row0;
-      float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int c = key0 + j * 8 + 2 * t4;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= a.scale;
-        if (diag) {
-          if (c > r_lo) s[j][0] = -INFINITY;
-          if (c + 1 > r_lo) s[j][1] = -INFINITY;
-          if (c > r_hi) s[j][2] = -INFINITY;
-          if (c + 1 > r_hi) s[j][3] = -INFINITY;
-        }
-        mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-      }
-      // a row lives on the 4 threads of a quad
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-      // tile 0 holds key 0, at or below every row: the max is finite from it on
-      const float al_lo = __expf(m_lo - mx_lo), al_hi = __expf(m_hi - mx_hi);
-      m_lo = mx_lo;
-      m_hi = mx_hi;
-      float rs_lo = 0.f, rs_hi = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        s[j][0] = __expf(s[j][0] - mx_lo);
-        s[j][1] = __expf(s[j][1] - mx_lo);
-        s[j][2] = __expf(s[j][2] - mx_hi);
-        s[j][3] = __expf(s[j][3] - mx_hi);
-        rs_lo += s[j][0] + s[j][1];
-        rs_hi += s[j][2] + s[j][3];
-      }
-      l_lo = l_lo * al_lo + rs_lo;
-      l_hi = l_hi * al_hi + rs_hi;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[j][0] *= al_lo;
-        acc[j][1] *= al_lo;
-        acc[j][2] *= al_hi;
-        acc[j][3] *= al_hi;
-      }
-      // P (rounded to v's type) . V: the score fragments of keys 16 kk ..
-      // 16 kk + 15 are the A fragment as they lie
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint32_t pa[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-                                Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-                                Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, cV + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + dd * 16 +
-                                (lane >> 4) * 8);
-          Mma<T>::run(acc[2 * dd], pa, vb[0], vb[1]);
-          Mma<T>::run(acc[2 * dd + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();  // the buffer just read is the next iteration's load target
+  wg::mbar_wait(&q_full, 0);
+  wg::mbar_wait(&k_full[0], 0);
+  issue_qk<T, D>(s, q_addr, k_addr);
+  wg::wgmma_wait<0>();
+  wg::fence_acc(s);
+  release(&k_empty[0], lane);
+  softmax(s, r, n_tiles == 1, 2 * cq, row_a, row_b, c);
+  pack_p<T>(p, s);
+  for (int t = 1; t < n_tiles; ++t) {
+    const int st = t % kStages, pst = (t - 1) % kStages;
+    // K of tile t + kStages - 1 into the stage tile t - 1 held: both
+    // warpgroups released it after their Q K^T of tile t - 1
+    if (issuer && t + kStages - 1 < n_block) load.k(t + kStages - 1);
+    // Q K^T of tile t goes to the tensor cores first; o takes the rescale
+    // of tile t - 1's max meanwhile, then P V of tile t - 1 queues behind
+    wg::mbar_wait(&k_full[st], (t / kStages) & 1);
+    issue_qk<T, D>(s, q_addr, k_addr + st * W::kKVBytes);
+    rescale(o, r);
+    wg::mbar_wait(&v_full[pst], ((t - 1) / kStages) & 1);
+    issue_pv<T, D>(o, p, v_addr + pst * W::kKVBytes);
+    wg::wgmma_wait<1>();  // tile t's scores are in; P V still runs
+    wg::fence_acc(s);
+    release(&k_empty[st], lane);
+    softmax(s, r, t == n_tiles - 1, t * BN + 2 * cq, row_a, row_b, c);
+    wg::wgmma_wait<0>();
+    wg::fence_acc(o);
+    release(&v_empty[pst], lane);
+    // V of tile t + kStages - 1 into the stage whose P V just finished
+    if (issuer && t + kStages - 1 < n_block) load.v(t + kStages - 1);
+    pack_p<T>(p, s);
+  }
+  rescale(o, r);
+  {
+    const int last = n_tiles - 1, st = last % kStages;
+    wg::mbar_wait(&v_full[st], (last / kStages) & 1);
+    issue_pv<T, D>(o, p, v_addr + st * W::kKVBytes);
+    wg::wgmma_wait<0>();
+    wg::fence_acc(o);
   }
 
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  T* og = static_cast<T*>(a.o) + b * a.os.b + h * a.os.h;
-  uint32_t* o_lo = reinterpret_cast<uint32_t*>(og + r_lo * a.os.s + 2 * t4);
-  uint32_t* o_hi = reinterpret_cast<uint32_t*>(og + r_hi * a.os.s + 2 * t4);
+  // epilogue: o / l, rounded once to T, staged in the warpgroup's rows of
+  // Q's buffer (every Q K^T that read them is done) in the 128-byte
+  // swizzle, then one TMA store a 64-column block
+  r.l_a += __shfl_xor_sync(0xffffffffu, r.l_a, 1);
+  r.l_a += __shfl_xor_sync(0xffffffffu, r.l_a, 2);
+  r.l_b += __shfl_xor_sync(0xffffffffu, r.l_b, 1);
+  r.l_b += __shfl_xor_sync(0xffffffffu, r.l_b, 2);
+  const float inv_a = 1.f / r.l_a, inv_b = 1.f / r.l_b;
+  uint8_t* so = sq + wgi * 64 * kAtom;
+  const int lr = 16 * warp + g;  // row a's row in the warpgroup; row b's is lr + 8
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    o_lo[j * 4] = Mma<T>::pack(acc[j][0] * inv_lo, acc[j][1] * inv_lo);
-    o_hi[j * 4] = Mma<T>::pack(acc[j][2] * inv_hi, acc[j][3] * inv_hi);
+    // column 8j + 2cq: 64-column block j / 8, 16-byte chunk j % 8, which
+    // the swizzle XORs with the row's index mod 8 (g for both rows)
+    uint8_t* blk = so + (j / 8) * kRows * kAtom + (((j % 8) ^ g) * 16) + cq * 4;
+    *reinterpret_cast<uint32_t*>(blk + lr * kAtom) =
+        wg::bits(wg::Vec2<T>::pair(o[4 * j] * inv_a, o[4 * j + 1] * inv_a));
+    *reinterpret_cast<uint32_t*>(blk + (lr + 8) * kAtom) =
+        wg::bits(wg::Vec2<T>::pair(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b));
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wgi) : "memory");
+  if (tid % 128 == 0) {
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+      tma_store_4d(&maps.o, so + cb * kRows * kAtom, cb * 64, r0, h, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
@@ -438,10 +678,37 @@ int launch_kernel(K kern, dim3 grid, int threads, size_t smem, cudaStream_t st, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// a [B, H, S, D] operand through its strides as a 4-D map over (D, S, H,
+// B), boxes of 64 elements (128 bytes) x `rows` positions, 128-byte swizzle
+bool map_operand(CUtensorMap* map, CUtensorMapDataType dt, const void* base, int D, int S, int H,
+                 int B, const Strides& st, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return wg::make_map(map, dt, 4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <typename T, int D>
-int launch_tc(const Args& a, int B, int Hq, cudaStream_t st) {
-  return launch_kernel(flash_prefill_tc<T, D>, dim3(a.S / kTcRows, Hq, B), kTcThreads,
-                       TcTile<D>::kSmemElems * sizeof(T), st, a);
+int launch_wg(const Args& a, int B, int Hq, int Hkv, cudaStream_t st) {
+  const CUtensorMapDataType dt =
+      kIsBF16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  Maps maps;
+  if (!map_operand(&maps.q, dt, a.q, D, a.S, Hq, B, a.qs, kRows) ||
+      !map_operand(&maps.k, dt, a.k, D, a.S, Hkv, B, a.ks, Tile<D>::kBN) ||
+      !map_operand(&maps.v, dt, a.v, D, a.S, Hkv, B, a.vs, Tile<D>::kBN) ||
+      !map_operand(&maps.o, dt, a.o, D, a.S, Hq, B, a.os, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_prefill_wg<T, D>;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             Tile<D>::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // c = 1/sqrt(D) * log2(e): exp(s * scale - m * scale) = exp2(s * c - m * c)
+  kern<<<dim3(Hq, B, a.S / kRows), kThreads, Tile<D>::kSmem, st>>>(
+      maps, a.rep, a.scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -455,9 +722,10 @@ int launch_f32(const Args& a, int B, int Hq, cudaStream_t st) {
 // q [B, Hq, S, D], k and v [B, Hkv, S, D] and o [B, Hq, S, D], each through
 // its (batch, head, position) strides in elements with the last dimension
 // contiguous; dtype 0 bf16, 1 f16, 2 f32 for all four. Needs D in {128,
-// 256}, S % 64 == 0, Hkv dividing Hq, 16-byte aligned pointers and strides
-// that are multiples of 16 bytes. Returns cudaGetLastError() after the
-// launch.
+// 256}, S % 128 == 0 (the bf16/f16 body's query tile), Hkv dividing Hq,
+// 16-byte aligned pointers and strides that are multiples of 16 bytes.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// when an argument or a tensor map is refused.
 extern "C" int mlc_flash_prefill(const void* q, const void* k, const void* v, void* o, int B,
                                  int Hq, int Hkv, int S, int D, int dtype, long long qsb,
                                  long long qsh, long long qss, long long ksb, long long ksh,
@@ -469,18 +737,19 @@ extern "C" int mlc_flash_prefill(const void* q, const void* k, const void* v, vo
                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
                   16) == 0;
   for (long long s : strides) aligned = aligned && (s * esize) % 16 == 0;
-  if ((D != 128 && D != 256) || dtype < kBF16 || dtype > kF32 || B < 1 || S < 64 || S % 64 ||
-      Hkv < 1 || Hq % Hkv || !aligned)
+  if ((D != 128 && D != 256) || dtype < kBF16 || dtype > kF32 || B < 1 || S < kRows ||
+      S % kRows || Hkv < 1 || Hq % Hkv || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
                S, Hq / Hkv, 1.0f / sqrtf(static_cast<float>(D))};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBF16:
-      return D == 128 ? launch_tc<__nv_bfloat16, 128>(a, B, Hq, st)
-                      : launch_tc<__nv_bfloat16, 256>(a, B, Hq, st);
+      return D == 128 ? launch_wg<__nv_bfloat16, 128>(a, B, Hq, Hkv, st)
+                      : launch_wg<__nv_bfloat16, 256>(a, B, Hq, Hkv, st);
     case kF16:
-      return D == 128 ? launch_tc<__half, 128>(a, B, Hq, st) : launch_tc<__half, 256>(a, B, Hq, st);
+      return D == 128 ? launch_wg<__half, 128>(a, B, Hq, Hkv, st)
+                      : launch_wg<__half, 256>(a, B, Hq, Hkv, st);
     default:
       return D == 128 ? launch_f32<128>(a, B, Hq, st) : launch_f32<256>(a, B, Hq, st);
   }

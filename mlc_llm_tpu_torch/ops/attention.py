@@ -38,8 +38,9 @@ FLASH_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # the kernel's head dims and type ids (csrc/flash_prefill.cu enum DType)
 FLASH_HEAD_DIMS = (128, 256)
 FLASH_TYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-# query rows a block: the sequence length the kernel takes is a multiple
-FLASH_ROWS = 64
+# query rows a block of the bf16/f16 body (two consumer warpgroups of 64):
+# the sequence length the kernel takes is a multiple
+FLASH_ROWS = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -4,6 +4,7 @@ ablation.
     python scripts/torch_ablation.py --kernel gemv_gp
     python scripts/torch_ablation.py --kernel gemm_plane
     python scripts/torch_ablation.py --kernel gemv_stream
+    python scripts/torch_ablation.py --kernel flash_prefill
 
 Builds variants of this tree's kernel, each with one part of its stage
 taken out by a source edit, all with one nvcc each started together, and
@@ -55,8 +56,27 @@ with twice its parts:
 - cols1: one column a consumer thread (two as built; eight consumer warps
   a block instead of four).
 
+--kernel flash_prefill: csrc/flash_prefill.cu, the bf16/f16 wgmma body
+(flash_prefill_wg), through `mlc_flash_prefill` at chip_smoke.py's bf16 and
+f16 FLASH_CASES shapes (q, k, v the strided views of one projection):
+- base: the kernel as it is (within a warpgroup, the softmax of tile t
+  under the P V of tile t - 1; no ping-pong);
+- producer_wg: a third warpgroup issues the loads, setmaxnreg 24 / 240;
+- pingpong: the two warpgroups take turns to issue their products;
+- no_overlap: within a warpgroup, every wgmma group waited for at once;
+- qb_fastest: the grid's query tiles vary fastest (heaviest first within
+  a head) instead of the heads;
+- l2_256: the tensor maps promote L2 fetches to 256 bytes (128 as built);
+- direct_store: the output stored from registers, 16 bytes a thread after
+  a transpose over each quad, instead of staged in shared memory for one
+  TMA store a 64-column block;
+- no_exp: ex2 a copy (the softmax without its MUFU work);
+- no_qk, no_pv: the Q K^T or the P V wgmma skipped;
+- no_mma: both skipped (the TMA ring, barriers and softmax alone).
+
 Times are CUDA-event means with the 50 MB L2 flushed before each launch,
-as chip_smoke.py times them. Prints one JSON line per case, then the
+as chip_smoke.py times them. Prints ptxas's registers and spills of each
+flash_prefill variant's kernel entries, one JSON line per case, then the
 card's name and power limit. The variants are built under
 csrc/build/ablation/<kernel>/. An edit is (old, new) in the kernel's
 edited file, or (file, old, new).
@@ -68,6 +88,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -80,6 +101,7 @@ OUT = os.path.join(CSRC, "build", "ablation")
 sys.path.insert(0, ROOT)
 
 from mlc_llm_tpu_torch.ops import NVCC_FLAGS, _nvcc  # noqa: E402
+from mlc_llm_tpu_torch.ops import attention as att  # noqa: E402
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm  # noqa: E402
 from mlc_llm_tpu_torch.quant import pad_quantized_groups, quantize, resolve_spec  # noqa: E402
 
@@ -260,6 +282,135 @@ def gemm_plane_cases(gen):
         yield dict(quant=preset, k=rows * epw, n=N, m=m, mt=mt, parts=splits), launch
 
 
+# ---- flash_prefill: edits of csrc/flash_prefill.cu
+# ping-pong: the warpgroups take turns to issue their products (named
+# barriers 3 and 4); each takes n_block + 1 turns (the first Q K^T, one a
+# tile after it, the last P V; the first pads with empty turns at BN = 64),
+# the first goes first and the second hands over no last turn
+FP_PINGPONG = [
+    ("// one consumer warp's share of a stage's release\n", """__device__ __forceinline__ void my_turn(int wgi) {
+  asm volatile("bar.sync %0, 256;" ::"r"(3 + wgi) : "memory");
+}
+__device__ __forceinline__ void your_turn(int wgi) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(4 - wgi) : "memory");
+}
+
+// one consumer warp's share of a stage's release
+"""),
+    ("  wg::mbar_wait(&q_full, 0);\n  wg::mbar_wait(&k_full[0], 0);\n"
+     "  issue_qk<T, D>(s, q_addr, k_addr);\n",
+     "  if (wgi == 1) your_turn(wgi);\n  wg::mbar_wait(&q_full, 0);\n"
+     "  wg::mbar_wait(&k_full[0], 0);\n  my_turn(wgi);\n"
+     "  issue_qk<T, D>(s, q_addr, k_addr);\n  your_turn(wgi);\n"),
+    ("    issue_qk<T, D>(s, q_addr, k_addr + st * W::kKVBytes);\n",
+     "    my_turn(wgi);\n    issue_qk<T, D>(s, q_addr, k_addr + st * W::kKVBytes);\n"),
+    ("    issue_pv<T, D>(o, p, v_addr + pst * W::kKVBytes);\n",
+     "    issue_pv<T, D>(o, p, v_addr + pst * W::kKVBytes);\n    your_turn(wgi);\n"),
+    ("    issue_pv<T, D>(o, p, v_addr + st * W::kKVBytes);\n",
+     "    my_turn(wgi);\n    issue_pv<T, D>(o, p, v_addr + st * W::kKVBytes);\n"
+     "    if (wgi == 0) your_turn(wgi);\n"
+     "    for (int t = n_tiles; t < n_block; ++t) {\n      my_turn(wgi);\n"
+     "      your_turn(wgi);\n    }\n")]
+FP_QB_FASTEST = [("  const int h = blockIdx.x, b = blockIdx.y;\n  const int qb = gridDim.z - 1 - blockIdx.z;",
+                  "  const int h = blockIdx.y, b = blockIdx.z;\n  const int qb = gridDim.x - 1 - blockIdx.x;"),
+                 ("dim3(Hq, B, a.S / kRows)", "dim3(a.S / kRows, Hq, B)")]
+# the output written from registers, 16 bytes a thread after a 4 x 4
+# transpose of 32-bit words over each quad, instead of staged in shared
+# memory and stored by TMA (the staging code is left unreachable)
+FP_DIRECT_STORE = [
+    ("flash_prefill_wg(const __grid_constant__ Maps maps, const int rep, const float c) {",
+     "flash_prefill_wg(const __grid_constant__ Maps maps, const int rep, const float c,\n"
+     "                 void* const out_p, const long long osb, const long long osh,\n"
+     "                 const long long oss) {"),
+    ("      maps, a.rep, a.scale * 1.4426950408889634f);",
+     "      maps, a.rep, a.scale * 1.4426950408889634f, a.o, a.os.b, a.os.h, a.os.s);"),
+    ("  uint8_t* so = sq + wgi * 64 * kAtom;\n", """  T* og = static_cast<T*>(out_p) + b * osb + h * osh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float inv = half ? inv_b : inv_a;
+    T* orow = og + static_cast<long long>(half ? row_b : row_a) * oss;
+#pragma unroll
+    for (int m = 0; m < D / 32; ++m) {
+      uint32_t w[4], x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = wg::bits(wg::Vec2<T>::pair(o[16 * m + 4 * i + 2 * half] * inv,
+                                          o[16 * m + 4 * i + 2 * half + 1] * inv));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = cq ^ k;
+        const uint32_t got = __shfl_xor_sync(
+            0xffffffffu, i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3], k);
+        x[k] = got;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = cq ^ i;
+        y[i] = k == 0 ? x[0] : k == 1 ? x[1] : k == 2 ? x[2] : x[3];
+      }
+      *reinterpret_cast<uint4*>(orow + 8 * (4 * m + cq)) = make_uint4(y[0], y[1], y[2], y[3]);
+    }
+  }
+  if (D > 0) return;
+  uint8_t* so = sq + wgi * 64 * kAtom;
+""")]
+# a third warpgroup as the producer, with setmaxnreg moving registers to
+# the consumers (24 and 240), as the GEMMs' mainloop does: thread 0 still
+# issues Q and the first stages, thread 256 every later tile
+FP_PRODUCER_WG = [
+    ("constexpr int kThreads = 256;", "constexpr int kThreads = 384;"),
+    ("    if (issuer && t + kStages - 1 < n_block) load.k(t + kStages - 1);\n", ""),
+    ("    if (issuer && t + kStages - 1 < n_block) load.v(t + kStages - 1);\n", ""),
+    ("  __syncthreads();\n\n  const uint32_t q_addr =", """  __syncthreads();
+  if (tid >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 256)
+      for (int t = kStages; t < n_block; ++t) {
+        load.k(t);
+        load.v(t);
+      }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+
+  const uint32_t q_addr =""")]
+FP_L2_256 = [("dequant_wgmma.cuh", "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+              "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")]
+FP_NO_OVERLAP = [("    wg::wgmma_wait<1>();  // tile t's scores are in; P V still runs",
+                  "    wg::wgmma_wait<0>();")]
+FP_NO_EXP = [('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "  y = x;")]
+# a shared-memory address is never 0xFFFFFFFF: the guarded wgmma never runs
+FP_NO_QK = [("    SS<BN, T>::mma(s, desc_sw128(",
+             "    if (q_addr == 0xFFFFFFFFu) SS<BN, T>::mma(s, desc_sw128(")]
+FP_NO_PV = [("    RS<D, T>::mma(o, p + 4 * kk,",
+             "    if (v_addr == 0xFFFFFFFFu) RS<D, T>::mma(o, p + 4 * kk,")]
+
+
+def flash_prefill_cases(gen):
+    """(row, launch(lib)) for the bf16/f16 body at chip_smoke.py's shapes."""
+    from mlc_llm_tpu_torch.models import get_config
+
+    moss = get_config("moss-moon-003-sft")
+    for B, hq, hkv, S, D, dt in ((1, 32, 32, 1024, 128, torch.bfloat16),
+                                 (1, 32, 32, 2048, 128, torch.bfloat16),
+                                 (2, 32, 32, 1024, 128, torch.bfloat16),
+                                 (1, 32, 32, 1024, 128, torch.float16),
+                                 (1, moss.num_heads, moss.num_kv_heads, 1024, moss.head_dim,
+                                  torch.bfloat16)):
+        qkv = torch.randn((B, S, (hq + 2 * hkv) * D), generator=gen, device="cuda").to(dt)
+        q, k, v = (t.reshape(B, S, -1, D).transpose(1, 2)
+                   for t in qkv.split([hq * D, hkv * D, hkv * D], dim=-1))
+        out = torch.empty((B, S, hq, D), dtype=dt, device="cuda").transpose(1, 2)
+        strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+
+        def launch(lib, q=q, k=k, v=v, out=out, strides=strides, B=B, hq=hq, hkv=hkv, S=S, D=D,
+                   dt=dt):
+            return lib.mlc_flash_prefill(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         out.data_ptr(), B, hq, hkv, S, D, att.FLASH_TYPES[dt],
+                                         *strides, torch.cuda.current_stream().cuda_stream)
+        yield dict(b=B, hq=hq, hkv=hkv, s=S, d=D, dtype=str(dt).replace("torch.", "")), launch
+
+
 # per kernel: the source built, the file the edits apply to, the C entry
 # and its argument types, the variants' edits, the cases, and the reps
 KERNELS = {
@@ -286,6 +437,15 @@ KERNELS = {
                   "stages3": STREAM_STAGES[3], "stages4": STREAM_STAGES[4],
                   "cols1": STREAM_COLS1},
         cases=gemv_stream_cases, reps=30),
+    "flash_prefill": dict(
+        source="flash_prefill.cu", edited="flash_prefill.cu", entry="mlc_flash_prefill",
+        argtypes=att._FLASH_ARGS["mlc_flash_prefill"],
+        variants={"base": [], "producer_wg": FP_PRODUCER_WG, "pingpong": FP_PINGPONG,
+                  "no_overlap": FP_NO_OVERLAP,
+                  "qb_fastest": FP_QB_FASTEST, "l2_256": FP_L2_256,
+                  "direct_store": FP_DIRECT_STORE, "no_exp": FP_NO_EXP,
+                  "no_qk": FP_NO_QK, "no_pv": FP_NO_PV, "no_mma": FP_NO_QK + FP_NO_PV},
+        cases=flash_prefill_cases, reps=30, ptxas="flash_prefill_wg"),
 }
 
 
@@ -315,7 +475,7 @@ def build(kernel: str):
             if f.endswith(".cuh") or f == spec["source"]:
                 shutil.copy(os.path.join(CSRC, f), d)
         apply_edits(d, edits, spec["edited"])
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(d, "variant.so"),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(d, "variant.so"),
                os.path.join(d, spec["source"])]
         procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True)))
@@ -324,6 +484,14 @@ def build(kernel: str):
         out, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for the {name} variant:\n{out}")
+        entry = None
+        for line in out.splitlines():  # ptxas: each entry's registers and spills
+            hit = re.search(r"Compiling entry function '(\S+)'", line)
+            if hit:
+                entry = hit.group(1)
+            elif entry and spec.get("ptxas") and spec["ptxas"] in entry and (
+                    "spill" in line or "Used" in line):
+                print(json.dumps({"variant": name, "entry": entry, "ptxas": line.strip()}))
         lib = ctypes.CDLL(os.path.join(OUT, kernel, name, "variant.so"))
         getattr(lib, spec["entry"]).argtypes = spec["argtypes"]
         libs[name] = lib

@@ -2,6 +2,7 @@
 K-step blocks, serving and precompile, graph against eager.
 
     python scripts/torch_program_bench.py [--tree DIR] [--label NAME] [--layers 32]
+        [--only admission,slot_prefill,b1_step,k_block,serve,kernel8] [--out FILE]
 
 Imports ``mlc_llm_tpu_torch`` from --tree (default: this checkout), so
 that one call can time two commits in turns (``git archive`` the other
@@ -29,6 +30,13 @@ has what it needs:
   engine at about 1024 tokens: one K-step block (K = 2, 4) against K
   single steps, wall and device time a decode forward, sampled rows
   included;
+- kernel8: the reset prefill's flash attention (``ops.attention.
+  flash_prefill``) at chip_smoke.py's FLASH_CASES shapes (q, k and v the
+  strided views of one [B, S, (hq + 2 hkv) D] projection), beside causal
+  scaled_dot_product_attention on the same views (the yardstick; the port
+  never calls it): CUDA-event mean ms with the L2 flushed before each
+  launch, as chip_smoke.py times kernels, and TFLOP/s of the causal half;
+  no weights needed;
 - serve: 16 requests (prompts of 16-1500 tokens from seed 2, 32 new
   tokens, every fourth at T 0.7) through the in-process scheduler on a
   paged b8 engine, precompiled first (its seconds, graphs and pool bytes),
@@ -200,6 +208,52 @@ def k_block(cfg, params, Engine):
     return out
 
 
+def _event_ms(fn, flush, reps=20) -> float:
+    """Mean device ms of fn over reps launches (CUDA events), each after a
+    read of `flush` (evicts the 50 MB L2) and a ~1 ms device spin that keeps
+    the enqueue off the clock."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for start, end in ev:
+        flush.sum()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+def kernel8(get_config):
+    from mlc_llm_tpu_torch.ops import attention as att
+
+    moss = get_config("moss-moon-003-sft")
+    # chip_smoke.py's FLASH_CASES: (label, B, query heads, kv-heads, S, D, dtype)
+    cases = [("vicuna", 1, 32, 32, 1024, 128, torch.bfloat16),
+             ("vicuna", 1, 32, 32, 2048, 128, torch.bfloat16),
+             ("vicuna G=2", 2, 32, 32, 1024, 128, torch.bfloat16),
+             ("vicuna", 1, 32, 32, 1024, 128, torch.float16),
+             ("vicuna", 1, 32, 32, 1024, 128, torch.float32),
+             ("moss", 1, moss.num_heads, moss.num_kv_heads, 1024, moss.head_dim, torch.bfloat16)]
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for label, B, hq, hkv, S, D, dt in cases:
+        qkv = torch.randn((B, S, (hq + 2 * hkv) * D), generator=gen, device="cuda").to(dt)
+        q, k, v = (t.reshape(B, S, -1, D).transpose(1, 2)
+                   for t in qkv.split([hq * D, hkv * D, hkv * D], dim=-1))
+        ms = _event_ms(lambda: att.flash_prefill(q, k, v), flush)
+        sdpa = _event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), flush)
+        out.append(dict(case=f"{label} b{B} S{S} D{D} {str(dt).replace('torch.', '')}", ms=ms,
+                        sdpa_ms=sdpa, tflops=2 * B * hq * S * S * D / (ms * 1e-3) / 1e12,
+                        vs_sdpa=ms / sdpa))
+        del qkv, q, k, v
+    return out
+
+
 def serve(cfg, params, Engine, GenerationConfig, Scheduler, has_programs):
     rng = np.random.default_rng(2)
     work = []
@@ -258,15 +312,18 @@ def main(argv=None):
 
     has_programs = hasattr(InferenceEngine, "precompile_keys")
     cfg = get_config("vicuna-v1-7b").replace(num_layers=args.layers)
-    params = init_random_params(cfg, "q4bf16", seed=0, device="cuda")
+    only = args.only.split(",")
+    params = (init_random_params(cfg, "q4bf16", seed=0, device="cuda")
+              if set(only) - {"kernel8"} else None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     res = dict(label=args.label, card=card, layers=args.layers, programs=has_programs)
-    only = args.only.split(",")
     for name in only:
         t0 = time.perf_counter()
-        if name == "admission":
+        if name == "kernel8":
+            res[name] = kernel8(get_config)
+        elif name == "admission":
             res[name] = admission(cfg, params, InferenceEngine, has_programs)
         elif name == "slot_prefill" and has_programs:
             res[name] = slot_prefill(cfg, params, InferenceEngine)

@@ -1251,8 +1251,15 @@ def _flash_inputs(B, Hq, Hkv, S, D, dtype, strided, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
                          ids=["bf16", "f16", "f32"])
 @pytest.mark.parametrize("D", [128, 256])
-@pytest.mark.parametrize("B,Hq,Hkv,S,strided", [(1, 8, 8, 1024, False), (2, 8, 2, 256, True),
-                                                (1, 4, 1, 2048, True)])
+@pytest.mark.parametrize("B,Hq,Hkv,S,strided", [
+    (1, 8, 8, 1024, False), (2, 8, 2, 256, True), (1, 4, 1, 2048, True),
+    # one 128-query block and one key tile (the wgmma descriptors alone);
+    # odd counts of 128-row tiles; B = 2 in separate buffers (the batch
+    # stride is not S times the row stride); GQA rep 2
+    (1, 4, 4, 128, False), (1, 4, 2, 1152, True), (1, 4, 4, 1920, False),
+    (2, 8, 4, 384, False),
+    # 512 128-query tiles: every block of the persistent grid walks several
+    (2, 32, 8, 1024, True)])
 def test_cuda_flash_prefill_matches_plain(B, Hq, Hkv, S, strided, D, dtype):
     _need_gpu()
     from mlc_llm_tpu_torch.ops import attention as att
@@ -1274,6 +1281,7 @@ def test_cuda_flash_prefill_matches_plain(B, Hq, Hkv, S, strided, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [((1, 4, 1024, 80), torch.bfloat16),
                                          ((1, 4, 1000, 128), torch.bfloat16),
+                                         ((1, 4, 1088, 128), torch.bfloat16),
                                          ((1, 4, 1024, 128), torch.int8)])
 def test_cuda_flash_prefill_unsupported_raises(shape, dtype):
     # a CUDA tensor the kernel does not take raises; nothing falls back
@@ -1285,6 +1293,36 @@ def test_cuda_flash_prefill_unsupported_raises(shape, dtype):
     with pytest.raises(NotImplementedError):
         att.flash_prefill(x, x, x)
     assert att.flash_prefill.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(128, torch.bfloat16), (256, torch.float16)])
+def test_cuda_flash_prefill_graph_replay_matches_eager(D, dtype):
+    # the tensor maps are encoded at capture and replayed by value: new
+    # inputs copied into the captured buffers give the eager result bit for
+    # bit
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import attention as att
+
+    B, Hq, Hkv, S = 1, 8, 4, 1024
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, D, dtype, strided=True)
+    att.flash_prefill(q, k, v)  # first use: build, load, driver entry point
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = att.flash_prefill(q, k, v)
+    for seed in (1, 2):
+        nq, nk, nv = _flash_inputs(B, Hq, Hkv, S, D, dtype, strided=True, seed=seed)
+        for dst, src in ((q, nq), (k, nk), (v, nv)):
+            dst.copy_(src)
+        before = att.flash_prefill.launches
+        graph.replay()
+        want = att.flash_prefill(nq, nk, nv)
+        torch.cuda.synchronize()
+        assert att.flash_prefill.launches == before + 1  # the eager call's
+        assert torch.equal(out, want)
+        torch.testing.assert_close(out.float(), att.flash_prefill_plain(nq, nk, nv).float(),
+                                   **TOL)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,10 @@ the kernel's plain version. These tests hold:
   ``attend`` (in the input dtype), bf16/f16 at 5e-2 and f32 at 1e-4 (the
   repo's kernel-vs-jnp tolerance; the plain version rounds p to v's dtype
   before p . v where ``attend`` rounds the normalised probabilities);
+- the bf16/f16 kernel's tiling, emulated in torch (128-query blocks of two
+  64-row warpgroups, 128- or 64-key tiles, the mask on each warpgroup's
+  last tile only, the running max and sum, the exp2 fold, p rounded to v's
+  dtype), against the plain version, ``mha_reference`` and ``attend``;
 - the slice: a 2-layer model (hidden 256, 2 heads of D = 128) prefilled
   at S = 1024 with ``prefill_flash=True`` through the port's ``forward``
   (the branch taken, once a layer) and JAX's (``attend``): logits and the
@@ -89,6 +93,72 @@ def test_flash_prefill_plain_matches_jax(B, Hkv, S, D, dtype):
     qf, kf, vf = (np.asarray(t.float()) for t in (q, k, v))
     want = mha_reference(jnp.asarray(qf), jnp.asarray(np.repeat(kf, rep, 1)),
                          jnp.asarray(np.repeat(vf, rep, 1)), None, causal=True,
+                         sm_scale=D**-0.5)
+    np.testing.assert_allclose(got, np.asarray(want), **tol)
+    jd = JDT[dtype]
+    want = jatt.attend(jnp.asarray(qf, jd), jnp.asarray(kf, jd), jnp.asarray(vf, jd),
+                       jnp.zeros((B,), jnp.int32))
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)), **tol)
+
+
+def _kernel_tiling(q, k, v):
+    """The bf16/f16 kernel's loop (csrc/flash_prefill.cu flash_prefill_wg)
+    in torch: a block of 128 queries is two warpgroups of 64 rows; a
+    warpgroup runs over the key tiles (BN = 128 at D = 128, 64 at D = 256)
+    that hold a key at or below one of its rows, masks its last tile only,
+    keeps the running max of the raw scores m and the sum l in f32, takes p
+    = exp2(s * c - m * c) with c = fl(1/sqrt(D)) * log2(e) in f32 (the fold
+    of the scale into the exponential: one FMA, rounded once), rescales o
+    by exp2((m_old - m) * c) before adding p (rounded to v's dtype) . v in
+    f32, and writes o / l rounded once to q's dtype."""
+    B, Hq, S, D = q.shape
+    rep = Hq // k.shape[1]
+    BN = 128 if D == 128 else 64
+    c = np.float32(np.float32(1.0 / np.sqrt(np.float32(D))) * np.float32(np.log2(np.e)))
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(rep, 1) for t in (k, v))
+    out = torch.empty_like(q)
+    assert S % 128 == 0
+    for r0 in range(0, S, 64):  # one warpgroup's 64 rows
+        rows = torch.arange(r0, r0 + 64)
+        n_tiles = (r0 + 64 + BN - 1) // BN
+        assert n_tiles * BN > r0 + 63  # the tiles it skips: keys above all its rows
+        m = torch.full((B, Hq, 64), -np.inf)
+        l = torch.zeros((B, Hq, 64))
+        o = torch.zeros((B, Hq, 64, D))
+        for t in range(n_tiles):
+            keys = torch.arange(t * BN, (t + 1) * BN)
+            s = qf[:, :, r0:r0 + 64] @ kf[:, :, t * BN:(t + 1) * BN].transpose(-1, -2)
+            above = keys[None, :] > rows[:, None]
+            if t == n_tiles - 1:
+                s = s.masked_fill(above, -np.inf)
+            else:  # only the last tile crosses the diagonal
+                assert not above.any()
+            mx = torch.maximum(m, s.amax(-1))
+            al = torch.exp2((m - mx) * c)
+            nm = -(mx * c)
+            p = torch.exp2((s.double() * float(c) + nm.double()[..., None]).float())
+            l = l * al + p.sum(-1)
+            o = o * al[..., None] + p.to(v.dtype).float() @ vf[:, :, t * BN:(t + 1) * BN]
+            m = mx
+        out[:, :, r0:r0 + 64] = (o / l[..., None]).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("S", [256, 384])
+def test_kernel_tiling_matches_plain_and_jax(S, D, dtype):
+    B, Hq, Hkv = 2, 2, 1
+    q, k, v = _qkv(S * D, B, Hq, Hkv, S, D, dtype)
+    got = _kernel_tiling(q, k, v)
+    assert got.dtype == dtype and got.shape == (B, Hq, S, D)
+    tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(got.float(), att.flash_prefill_plain(q, k, v).float(), **tol)
+    got = got.float().numpy()
+    qf, kf, vf = (np.asarray(t.float()) for t in (q, k, v))
+    want = mha_reference(jnp.asarray(qf), jnp.asarray(np.repeat(kf, Hq // Hkv, 1)),
+                         jnp.asarray(np.repeat(vf, Hq // Hkv, 1)), None, causal=True,
                          sm_scale=D**-0.5)
     np.testing.assert_allclose(got, np.asarray(want), **tol)
     jd = JDT[dtype]
@@ -279,14 +349,16 @@ def test_flash_call_on_a_device_tensor_launches(monkeypatch, dtype):
     assert out.transpose(1, 2).is_contiguous() and att.flash_prefill.launches == 1
 
 
-@pytest.mark.parametrize("case", ["head_dim", "dtype", "length", "mixed"])
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "length", "mixed", "length_64"])
 def test_flash_call_the_kernel_does_not_take_raises(monkeypatch, case):
+    # length_64: a multiple of the 64-query tile of the first design, not
+    # of the 128-query block the kernel takes now
     lib = _FakeLib()
     monkeypatch.setattr(att, "load_kernel", lambda name, argtypes: lib)
     monkeypatch.setattr(att, "_stream", lambda x: 0)
     monkeypatch.setattr(att, "flash_prefill_plain", None)
-    shape = {"head_dim": (1, 4, 1024, 80), "length": (1, 4, 1000, 128)}.get(case,
-                                                                         (1, 4, 1024, 128))
+    shape = {"head_dim": (1, 4, 1024, 80), "length": (1, 4, 1000, 128),
+             "length_64": (1, 4, 1088, 128)}.get(case, (1, 4, 1024, 128))
     dt = torch.int8 if case == "dtype" else torch.bfloat16
     q = _meta(shape, dt)
     k = _meta(shape, torch.float16 if case == "mixed" else dt)
