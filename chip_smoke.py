@@ -9,7 +9,8 @@ Phases (any failed check exits non-zero before the last line):
    once (build seconds printed, and ptxas's registers, shared memory,
    spills and performance notes of the five sources on the wgmma
    mainloop: gemm_qs, gemm_plane, gemm_pairs, gemv_qs and gemv_gp, and of
-   kernel 8, flash_prefill; then
+   kernel 8, flash_prefill, whose six instantiations must be there without
+   spills and whose two f32 ones must run HGMMA (cuobjdump -sass); then
    each gemm_plane instantiation's registers, spills and C7512 notes: the
    m tile of 256 must be there for int3/u16, fp4 and int8, in bf16 and in
    f16, without spills; and each instantiation of the weight-streaming
@@ -20,9 +21,11 @@ Phases (any failed check exits non-zero before the last line):
    plain, bound and library times: kernel 8 (the reset prefill's causal
    flash attention) on the forward's strided q, k and v at Vicuna-7B's
    (1, 32, 1024, 128) and (1, 32, 2048, 128) in bf16, the G = 2 admission
-   (2, 32, 1024, 128), (1, 32, 1024, 128) in f16 and f32, and MOSS's (1,
-   24, 1024, 256) in bf16 (library: scaled_dot_product_attention(
-   is_causal=True)); at the Vicuna-7B shapes q4bf16 (qsplit
+   (2, 32, 1024, 128), (1, 32, 1024, 128) in f16, and MOSS's (1, 24,
+   1024, 256) in bf16, and the f32 body at the same four shapes (library:
+   scaled_dot_product_attention(is_causal=True); the f32 rows' bound at
+   3xTF32's 165 TFLOP/s, the f32 FMA bound at 67 beside it); at the
+   Vicuna-7B shapes q4bf16 (qsplit
    GEMV at m=1, 3 and 8: m = 8 is the b1 verify pass at K = 8; GEMM at
    m=32, the b8 scheduler's verify pass at K = 4, m=128 and m=2048, and on
    the flat lm head at m=32 and 128); q3bf16_s16 (int3 GEMV at m=1 and m=2, plane GEMM at m=8, 128 and
@@ -83,8 +86,9 @@ Phases (any failed check exits non-zero before the last line):
    slot scheduler, precompiled, admits four greedy requests of 1500,
    1800, 1024 and 1300 tokens (the first two as one G = 2 admission;
    kernel 8 3L times) with the same streams as on an engine that runs its
-   programs eagerly; q3f16_s16 on f16 slot KV (phase 8b) and MOSS (phase
-   10) each run one 1100-token flash prefill held the same way. Every
+   programs eagerly; q3f16_s16 on f16 slot KV (phase 8b), MOSS (phase 10)
+   and Vicuna q4f32 (phase 10b, the f32 body) each run one 1100-token
+   flash prefill held the same way. Every
    other path (paged, int8, short prompts) is held to 0 launches of
    kernel 8;
 5b. speculation phase, on the same params: (a) b1 slot KV, the motif
@@ -164,6 +168,13 @@ Phases (any failed check exits non-zero before the last line):
    requests through the paged b8 scheduler (kernel 7 at D = 256), launch
    counts held, then the same requests twice again, the second time under
    torch.profiler, for the device idle share;
+10b. q4f32 flash phase: the MOSS params are freed; full-depth Vicuna-7B
+   q4f32 (f32 compute) on an f32 slot cache, one 1100-token reset prefill
+   (bucket 2048) as a graph replay: kernel 8's f32 body once a layer (every
+   call's q f32), the logits held against forward_block(prefill_flash=
+   False) at F32_LOGIT_RTOL, within LOGIT_RTOL (nothing rounds to bf16 on
+   either side: the share measures the f32 body's error through 32
+   layers);
 11. one JSON line of stats, one of kernels, the card line, and the final
    ok line. Each phase prints its seconds.
 
@@ -190,6 +201,7 @@ import gc
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -215,9 +227,10 @@ from mlc_llm_tpu_torch.models import (
     init_paged_kv_cache,
     init_random_params,
 )
+from mlc_llm_tpu_torch.models import transformer as tr
 from mlc_llm_tpu_torch.models.hf_loader import params_from_hf
 from mlc_llm_tpu_torch.models.transformer import pad_params, param_bytes, tree_map
-from mlc_llm_tpu_torch.ops import KERNELS, build_kernels, load_kernel
+from mlc_llm_tpu_torch.ops import BUILD_DIR, KERNELS, _nvcc, build_kernels, load_kernel
 from mlc_llm_tpu_torch.ops import attention as att
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import matmul as mm
@@ -397,6 +410,10 @@ PAGED_CASES = [
 # serialized wgmma)
 WGMMA_SOURCES = ("dequant_gemm_qs", "dequant_gemm_plane", "dequant_gemm_pairs",
                  "dequant_gemv_qs", "dequant_gemv_gp")
+# the SASS opcodes counted in kernel 8's f32 body: the tensor-core products,
+# the FMAs (softmax and fold: no f32 product runs on the CUDA cores), the
+# exponentials and the TMA loads
+SASS_OPS = ("HGMMA", "FFMA", "MUFU", "UTMALDG")
 # the sources of the weight-streaming mainloop (csrc/gemv_stream.cuh), whose
 # stream_kernel instantiations must not spill
 STREAM_SOURCES = ("dequant_gemv_qs", "dequant_gemv_gp", "dequant_gemv_gp3")
@@ -451,6 +468,25 @@ def stream_instantiations(log: str):
     """The weight-streaming mainloop's stream_kernel instantiations in
     ptxas's report: name, registers, spill store and load bytes."""
     return ptxas_entries(log, r"\S*stream_kernel\S*")
+
+
+def sass_counts(so: str, pattern: str):
+    """cuobjdump -sass of a built library: per kernel function whose name
+    contains `pattern`, the count of each opcode of SASS_OPS."""
+    out = subprocess.run([os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass", so],
+                         capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            fn = hit.group(1) if pattern in hit.group(1) else None
+            if fn:
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if fn and op and op.group(1) in SASS_OPS:
+            counts[fn][op.group(1)] += 1
+    return counts
 
 
 def stream_blocks_check():
@@ -778,15 +814,18 @@ def paged_case(gen, flush, label, hkv, hq, D, qdt, page_dtypes, lengths, window,
 
 # kernel 8's cases: (label, B, query heads, kv-heads, S, D, dtype): a reset
 # prefill at Vicuna-7B's buckets 1024 and 2048, the grouped admission at G =
-# 2, the f16 body (q3f16_s16) and the f32 body (q4f32 and f32 on Vicuna),
-# and MOSS (D 256)
+# 2, the f16 body (q3f16_s16), and MOSS (D 256); the f32 body (q4f32 and
+# f32 on Vicuna, MOSS) at the same shapes
 FLASH_CASES = [
     ("vicuna", 1, 32, 32, 1024, 128, torch.bfloat16),
     ("vicuna", 1, 32, 32, 2048, 128, torch.bfloat16),
     ("vicuna G=2", 2, 32, 32, 1024, 128, torch.bfloat16),
     ("vicuna", 1, 32, 32, 1024, 128, torch.float16),
-    ("vicuna", 1, 32, 32, 1024, 128, torch.float32),
     ("moss", 1, MOSS.num_heads, MOSS.num_kv_heads, 1024, MOSS.head_dim, torch.bfloat16),
+    ("vicuna", 1, 32, 32, 1024, 128, torch.float32),
+    ("vicuna", 1, 32, 32, 2048, 128, torch.float32),
+    ("vicuna G=2", 2, 32, 32, 1024, 128, torch.float32),
+    ("moss", 1, MOSS.num_heads, MOSS.num_kv_heads, 1024, MOSS.head_dim, torch.float32),
 ]
 
 
@@ -830,18 +869,23 @@ def flash_rows(gen, flush):
         tol = F32_KERNEL_TOL if f32 else dict(atol=KERNEL_TOL, rtol=KERNEL_TOL)
         ok = got.dtype == dt and torch.allclose(got.float(), want.float(), **tol)
         esize = torch.empty((), dtype=dt).element_size()
-        b_ms, b_by = flash_bound(B, hq, hkv, S, D, esize, F32_FMA_FLOPS if f32 else BF16_FLOPS)
+        # the f32 body's products are 3xTF32 on the tensor cores
+        b_ms, b_by = flash_bound(B, hq, hkv, S, D, esize,
+                                 F32_3XTF32_FLOPS if f32 else BF16_FLOPS)
         dts = str(dt).replace("torch.", "")
         name = f"{label} b{B} S{S} D{D} {dts}"
         row = dict(kernel="flash_prefill", shape=name, dtype=dts, m=B * S, k=S, n=hq, d=D,
                    max_abs_err=err, ms=time_ms(run_kernel, flush, 20),
                    plain_ms=time_ms(run_plain, flush, 3),
                    library_ms=time_ms(run_library, flush, 20), bound_ms=b_ms, bound_by=b_by)
+        if f32:  # the same work on the f32 FMA units, the CUDA-core bound
+            row["bound_f32_fma_ms"] = flash_bound(B, hq, hkv, S, D, esize, F32_FMA_FLOPS)[0]
         row["tflops"] = 2 * B * hq * S * S * D / (row["ms"] * 1e-3) / 1e12
         row["vs_library"] = row["ms"] / row["library_ms"]
         print(f"  flash_prefill {name}: max_abs_err={err:.3g} (library vs plain {lib_err:.3g}) "
               f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}"
+              + (f"; f32 FMA {row['bound_f32_fma_ms']:.4f}" if f32 else "") + ") "
               f"{row['tflops']:.1f} TFLOP/s, {row['vs_library']:.2f}x library, "
               f"{row['ms'] / b_ms:.1f}x bound")
         if not ok:
@@ -1177,7 +1221,8 @@ def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0
     return want
 
 
-KV_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.int8: "int8"}
+KV_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.int8: "int8",
+            torch.float32: "f32"}
 
 
 # [non-finite logits, forwards] of finite_logits, on the card; never
@@ -1360,7 +1405,7 @@ FLASH_TURN = " ".join(
     "with the online softmax kept in registers." for i in range(11))
 
 
-def flash_logits_check(engine, cfg, label, n, seed=11):
+def flash_logits_check(engine, cfg, label, n, seed=11, rtol=LOGIT_RTOL):
     """One reset prefill of n >= 1024 random tokens through the engine's
     program (a graph replay: kernel 8 once a layer), its logits held
     against the same block through forward_block(..., prefill_flash=False)
@@ -1368,8 +1413,9 @@ def flash_logits_check(engine, cfg, label, n, seed=11):
     at LOGIT_RTOL: kernel 8 rounds p against its key tiles' running max
     and attend rounds the normalised probabilities, each to the compute
     type, and the random full-width layers amplify a rounding that goes the
-    other way as they do card against CPU (4.2% there). Leaves the engine
-    reset."""
+    other way as they do card against CPU (4.2% there); f32 compute on an
+    f32 cache rounds nothing to bf16 on either side and is held at
+    F32_LOGIT_RTOL. Leaves the engine reset."""
     toks = [int(t) for t in np.random.default_rng(seed).integers(3, cfg.vocab_size, n)]
     engine.reset()
     reset_counters()
@@ -1393,8 +1439,8 @@ def flash_logits_check(engine, cfg, label, n, seed=11):
                argmax_equal=same_top, launches=counts)
     print(f"  {label}: a {n}-token reset prefill (bucket {bucket}) ran kernel 8 {launches} "
           f"times (want {cfg.num_layers}); its logits against attend's: {share:.4g} of max "
-          f"|logit| (limit {LOGIT_RTOL}), argmax equal {same_top}")
-    if launches != cfg.num_layers or not torch.isfinite(got).all() or share > LOGIT_RTOL:
+          f"|logit| (limit {rtol}), argmax equal {same_top}")
+    if launches != cfg.num_layers or not torch.isfinite(got).all() or share > rtol:
         fail(f"{label}: the flash reset prefill did not run kernel 8 once a layer, or its "
              f"logits are not finite or differ from attend's")
     return out
@@ -1514,14 +1560,23 @@ def flash_scheduler_phase(params, cfg=VICUNA):
     return paths_launches, stats
 
 
-def flash_prefill_phase(params, cfg, quant, cache_dtype=torch.bfloat16, n=1100):
+def flash_prefill_phase(params, cfg, quant, cache_dtype=torch.bfloat16, n=1100,
+                        rtol=LOGIT_RTOL):
     """flash_logits_check on a b1 slot engine of cfg with a cache_dtype
-    cache (MOSS: D = 256; q3f16_s16 on f16 KV: the f16 body)."""
+    cache (MOSS: D = 256; q3f16_s16 on f16 KV: the f16 body; q4f32 on f32
+    KV: the f32 body), and the dtype of q at each of the forward's kernel 8
+    calls (made while the prefill's graph is captured)."""
     print(f"== flash prefill: {cfg.name} {quant}, {KV_NAMES[cache_dtype]} slot cache, batch 1")
     engine = InferenceEngine(cfg, params, max_batch=1, max_seq_len=min(cfg.max_seq_len, 2048),
                              cache_dtype=cache_dtype, device="cuda")
-    out = flash_logits_check(engine, cfg, f"{cfg.name} {quant}", n)
-    out.update(graph_stats(engine))
+    dtypes, real = set(), tr.flash_prefill
+    tr.flash_prefill = lambda q, k, v: dtypes.add(str(q.dtype)) or real(q, k, v)
+    try:
+        out = flash_logits_check(engine, cfg, f"{cfg.name} {quant}", n, rtol=rtol)
+    finally:
+        tr.flash_prefill = real
+    out.update(graph_stats(engine), q_dtypes=sorted(dtypes))
+    print(f"  kernel 8's q in the forward: {sorted(dtypes)}")
     del engine
     return out.pop("launches"), out
 
@@ -2455,6 +2510,17 @@ def main():
               f"{e['spill_stores']} B, loads {e['spill_loads']} B")
     if len(fp) != 4 or any(e["spill_stores"] != 0 or e["spill_loads"] != 0 for e in fp):
         fail(f"flash_prefill_wg instantiations missing or spilling: {fp}")
+    # its f32 body at D = 128 and 256 (3xTF32 on wgmma .tf32): no spills,
+    # and HGMMA in the SASS of both
+    f32 = ptxas_entries(logs["flash_prefill"], r"\S*flash_prefill_tf32\S*")
+    sass = sass_counts(os.path.join(BUILD_DIR, "flash_prefill.so"), "flash_prefill_tf32")
+    for e in f32:
+        print(f"  flash_prefill_tf32 {e['name']}: {e['regs']} registers, spill stores "
+              f"{e['spill_stores']} B, loads {e['spill_loads']} B; SASS "
+              f"{sass.get(e['name'], {})}")
+    if len(f32) != 2 or any(e["spill_stores"] != 0 or e["spill_loads"] != 0
+                            or not sass.get(e["name"], {}).get("HGMMA") for e in f32):
+        fail(f"flash_prefill_tf32 instantiations missing, spilling or without HGMMA: {f32}")
 
     with phase_seconds("kernel phase"):
         rows = kernel_phase()
@@ -2569,6 +2635,22 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
 
+    # kernel 8's f32 body on its path: full-depth Vicuna q4f32 (f32
+    # compute) on an f32 slot cache, a reset prefill of 1100 tokens
+    with phase_seconds("q4f32 flash phase"):
+        t0 = time.perf_counter()
+        params = init_random_params(VICUNA, "q4f32", seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"full-depth {VICUNA.name} q4f32 params in {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        paths["q4f32_flash"], q4f32_flash_stats = flash_prefill_phase(
+            params, VICUNA, "q4f32", torch.float32, rtol=F32_LOGIT_RTOL)
+        if q4f32_flash_stats["q_dtypes"] != ["torch.float32"]:
+            fail(f"q4f32 flash: kernel 8 ran on {q4f32_flash_stats['q_dtypes']}, not f32 alone")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # per kernel: its main-path shape (GEMVs: w_in at decode m=1; GEMMs: w_in
     # at prefill m=128; paged: bf16 KV at b8); every shape is in "shapes".
     # launches: the count on the kernel's own slice's path (the q4 serve
@@ -2599,8 +2681,8 @@ def main():
             bound_by=top["bound_by"], library_ms=top["library_ms"],
             shapes=[{k: r.get(k) for k in ("quant", "dtype", "shape", "m", "k", "n",
                                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms", "tflops",
-                                           "vs_library")}
+                                           "bound_by", "bound_f32_fma_ms", "library_ms",
+                                           "tflops", "vs_library")}
                     for r in mine]))
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels):
         fail("a kernel time is not finite or a kernel never ran on its path")
@@ -2612,6 +2694,7 @@ def main():
                       "moss_serve": moss_serve_stats, "graph": graph_phase_stats,
                       "flash_chat": flash_chat_stats, "flash_scheduler": flash_sched_stats,
                       "flash_q3f16": q3f16_flash_stats, "flash_moss": moss_flash_stats,
+                      "flash_q4f32": q4f32_flash_stats,
                       "speculation_b1": spec_b1, "speculation_scheduler": spec_sched}))
     print(json.dumps({"kernels": kernels}))
     print(card)

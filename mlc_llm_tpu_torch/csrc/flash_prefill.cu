@@ -13,7 +13,7 @@
 //   the online softmax keeps m and l in f32; p = exp(s - m) is summed into
 //   l in f32 and rounded to v's type before the P.V product, which
 //   accumulates in f32; the output is acc / l, rounded once to q's type.
-// The bf16/f16 body folds the scale and log2(e) into one f32 constant c:
+// Both bodies fold the scale and log2(e) into one f32 constant c:
 // the running max m is kept over the raw s (the same maximum: the scale is
 // positive) and p = exp2(s * c - m * c), one FMA and ex2 a score. That is
 // exp(s * scale - m * scale) reformulated, not a new rounding point.
@@ -70,11 +70,47 @@
 // wgmma products taken out it keeps 72-83% of its time (scripts/
 // torch_ablation.py --kernel flash_prefill); each 128-query block reads its
 // K/V tiles again from L2.
-// f32 runs a CUDA-core body: a block of 8 warps holds 32 query rows (4 a
-// warp) against 32-key tiles; lane j computes key j's scores with float4
-// reads of a padded K row, the warp reduces max and sum by shuffles, and
-// each lane accumulates D / 32 output columns. Its redesign (3xTF32 on
-// wgmma, as the f32 GEMMs do) is later work.
+// The f32 body (flash_prefill_tf32) keeps f32's accuracy on the tensor
+// cores with 3xTF32 on wgmma .tf32, as the f32 GEMMs do: each operand x is
+// split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a . b
+// = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (lo.lo is below f32's last bit), in
+// both S = Q K^T and P V. Its work is 3x the products' at the TF32 rate,
+// 165 TFLOP/s of f32 products. It keeps the bf16/f16 body's grid order,
+// its skipped and masked tiles, its 4-D maps and its lack of a producer
+// warpgroup. What differs:
+//   * wgmma .tf32 reads shared-memory operands only K-major. Q and K are
+//     (D contiguous), and TMA lands them; V is not, so the threads split
+//     and transpose each landed V tile into V^T hi and lo (keys
+//     contiguous), and split each K tile (and Q, once) into hi and lo. K's
+//     hi and lo rows are stacked, so that one wgmma of N = 2 BN takes
+//     q_hi.k_hi and q_hi.k_lo and Q's A tile is read from shared memory
+//     twice a k8 step, not three times;
+//   * P goes from registers without a shuffle: the k8 A fragment holds
+//     columns c and c + 4 of a quad where the score accumulator holds keys
+//     2c and 2c + 1, so V^T's columns are written in the order 0 2 4 6 1 3
+//     5 7 within each 8 keys and the fragment is the scores as they lie;
+//   * the tensor cores' f32 accumulation truncates: each tile's P V runs
+//     into a fresh fragment that the CUDA cores fold into o with the online
+//     softmax's rescale, o = o * alpha + part (S is fresh each tile);
+//   * hi and lo double f32's tiles again. A block is two warpgroups: at D
+//     = 128 they hold 64 query rows each (Q hi and lo 128 KB) over 32-key
+//     tiles; at D = 256 they share 64 rows (also 128 KB) over 16-key tiles
+//     (V^T rows of 64 bytes, in the 64-byte swizzle) and split D, each
+//     taking Q K^T over its 128 columns (the halves of S summed through
+//     shared memory) and P V into its 128 columns of o. With K and V^T in
+//     hi and lo and the K and V tiles TMA lands, 224 KB either way: one
+//     block an SM. A thread holds 64 registers of o and 64 of the fresh
+//     part either way (a first build with one warpgroup of 64 rows at D =
+//     256, o 128 registers a thread, spilled and ran slower than SDPA);
+//   * the tile loop runs in lock step: every thread splits the landed
+//     tile, a barrier, the next tile's TMA loads go out, each warpgroup runs
+//     Q K^T, the softmax and P V, a barrier.
+// On the H100 the f32 body runs at 0.49-0.75x causal SDPA in f32 and
+// 2.3-4.5x its 3xTF32 bound: with every wgmma taken out it keeps 60-74% of
+// its time, with no K/V split 67-69% (scripts/torch_ablation.py --kernel
+// flash_prefill). The splits and the products, both on shared memory, take
+// about a third each, in turn; splitting V under Q K^T and K under P V
+// (two barriers a tile) was no faster.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -105,20 +141,6 @@ struct Args {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every cp.async group of this thread but the newest one has landed
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- bf16 / f16
@@ -540,154 +562,404 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ----------------------------------------------------------------------- f32
 
-constexpr int kF32Warps = 8;
-constexpr int kF32Threads = kF32Warps * 32;
-constexpr int kF32Rows = 32;                       // query rows a block
-constexpr int kF32Keys = 32;                       // keys a tile: one a lane
-constexpr int kRowsPerWarp = kF32Rows / kF32Warps;  // 4
+// d = A B (scale_d = 0) or d += A B, m64 x N x k8 in TF32 (f32 bits whose
+// low 13 are zero), A and B K-major in shared memory (descriptors)
+template <int N>
+struct Tf32SS;
 
-template <int D>
-struct F32Tile {
-  // K rows padded by 4 floats: lane j's float4 reads of row j, 8 lanes a
-  // phase, fall on 32 distinct banks
-  static constexpr int kLdK = D + 4;
-  static constexpr int kSmemFloats = kF32Rows * D + 2 * kF32Keys * kLdK + 2 * kF32Keys * D;
+template <>
+struct Tf32SS<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
 };
 
+template <>
+struct Tf32SS<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Tf32SS<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// d (+)= A B, m64 x 128 x k8 in TF32, A in registers (a[0] = (row g, k
+// c), a[1] = (row g + 8, k c), a[2] = (row g, k c + 4), a[3] = (row g + 8,
+// k c + 4)), B K-major in shared memory
+struct Tf32RS {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// The f32 body's tiles. A block is two warpgroups. At D = 128 they hold
+// 64 query rows each (128 a block) over 32-key tiles; at D = 256 they share
+// 64 rows and split D: each computes Q K^T over its 128 columns of D (the
+// two halves of S are summed through shared memory) and P V into its 128
+// columns of o, over 16-key tiles. Either way Q, K and V^T in hi and lo and
+// the two tiles TMA lands fit 227 KB, and a thread holds a 64 x 128 part
+// of o (64 registers) and a fresh part of P V as large
 template <int D>
-__global__ void __launch_bounds__(kF32Threads, 2) flash_prefill_f32(Args a) {
-  using Tile = F32Tile<D>;
-  constexpr int LDK = Tile::kLdK, CH = D / 4, DL = D / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [32][D]
-  float* sK = sQ + kF32Rows * D;                   // [2][32][LDK]
-  float* sV = sK + 2 * kF32Keys * LDK;             // [2][32][D]
+struct F32Tile {
+  static constexpr bool kSplitD = D == 256;            // warpgroups split D, not rows
+  static constexpr int kRows = kSplitD ? 64 : 128;      // query rows a block
+  static constexpr int kThreads = 256;
+  static constexpr int kBN = kSplitD ? 16 : 32;         // keys a tile
+  static constexpr int kVtRow = kBN * 4;                // bytes of a V^T row
+  static constexpr int kVtLayout = kBN == 32 ? 1 : 2;   // its swizzle: 128 or 64 bytes
+  static constexpr int kQBytes = kRows * D * 4;         // a Q plane: [D / 32][rows][32]
+  static constexpr int kKVBytes = kBN * D * 4;          // a K, V or V^T plane
+  // Q hi and lo, K hi and lo (stacked: [D / 32][hi rows, lo rows][32]),
+  // V^T hi and lo, and the K and V tiles as TMA lands them (at D = 256 the
+  // K tile's buffer carries the halves of S between its split and the next
+  // K tile's load)
+  static constexpr int kSmem = 2 * kQBytes + 6 * kKVBytes + 1024;
+};
 
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.rep;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* qg = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h +
-                    static_cast<long long>(qb) * kF32Rows * a.qs.s;
-  const float* kg = static_cast<const float*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const float* vg = static_cast<const float*>(a.v) + b * a.vs.b + hk * a.vs.h;
+// a byte offset within a 1024-aligned tile in the 128-byte (64-byte)
+// swizzle: its 16-byte chunk XOR address bits 7-9 (7-8), as TMA writes the
+// tile and wgmma reads it
+__device__ __forceinline__ uint32_t swz128(uint32_t o) { return o ^ ((o >> 3) & 0x70); }
+__device__ __forceinline__ uint32_t swz64(uint32_t o) { return o ^ ((o >> 3) & 0x30); }
 
-  for (int i = tid; i < kF32Rows * CH; i += kF32Threads) {
-    const int r = i / CH, c = i % CH;
-    cp_async16(sQ + r * D + c * 4, qg + r * a.qs.s + c * 4);
-  }
-  auto load_kv = [&](int t, int buf) {
-    const float* kt = kg + static_cast<long long>(t) * kF32Keys * a.ks.s;
-    const float* vt = vg + static_cast<long long>(t) * kF32Keys * a.vs.s;
-    for (int i = tid; i < kF32Keys * CH; i += kF32Threads) {
-      const int r = i / CH, c = i % CH;
-      cp_async16(sK + (buf * kF32Keys + r) * LDK + c * 4, kt + r * a.ks.s + c * 4);
-      cp_async16(sV + (buf * kF32Keys + r) * D + c * 4, vt + r * a.vs.s + c * 4);
-    }
-  };
-  const int n_tiles = qb + 1;  // 32-key tiles at or below the diagonal
-  load_kv(0, 0);
-  cp_async_commit();
+// x = hi + lo + (what 3xTF32 drops): hi = cvt.rna.tf32(x), lo =
+// cvt.rna.tf32(x - hi) (x - hi is exact in f32), as f32 bits
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = wg::tf32(x);
+  lo = wg::tf32(x - __uint_as_float(hi));
+}
 
-  const int rw0 = warp * kRowsPerWarp;  // the warp's first row in the block
-  float o[kRowsPerWarp][DL];
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) o[r][i] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) load_kv(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    const float* cK = sK + (t & 1) * kF32Keys * LDK;
-    const float* cV = sV + (t & 1) * kF32Keys * D;
-    // lane j: key t * 32 + j against the warp's rows
-    float s[kRowsPerWarp] = {};
+// a plane of Bytes from `src` into hi (in place when hi == src) and lo,
+// element by element: the three share one layout, whatever its swizzle
+template <int Bytes, int Threads>
+__device__ __forceinline__ void split_plane(uint8_t* hi, uint8_t* lo, const uint8_t* src,
+                                            int tid) {
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(cK + lane * LDK + d);
+  for (int i = tid; i < Bytes / 16; i += Threads) {
+    const float4 x = reinterpret_cast<const float4*>(src)[i];
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    reinterpret_cast<uint4*>(hi)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
+  }
+}
+
+// The K tile as TMA lands it ([D / 32][BN keys][32], 128-byte swizzle)
+// into hi and lo stacked a column block: [D / 32][2 BN][32], keys 0 .. BN -
+// 1 of hi, then of lo, so that one wgmma of N = 2 BN multiplies q_hi by
+// both. BN rows are whole 1024-byte swizzle atoms: the swizzle carries over
+template <int D>
+__device__ __forceinline__ void split_k(uint8_t* sk, const uint8_t* stk, int tid) {
+  using W = F32Tile<D>;
+  constexpr int kBlock = W::kBN * kAtom;  // a column block of the landed tile
+#pragma unroll 4
+  for (int i = tid; i < W::kKVBytes / 16; i += W::kThreads) {
+    const float4 x = reinterpret_cast<const float4*>(stk)[i];
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    uint8_t* at = sk + (16 * i / kBlock) * 2 * kBlock + (16 * i) % kBlock;
+    *reinterpret_cast<uint4*>(at) = h;
+    *reinterpret_cast<uint4*>(at + kBlock) = l;
+  }
+}
+
+// The V tile as TMA lands it ([D / 32][BN keys][32] in the 128-byte
+// swizzle) into V^T hi and lo, [D rows][BN keys], keys contiguous (wgmma
+// .tf32 reads B only K-major). Key 8i + e of the tile goes to column 8i +
+// e / 2 (e even) or 8i + 4 + e / 2 (e odd): the k order in which a
+// thread's scores of keys 2c and 2c + 1 are already its A fragment (see
+// issue_pv3). A warp's lanes are the tile's 32 keys (two rows of 16) of
+// 4-column chunks: distinct swizzled chunks on the read, distinct banks on
+// each write
+template <int D>
+__device__ __forceinline__ void split_v(uint8_t* vh, uint8_t* vl, const uint8_t* stv, int tid) {
+  using W = F32Tile<D>;
+  constexpr int BN = W::kBN;
+  const int e = tid % BN;
+  const int col = (e & ~7) | ((e & 1) << 2) | ((e & 7) >> 1);
+#pragma unroll 2
+  for (int c4 = tid / BN; c4 < D / 4; c4 += W::kThreads / BN) {
+    const int d = 4 * c4;
+    const float4 x = *reinterpret_cast<const float4*>(
+        stv + swz128((d / 32) * BN * kAtom + e * kAtom + (d % 32) * 4));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(sQ + (rw0 + r) * D + d);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t o = (d + i) * W::kVtRow + col * 4;
+      const uint32_t at = BN == 32 ? swz128(o) : swz64(o);
+      uint32_t h, l;
+      split(xs[i], h, l);
+      *reinterpret_cast<uint32_t*>(vh + at) = h;
+      *reinterpret_cast<uint32_t*>(vl + at) = l;
     }
-    const int key = t * kF32Keys + lane;
+  }
+}
+
+// the descriptor of V^T rows in its swizzle: 8 rows a group, sbo apart
+template <int D>
+__device__ __forceinline__ uint64_t desc_vt(uint32_t addr) {
+  using W = F32Tile<D>;
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * W::kVtRow) >> 4) << 32) |
+         (static_cast<uint64_t>(W::kVtLayout) << 62);
+}
+
+// S = Q K^T of one tile over 128 columns of D (all of D = 128, the
+// warpgroup's half of D = 256), in 3xTF32, into two fresh fragments: 16 k8
+// steps (column block kk / 4, 32 bytes a step within it), each q_hi.[k_hi;
+// k_lo] (one wgmma of N = 2 BN: Q's A tile is read once for both) into
+// s2, and q_lo.k_hi into s (lo.lo is below f32's last bit); one group.
+// sum_s adds them: s = (q_lo.k_hi + q_hi.k_lo) + q_hi.k_hi
+template <int D>
+__device__ __forceinline__ void issue_qk3(float (&s)[F32Tile<D>::kBN / 2],
+                                          float (&s2)[F32Tile<D>::kBN], uint32_t qh, uint32_t ql,
+                                          uint32_t kh) {
+  using W = F32Tile<D>;
+  constexpr int BN = W::kBN;
+  // the addresses opaque each call: the 48 descriptors, hoisted out of the
+  // tile loop, would hold 96 registers
+  asm volatile("" : "+r"(qh), "+r"(ql), "+r"(kh));
+  wg::wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = qb * kF32Rows + rw0 + r;
-      float sr = key > row ? -INFINITY : s[r] * a.scale;
-      float mx = sr;
+  for (int kk = 0; kk < 16; ++kk) {
+    const uint32_t oq = (kk / 4) * W::kRows * kAtom + (kk % 4) * 32;
+    const uint32_t ok = (kk / 4) * 2 * BN * kAtom + (kk % 4) * 32;
+    const uint64_t q_hi = desc_sw128(qh + oq, 16, 1024), q_lo = desc_sw128(ql + oq, 16, 1024);
+    const uint64_t k = desc_sw128(kh + ok, 16, 1024);  // hi rows, then lo rows
+    Tf32SS<2 * BN>::mma(s2, q_hi, k, kk > 0);
+    Tf32SS<BN>::mma(s, q_lo, k, kk > 0);
+  }
+  wg::wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void sum_s(float (&s)[N], const float (&s2)[2 * N]) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      mx = fmaxf(mx, m[r]);  // finite: tile 0 holds key 0
-      const float p = __expf(sr - mx);
-      float ps = p;
+  for (int i = 0; i < N; ++i) s[i] = (s[i] + s2[N + i]) + s2[i];
+}
+
+// p's A fragments, split: step j (keys 8j .. 8j + 7) takes the thread's
+// scores as they lie, (row g, key 2c), (row g + 8, key 2c), (row g, key
+// 2c + 1), (row g + 8, key 2c + 1), i.e. k = c and c + 4 name keys 2c and
+// 2c + 1, the order split_v wrote V^T's columns in: no shuffle
+template <int N>
+__device__ __forceinline__ void split_p(uint32_t (&ph)[N], uint32_t (&pl)[N],
+                                        const float (&s)[N]) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      const float al = __expf(m[r] - mx);
-      l[r] = l[r] * al + ps;
-      m[r] = mx;
-      s[r] = p;
+  for (int j = 0; j < N / 4; ++j) {
+    split(s[4 * j], ph[4 * j], pl[4 * j]);
+    split(s[4 * j + 2], ph[4 * j + 1], pl[4 * j + 1]);
+    split(s[4 * j + 1], ph[4 * j + 2], pl[4 * j + 2]);
+    split(s[4 * j + 3], ph[4 * j + 3], pl[4 * j + 3]);
+  }
+}
+
+// part = P V of 128 output columns (V^T rows from vh / vl), in 3xTF32,
+// into a fresh fragment (the tensor cores' f32 accumulation truncates, so
+// o is summed on the CUDA cores): BN / 8 k8 steps; one group
+template <int D>
+__device__ __forceinline__ void issue_pv3(float (&part)[64],
+                                          const uint32_t (&ph)[F32Tile<D>::kBN / 2],
+                                          const uint32_t (&pl)[F32Tile<D>::kBN / 2],
+                                          uint32_t vh, uint32_t vl) {
+  asm volatile("" : "+r"(vh), "+r"(vl));  // no descriptor hoisted out of the tile loop
+  wg::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < DL; ++i) o[r][i] *= al;
-    }
-#pragma unroll 8
-    for (int j = 0; j < kF32Keys; ++j) {
-      float vj[DL];
+  for (int j = 0; j < F32Tile<D>::kBN / 8; ++j) {
+    const uint64_t v_hi = desc_vt<D>(vh + 32 * j), v_lo = desc_vt<D>(vl + 32 * j);
+    Tf32RS::mma(part, pl + 4 * j, v_hi, j > 0);
+    Tf32RS::mma(part, ph + 4 * j, v_lo, 1);
+    Tf32RS::mma(part, ph + 4 * j, v_hi, 1);
+  }
+  wg::wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
+    flash_prefill_tf32(const __grid_constant__ Maps maps, float* const out, const Strides os,
+                       const int rep, const float c) {
+  using W = F32Tile<D>;
+  constexpr int BN = W::kBN, R = W::kRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sql = sq + W::kQBytes;
+  uint8_t* sk = sql + W::kQBytes;  // K hi and lo, stacked
+  uint8_t* svt = sk + 2 * W::kKVBytes;
+  uint8_t* svtl = svt + W::kKVBytes;
+  uint8_t* stk = svtl + W::kKVBytes;  // the K and V tiles as TMA lands them
+  uint8_t* stv = stk + W::kKVBytes;
+  __shared__ __align__(8) uint64_t q_full, kv_full;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;  // the tiles with the most keys first
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, cq = lane % 4;
+  // the warpgroup's first query row, and its first column of D (of Q K^T's
+  // k and of o)
+  const int r0 = qb * R + (W::kSplitD ? 0 : wgi * 64);
+  const int d0 = W::kSplitD ? wgi * 128 : 0;
+  const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+  // the warpgroup's tiles hold a key at or below one of its rows; the
+  // block's are the last warpgroup's
+  const int n_tiles = (r0 + 64) / BN;
+  const int n_block = (qb + 1) * R / BN;
+  const int hk = h / rep;
+
+  auto load = [&](const CUtensorMap* map, uint8_t* dst, int t) {
 #pragma unroll
-      for (int i = 0; i < DL; ++i) vj[i] = cV[j * D + lane + 32 * i];
+    for (int cb = 0; cb < D / 32; ++cb)
+      tma_load_4d(dst + cb * BN * kAtom, map, &kv_full, cb * 32, t * BN, hk, b);
+  };
+  if (tid == 0) {
+    wg::mbar_init(&q_full, 1);
+    wg::mbar_init(&kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    wg::mbar_expect_tx(&q_full, W::kQBytes);
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, s[r], j);
+    for (int cb = 0; cb < D / 32; ++cb)
+      tma_load_4d(sq + cb * R * kAtom, &maps.q, &q_full, cb * 32, qb * R, h, b);
+    wg::mbar_expect_tx(&kv_full, 2 * W::kKVBytes);
+    load(&maps.v, stv, 0);
+    load(&maps.k, stk, 0);
+  }
+  __syncthreads();
+  wg::mbar_wait(&q_full, 0);
+  // Q into hi (in place) and lo; the first tile's barrier orders it before
+  // any product
+  split_plane<W::kQBytes, W::kThreads>(sq, sql, sq, tid);
+
+  const uint32_t qoff = W::kSplitD ? (d0 / 32) * R * kAtom : wgi * 64 * kAtom;
+  const uint32_t qh = smem_u32(sq) + qoff, ql = smem_u32(sql) + qoff;
+  const uint32_t kh = smem_u32(sk) + (d0 / 32) * 2 * BN * kAtom;
+  const uint32_t vh = smem_u32(svt) + d0 * W::kVtRow, vl = smem_u32(svtl) + d0 * W::kVtRow;
+  float o[64], s[BN / 2], s2[BN], part[64];
 #pragma unroll
-        for (int i = 0; i < DL; ++i) o[r][i] = fmaf(pj, vj[i], o[r][i]);
-      }
-    }
+  for (int i = 0; i < 64; ++i) o[i] = part[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN; ++i) s2[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+  uint32_t ph[BN / 2], pl[BN / 2];
+  Rows r;
+
+  for (int t = 0; t < n_block; ++t) {
+    // every thread splits the landed tile: K into hi and lo, V into V^T
+    // hi and lo; then the next tile's loads go out under this tile's work
+    wg::mbar_wait(&kv_full, t & 1);
+    split_k<D>(sk, stk, tid);
+    split_v<D>(svt, svtl, stv, tid);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
+    if (tid == 0 && t + 1 < n_block) {
+      wg::mbar_expect_tx(&kv_full, 2 * W::kKVBytes);
+      load(&maps.v, stv, t + 1);
+      if (!W::kSplitD) load(&maps.k, stk, t + 1);
+    }
+    if (t < n_tiles) {  // at D = 256 every thread's tiles are the block's
+      issue_qk3<D>(s, s2, qh, ql, kh);
+      wg::wgmma_wait<0>();
+      wg::fence_acc(s);
+      wg::fence_acc(s2);
+      sum_s(s, s2);
+      if constexpr (W::kSplitD) {
+        // S = the two warpgroups' halves, summed through the K tile's
+        // landing buffer (a + b = b + a: both hold the same S), which the
+        // next K tile's load overwrites once both have read
+        float4* ex = reinterpret_cast<float4*>(stk);
+        ex[(2 * wgi) * 128 + tid % 128] = make_float4(s[0], s[1], s[2], s[3]);
+        ex[(2 * wgi + 1) * 128 + tid % 128] = make_float4(s[4], s[5], s[6], s[7]);
+        __syncthreads();
+        const float4 x0 = ex[(2 - 2 * wgi) * 128 + tid % 128];
+        const float4 x1 = ex[(3 - 2 * wgi) * 128 + tid % 128];
+        s[0] += x0.x, s[1] += x0.y, s[2] += x0.z, s[3] += x0.w;
+        s[4] += x1.x, s[5] += x1.y, s[6] += x1.z, s[7] += x1.w;
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();
+        if (tid == 0 && t + 1 < n_block) load(&maps.k, stk, t + 1);
+      }
+      // only the warpgroup's last 64 / BN tiles cross its diagonal
+      softmax(s, r, (t + 1) * BN > r0, t * BN + 2 * cq, row_a, row_b, c);
+      split_p(ph, pl, s);
+      // o = o * alpha + part, the part fresh each tile
+      issue_pv3<D>(part, ph, pl, vh, vl);
+      wg::wgmma_wait<0>();
+      wg::fence_acc(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = fmaf(o[i], i % 4 < 2 ? r.al_a : r.al_b, part[i]);
+    }
+    __syncthreads();  // every product that read this tile's K and V^T is done
   }
 
-  float* og = static_cast<float*>(a.o) + b * a.os.b + h * a.os.h;
+  // epilogue: o / l in f32, straight from the fragment (row a, columns d0
+  // + 8j + 2c and + 1: one 32-byte sector a row a quad)
+  r.l_a += __shfl_xor_sync(0xffffffffu, r.l_a, 1);
+  r.l_a += __shfl_xor_sync(0xffffffffu, r.l_a, 2);
+  r.l_b += __shfl_xor_sync(0xffffffffu, r.l_b, 1);
+  r.l_b += __shfl_xor_sync(0xffffffffu, r.l_b, 2);
+  const float inv_a = 1.f / r.l_a, inv_b = 1.f / r.l_b;
+  float* og = out + b * os.b + h * os.h + d0 + 2 * cq;
+  float* oa = og + static_cast<long long>(row_a) * os.s;
+  float* ob = og + static_cast<long long>(row_b) * os.s;
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const float inv = 1.f / l[r];
-    float* orow = og + static_cast<long long>(qb * kF32Rows + rw0 + r) * a.os.s;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) orow[lane + 32 * i] = o[r][i] * inv;
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<float2*>(oa + 8 * j) = make_float2(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+    *reinterpret_cast<float2*>(ob + 8 * j) =
+        make_float2(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
   }
 }
 
 // ------------------------------------------------------------------ launches
 
-template <typename K>
-int launch_kernel(K kern, dim3 grid, int threads, size_t smem, cudaStream_t st, const Args& a) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kern<<<grid, threads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // a [B, H, S, D] operand through its strides as a 4-D map over (D, S, H,
-// B), boxes of 64 elements (128 bytes) x `rows` positions, 128-byte swizzle
-bool map_operand(CUtensorMap* map, CUtensorMapDataType dt, const void* base, int D, int S, int H,
-                 int B, const Strides& st, int rows) {
+// B), boxes of 128 bytes (64 bf16/f16 or 32 f32) x `rows` positions,
+// 128-byte swizzle
+bool map_operand(CUtensorMap* map, CUtensorMapDataType dt, int esize, const void* base, int D,
+                 int S, int H, int B, const Strides& st, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * esize,
+                                 static_cast<cuuint64_t>(st.h) * esize,
+                                 static_cast<cuuint64_t>(st.b) * esize};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kAtom / esize),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   return wg::make_map(map, dt, 4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
@@ -696,10 +968,10 @@ int launch_wg(const Args& a, int B, int Hq, int Hkv, cudaStream_t st) {
   const CUtensorMapDataType dt =
       kIsBF16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   Maps maps;
-  if (!map_operand(&maps.q, dt, a.q, D, a.S, Hq, B, a.qs, kRows) ||
-      !map_operand(&maps.k, dt, a.k, D, a.S, Hkv, B, a.ks, Tile<D>::kBN) ||
-      !map_operand(&maps.v, dt, a.v, D, a.S, Hkv, B, a.vs, Tile<D>::kBN) ||
-      !map_operand(&maps.o, dt, a.o, D, a.S, Hq, B, a.os, 64))
+  if (!map_operand(&maps.q, dt, 2, a.q, D, a.S, Hq, B, a.qs, kRows) ||
+      !map_operand(&maps.k, dt, 2, a.k, D, a.S, Hkv, B, a.ks, Tile<D>::kBN) ||
+      !map_operand(&maps.v, dt, 2, a.v, D, a.S, Hkv, B, a.vs, Tile<D>::kBN) ||
+      !map_operand(&maps.o, dt, 2, a.o, D, a.S, Hq, B, a.os, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_prefill_wg<T, D>;
   const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -712,9 +984,21 @@ int launch_wg(const Args& a, int B, int Hq, int Hkv, cudaStream_t st) {
 }
 
 template <int D>
-int launch_f32(const Args& a, int B, int Hq, cudaStream_t st) {
-  return launch_kernel(flash_prefill_f32<D>, dim3(a.S / kF32Rows, Hq, B), kF32Threads,
-                       F32Tile<D>::kSmemFloats * sizeof(float), st, a);
+int launch_tf32(const Args& a, int B, int Hq, int Hkv, cudaStream_t st) {
+  using W = F32Tile<D>;
+  const CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  Maps maps;
+  if (!map_operand(&maps.q, dt, 4, a.q, D, a.S, Hq, B, a.qs, W::kRows) ||
+      !map_operand(&maps.k, dt, 4, a.k, D, a.S, Hkv, B, a.ks, W::kBN) ||
+      !map_operand(&maps.v, dt, 4, a.v, D, a.S, Hkv, B, a.vs, W::kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_prefill_tf32<D>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, W::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(Hq, B, a.S / W::kRows), W::kThreads, W::kSmem, st>>>(
+      maps, static_cast<float*>(a.o), a.os, a.rep, a.scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -751,6 +1035,7 @@ extern "C" int mlc_flash_prefill(const void* q, const void* k, const void* v, vo
       return D == 128 ? launch_wg<__half, 128>(a, B, Hq, Hkv, st)
                       : launch_wg<__half, 256>(a, B, Hq, Hkv, st);
     default:
-      return D == 128 ? launch_f32<128>(a, B, Hq, st) : launch_f32<256>(a, B, Hq, st);
+      return D == 128 ? launch_tf32<128>(a, B, Hq, Hkv, st)
+                      : launch_tf32<256>(a, B, Hq, Hkv, st);
   }
 }

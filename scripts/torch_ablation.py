@@ -57,8 +57,8 @@ with twice its parts:
   a block instead of four).
 
 --kernel flash_prefill: csrc/flash_prefill.cu, the bf16/f16 wgmma body
-(flash_prefill_wg), through `mlc_flash_prefill` at chip_smoke.py's bf16 and
-f16 FLASH_CASES shapes (q, k, v the strided views of one projection):
+(flash_prefill_wg), through `mlc_flash_prefill` at chip_smoke.py's
+FLASH_CASES shapes (q, k, v the strided views of one projection):
 - base: the kernel as it is (within a warpgroup, the softmax of tile t
   under the P V of tile t - 1; no ping-pong);
 - producer_wg: a third warpgroup issues the loads, setmaxnreg 24 / 240;
@@ -72,7 +72,14 @@ f16 FLASH_CASES shapes (q, k, v the strided views of one projection):
   TMA store a 64-column block;
 - no_exp: ex2 a copy (the softmax without its MUFU work);
 - no_qk, no_pv: the Q K^T or the P V wgmma skipped;
-- no_mma: both skipped (the TMA ring, barriers and softmax alone).
+- no_mma: both skipped (the TMA ring, barriers and softmax alone);
+and the f32 body (flash_prefill_tf32, 3xTF32 on wgmma .tf32) at the same
+shapes in f32 (base and no_exp time it too):
+- f32_no_mma: every wgmma skipped (loads, splits, softmax and fold alone);
+- f32_1xtf32: one TF32 product each (hi . hi), no cross terms;
+- f32_no_split: the lo planes of Q, K and V^T not written (their products
+  still run);
+- f32_no_convert: no landed K or V tile split or transposed.
 
 Times are CUDA-event means with the 50 MB L2 flushed before each launch,
 as chip_smoke.py times them. Prints ptxas's registers and spills of each
@@ -384,10 +391,29 @@ FP_NO_QK = [("    SS<BN, T>::mma(s, desc_sw128(",
              "    if (q_addr == 0xFFFFFFFFu) SS<BN, T>::mma(s, desc_sw128(")]
 FP_NO_PV = [("    RS<D, T>::mma(o, p + 4 * kk,",
              "    if (v_addr == 0xFFFFFFFFu) RS<D, T>::mma(o, p + 4 * kk,")]
-
+# the f32 body (flash_prefill_tf32), 3xTF32 on wgmma .tf32
+FP32_QK = ("    Tf32SS<2 * BN>::mma(s2, q_hi, k, kk > 0);\n"
+           "    Tf32SS<BN>::mma(s, q_lo, k, kk > 0);\n")
+FP32_PV = ("    Tf32RS::mma(part, pl + 4 * j, v_hi, j > 0);\n"
+           "    Tf32RS::mma(part, ph + 4 * j, v_lo, 1);\n"
+           "    Tf32RS::mma(part, ph + 4 * j, v_hi, 1);\n")
+# a shared-memory address is never 0xFFFFFFFF: the guarded wgmma never runs
+FP32_NO_MMA = [(FP32_QK, "    if (qh == 0xFFFFFFFFu) {\n" + FP32_QK + "    }\n"),
+               (FP32_PV, "    if (vh == 0xFFFFFFFFu) {\n" + FP32_PV + "    }\n")]
+# one TF32 product each (hi . hi): what the split and the cross terms cost
+FP32_ONE_PRODUCT = [(FP32_QK, "    Tf32SS<BN>::mma(s, q_hi, k, kk > 0);\n"),
+                    ("      sum_s(s, s2);\n", ""),
+                    (FP32_PV, "    Tf32RS::mma(part, ph + 4 * j, v_hi, j > 0);\n")]
+# the lo planes of Q, K and V^T never written (their products still run)
+FP32_NO_SPLIT = [("    reinterpret_cast<uint4*>(lo)[i] = l;\n", ""),
+                 ("    *reinterpret_cast<uint4*>(at + kBlock) = l;\n", ""),
+                 ("      *reinterpret_cast<uint32_t*>(vl + at) = l;\n", "")]
+# no thread splits or transposes a landed K or V tile (Q is still split)
+FP32_NO_CONVERT = [("    split_k<D>(sk, stk, tid);\n    split_v<D>(svt, svtl, stv, tid);\n", "")]
 
 def flash_prefill_cases(gen):
-    """(row, launch(lib)) for the bf16/f16 body at chip_smoke.py's shapes."""
+    """(row, launch(lib)) for the bf16/f16 and the f32 body at chip_smoke.py's
+    shapes."""
     from mlc_llm_tpu_torch.models import get_config
 
     moss = get_config("moss-moon-003-sft")
@@ -396,7 +422,12 @@ def flash_prefill_cases(gen):
                                  (2, 32, 32, 1024, 128, torch.bfloat16),
                                  (1, 32, 32, 1024, 128, torch.float16),
                                  (1, moss.num_heads, moss.num_kv_heads, 1024, moss.head_dim,
-                                  torch.bfloat16)):
+                                  torch.bfloat16),
+                                 (1, 32, 32, 1024, 128, torch.float32),
+                                 (1, 32, 32, 2048, 128, torch.float32),
+                                 (2, 32, 32, 1024, 128, torch.float32),
+                                 (1, moss.num_heads, moss.num_kv_heads, 1024, moss.head_dim,
+                                  torch.float32)):
         qkv = torch.randn((B, S, (hq + 2 * hkv) * D), generator=gen, device="cuda").to(dt)
         q, k, v = (t.reshape(B, S, -1, D).transpose(1, 2)
                    for t in qkv.split([hq * D, hkv * D, hkv * D], dim=-1))
@@ -444,8 +475,14 @@ KERNELS = {
                   "no_overlap": FP_NO_OVERLAP,
                   "qb_fastest": FP_QB_FASTEST, "l2_256": FP_L2_256,
                   "direct_store": FP_DIRECT_STORE, "no_exp": FP_NO_EXP,
-                  "no_qk": FP_NO_QK, "no_pv": FP_NO_PV, "no_mma": FP_NO_QK + FP_NO_PV},
-        cases=flash_prefill_cases, reps=30, ptxas="flash_prefill_wg"),
+                  "no_qk": FP_NO_QK, "no_pv": FP_NO_PV, "no_mma": FP_NO_QK + FP_NO_PV,
+                  "f32_no_mma": FP32_NO_MMA, "f32_1xtf32": FP32_ONE_PRODUCT,
+                  "f32_no_split": FP32_NO_SPLIT, "f32_no_convert": FP32_NO_CONVERT},
+        cases=flash_prefill_cases, reps=30, ptxas=("flash_prefill_wg", "flash_prefill_tf32"),
+        # f32_* variants time the f32 body, the others the bf16/f16 body;
+        # base and no_exp (the shared ex2) both
+        applies=lambda name, row: name in ("base", "no_exp")
+        or name.startswith("f32_") == (row["dtype"] == "float32")),
 }
 
 
@@ -489,7 +526,7 @@ def build(kernel: str):
             hit = re.search(r"Compiling entry function '(\S+)'", line)
             if hit:
                 entry = hit.group(1)
-            elif entry and spec.get("ptxas") and spec["ptxas"] in entry and (
+            elif entry and any(p in entry for p in spec.get("ptxas", ())) and (
                     "spill" in line or "Used" in line):
                 print(json.dumps({"variant": name, "entry": entry, "ptxas": line.strip()}))
         lib = ctypes.CDLL(os.path.join(OUT, kernel, name, "variant.so"))
@@ -525,6 +562,9 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     for row, launch in spec["cases"](gen):
         for name, lib in libs.items():
+            if not spec.get("applies", lambda n, r: True)(name, row):
+                continue
+
             def run(lib=lib, name=name):
                 err = launch(lib)
                 if err:

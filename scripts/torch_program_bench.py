@@ -2,13 +2,15 @@
 K-step blocks, serving and precompile, graph against eager.
 
     python scripts/torch_program_bench.py [--tree DIR] [--label NAME] [--layers 32]
+        [--quant q4bf16] [--prefill-tokens 1000,1500]
         [--only admission,slot_prefill,b1_step,k_block,serve,kernel8] [--out FILE]
 
 Imports ``mlc_llm_tpu_torch`` from --tree (default: this checkout), so
 that one call can time two commits in turns (``git archive`` the other
-into a gitignored directory). Full-width Vicuna-7B q4bf16 on random
-weights (seed 0; --layers cuts the depth). Sections, each where the tree
-has what it needs:
+into a gitignored directory). Full-width Vicuna-7B on random weights
+(seed 0) in --quant (q4bf16; q4f32 computes in f32, so kernel 8 runs its
+f32 body; --layers cuts the depth). Sections, each where the tree has
+what it needs:
 
 - admission: a 1000-token prompt (bucket 1024, window 1024) admitted
   into slot 0 of a paged b8 engine (``_prefill_slot``, the server's
@@ -18,8 +20,9 @@ has what it needs:
   host wall (median of 5, synchronized), device kernel time (torch.profiler
   over 3 runs) and the device idle share, 1 - device / wall; and the
   graph admission's costliest kernels;
-- slot_prefill: a 1000- and a 1500-token prompt (buckets 1024 and 2048,
-  the reset prefill's flash buckets on trees with kernel 8) through
+- slot_prefill: a prompt of each --prefill-tokens length (1000 and 1500:
+  buckets 1024 and 2048, the reset prefill's flash buckets on trees with
+  kernel 8) through
   ``prefill`` on a fresh b1 slot engine (max_seq_len 2048) each, as a
   graph: host wall, device time, idle share, the graph pool's bytes (the
   one prefill graph's) and the costliest kernels;
@@ -31,7 +34,8 @@ has what it needs:
   single steps, wall and device time a decode forward, sampled rows
   included;
 - kernel8: the reset prefill's flash attention (``ops.attention.
-  flash_prefill``) at chip_smoke.py's FLASH_CASES shapes (q, k and v the
+  flash_prefill``) at chip_smoke.py's FLASH_CASES shapes, bf16, f16 and
+  f32 (q, k and v the
   strided views of one [B, S, (hq + 2 hkv) D] projection), beside causal
   scaled_dot_product_attention on the same views (the yardstick; the port
   never calls it): CUDA-event mean ms with the L2 flushed before each
@@ -134,9 +138,9 @@ def admission(cfg, params, Engine, has_programs):
     return out
 
 
-def slot_prefill(cfg, params, Engine):
+def slot_prefill(cfg, params, Engine, lengths):
     out = {}
-    for n in (1000, 1500):
+    for n in lengths:
         prompt = [int(t) for t in np.random.default_rng(n).integers(3, cfg.vocab_size, n)]
         eng = Engine(cfg, params, max_batch=1, max_seq_len=2048, device="cuda")
         run = lambda: eng.prefill([prompt])  # noqa: E731
@@ -235,8 +239,12 @@ def kernel8(get_config):
              ("vicuna", 1, 32, 32, 2048, 128, torch.bfloat16),
              ("vicuna G=2", 2, 32, 32, 1024, 128, torch.bfloat16),
              ("vicuna", 1, 32, 32, 1024, 128, torch.float16),
+             ("moss", 1, moss.num_heads, moss.num_kv_heads, 1024, moss.head_dim, torch.bfloat16),
              ("vicuna", 1, 32, 32, 1024, 128, torch.float32),
-             ("moss", 1, moss.num_heads, moss.num_kv_heads, 1024, moss.head_dim, torch.bfloat16)]
+             ("vicuna", 1, 32, 32, 2048, 128, torch.float32),
+             ("vicuna G=2", 2, 32, 32, 1024, 128, torch.float32),
+             ("moss", 1, moss.num_heads, moss.num_kv_heads, 1024, moss.head_dim, torch.float32)]
+    torch.backends.cuda.matmul.allow_tf32 = False  # SDPA in f32 as chip_smoke.py times it
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
@@ -300,6 +308,9 @@ def main(argv=None):
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--label", default="change")
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--quant", default="q4bf16")
+    ap.add_argument("--prefill-tokens", default="1000,1500",
+                    help="slot_prefill's prompt lengths, comma-separated")
     ap.add_argument("--only", default="admission,slot_prefill,b1_step,k_block,serve")
     ap.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = ap.parse_args(argv)
@@ -313,12 +324,13 @@ def main(argv=None):
     has_programs = hasattr(InferenceEngine, "precompile_keys")
     cfg = get_config("vicuna-v1-7b").replace(num_layers=args.layers)
     only = args.only.split(",")
-    params = (init_random_params(cfg, "q4bf16", seed=0, device="cuda")
+    params = (init_random_params(cfg, args.quant, seed=0, device="cuda")
               if set(only) - {"kernel8"} else None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    res = dict(label=args.label, card=card, layers=args.layers, programs=has_programs)
+    res = dict(label=args.label, card=card, layers=args.layers, quant=args.quant,
+               programs=has_programs)
     for name in only:
         t0 = time.perf_counter()
         if name == "kernel8":
@@ -326,7 +338,8 @@ def main(argv=None):
         elif name == "admission":
             res[name] = admission(cfg, params, InferenceEngine, has_programs)
         elif name == "slot_prefill" and has_programs:
-            res[name] = slot_prefill(cfg, params, InferenceEngine)
+            res[name] = slot_prefill(cfg, params, InferenceEngine,
+                                     [int(n) for n in args.prefill_tokens.split(",")])
         elif name == "b1_step":
             res[name] = b1_step(cfg, params, InferenceEngine, GenerationConfig)
         elif name == "k_block" and has_programs:

@@ -1279,6 +1279,28 @@ def test_cuda_flash_prefill_matches_plain(B, Hq, Hkv, S, strided, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("B,Hq,Hkv,S,strided", [
+    (1, 8, 8, 1024, False), (2, 8, 2, 256, True), (1, 4, 1, 2048, True), (1, 4, 4, 128, False)])
+def test_cuda_flash_prefill_f32_peaked_matches_plain(B, Hq, Hkv, S, strided, D):
+    # the f32 body (3xTF32) where the softmax is peaked: q scaled so that
+    # the scores reach about +-30, where an error in s moves p by as much
+    # times |s|; the same tolerance as the unscaled cases
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import attention as att
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, D, torch.float32, strided, seed=1)
+    q = q * 6.0
+    scores = (q.float() @ k.repeat_interleave(Hq // Hkv, 1).transpose(-1, -2)) * D**-0.5
+    assert 20 < scores.abs().max().item() < 60
+    got = att.flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    want = att.flash_prefill_plain(q, k, v)
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [((1, 4, 1024, 80), torch.bfloat16),
                                          ((1, 4, 1000, 128), torch.bfloat16),
                                          ((1, 4, 1088, 128), torch.bfloat16),

@@ -18,6 +18,10 @@ the kernel's plain version. These tests hold:
   64-row warpgroups, 128- or 64-key tiles, the mask on each warpgroup's
   last tile only, the running max and sum, the exp2 fold, p rounded to v's
   dtype), against the plain version, ``mha_reference`` and ``attend``;
+- the f32 kernel's arithmetic, emulated in torch (3xTF32 products with
+  TF32 rounded as cvt.rna does it, its 32- or 16-key tiles, S fresh each
+  tile, each tile's P V a fresh part folded with the rescale), against the
+  same three at 1e-4, and one TF32 product instead of three missing 1e-4;
 - the slice: a 2-layer model (hidden 256, 2 heads of D = 128) prefilled
   at S = 1024 with ``prefill_flash=True`` through the port's ``forward``
   (the branch taken, once a layer) and JAX's (``attend``): logits and the
@@ -145,13 +149,86 @@ def _kernel_tiling(q, k, v):
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def _tf32(x):
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 does it (to nearest, ties
+    away from zero), on the int32 view: half a unit of the 13 dropped bits
+    added to the magnitude, then the 13 bits cleared."""
+    return ((x.float().contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, products):
+    """a @ b with each operand split into hi = tf32(x) and lo = tf32(x -
+    hi): 3xTF32 is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (lo.lo dropped), 1xTF32
+    a_hi.b_hi alone; every product of two TF32 values is exact in f32, and
+    the sums are f32's."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32 (fmaf)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_tiling_f32(q, k, v, products=3):
+    """The f32 kernel's loop (csrc/flash_prefill.cu flash_prefill_tf32) in
+    torch: warpgroups of 64 query rows over its key tiles (BN = 32 at D =
+    128, 16 at D = 256), the tiles with a key at or below one of the rows,
+    the mask on the tiles that cross the first row; S = Q K^T in 3xTF32 (at
+    D = 256 as the two warpgroups' halves of D, summed in f32), fresh each
+    tile; the running max of the raw scores and the sum in f32, p = exp2(s
+    * c - m * c) (one FMA) with c = fl(1/sqrt(D)) * log2(e); P V of the tile
+    in 3xTF32 into a fresh part, folded as o = fmaf(o, alpha, part); the
+    output o * (1 / l). The order of V^T's keys within each k8 step (0 2 4
+    6 1 3 5 7) is a sum order inside the tensor cores' step and is not
+    modelled. products=1: one TF32 product each (hi . hi)."""
+    B, Hq, S, D = q.shape
+    rep = Hq // k.shape[1]
+    BN = 32 if D == 128 else 16
+    c = np.float32(np.float32(1.0 / np.sqrt(np.float32(D))) * np.float32(np.log2(np.e)))
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(rep, 1) for t in (k, v))
+    halves = [slice(0, 128), slice(128, 256)] if D == 256 else [slice(0, D)]
+    out = torch.empty_like(qf)
+    for r0 in range(0, S, 64):  # one warpgroup's 64 rows
+        rows = torch.arange(r0, r0 + 64)
+        m = torch.full((B, Hq, 64), -np.inf)
+        l = torch.zeros((B, Hq, 64))
+        o = torch.zeros((B, Hq, 64, D))
+        for t in range((r0 + 64) // BN):
+            keys = torch.arange(t * BN, (t + 1) * BN)
+            kt, vt = kf[:, :, t * BN:(t + 1) * BN], vf[:, :, t * BN:(t + 1) * BN]
+            s = None
+            for hs in halves:
+                part = _tf32_product(qf[:, :, r0:r0 + 64, hs], kt[..., hs].transpose(-1, -2),
+                                     products)
+                s = part if s is None else s + part
+            above = keys[None, :] > rows[:, None]
+            if (t + 1) * BN > r0:
+                s = s.masked_fill(above, -np.inf)
+            else:  # only the tiles that reach the first row cross the diagonal
+                assert not above.any()
+            mx = torch.maximum(m, s.amax(-1))
+            al = torch.exp2((m - mx) * c)
+            p = torch.exp2(_fma(s, torch.tensor(c), -(mx * c)[..., None]))
+            l = l * al + p.sum(-1)
+            o = _fma(o, al[..., None], _tf32_product(p, vt, products))
+            m = mx
+        out[:, :, r0:r0 + 64] = o * (1.0 / l)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "f16", "f32"])
 @pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("S", [256, 384])
 def test_kernel_tiling_matches_plain_and_jax(S, D, dtype):
     B, Hq, Hkv = 2, 2, 1
     q, k, v = _qkv(S * D, B, Hq, Hkv, S, D, dtype)
-    got = _kernel_tiling(q, k, v)
+    got = (_kernel_tiling_f32 if dtype == torch.float32 else _kernel_tiling)(q, k, v)
     assert got.dtype == dtype and got.shape == (B, Hq, S, D)
     tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(got.float(), att.flash_prefill_plain(q, k, v).float(), **tol)
@@ -165,6 +242,17 @@ def test_kernel_tiling_matches_plain_and_jax(S, D, dtype):
     want = jatt.attend(jnp.asarray(qf, jd), jnp.asarray(kf, jd), jnp.asarray(vf, jd),
                        jnp.zeros((B,), jnp.int32))
     np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)), **tol)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_kernel_tiling_f32_needs_three_products(D):
+    # one TF32 product (hi . hi: 11 significant bits an operand) misses the
+    # f32 tolerance that 3xTF32 meets, on the same inputs and tiling
+    q, k, v = _qkv(D, 2, 2, 1, 256, D, torch.float32)
+    want = att.flash_prefill_plain(q, k, v)
+    tol = dict(atol=TOL[torch.float32], rtol=TOL[torch.float32])
+    torch.testing.assert_close(_kernel_tiling_f32(q, k, v), want, **tol)
+    assert not torch.allclose(_kernel_tiling_f32(q, k, v, products=1), want, **tol)
 
 
 # the slice's model: 2 layers, hidden 256, 2 heads of D = 128, vocab 256
