@@ -118,9 +118,37 @@ def main(argv=None):
     ap.add_argument("--evaluate", action="store_true", help="built-in smoke benchmark")
     ap.add_argument("--try-tokenizer", action="store_true",
                     help="tokenizer encode/decode round-trip smoke")
+    ap.add_argument("--debug-dump-dir", default=None,
+                    help="dump each engine program's aten ops and, on the card, its device "
+                         "kernels, graph, and the SASS and PTX of the kernels it launches to "
+                         "this directory, and exit (debug/dump.py)")
+    ap.add_argument("--debug-load-kernel", default=None, metavar="NAME:KERNEL=PATH",
+                    help="re-inject an edited kernel source: compile PATH in place of csrc "
+                         "kernel KERNEL (e.g. dequant_gemv_qs) and run engine program NAME "
+                         "(prefill / decode_w<N> / prefill_slot / a dumped key) eagerly on the "
+                         "dump's arguments, print output summaries, and exit (the card only)")
     args = ap.parse_args(argv)
 
     session = build_session(args)
+
+    if args.debug_dump_dir:
+        from .debug.dump import dump_engine_programs
+
+        for w in dump_engine_programs(session.engine, args.debug_dump_dir):
+            print(f"wrote {args.debug_dump_dir}/{w}")
+        return
+
+    if args.debug_load_kernel:
+        from .debug.dump import reinject_engine_program
+
+        name, _, rest = args.debug_load_kernel.partition(":")
+        kernel, _, path = rest.partition("=")
+        if not (name and kernel and path):
+            raise SystemExit("--debug-load-kernel wants NAME:KERNEL=PATH")
+        for i, o in enumerate(reinject_engine_program(session.engine, name, kernel, path)):
+            print(f"out[{i}]: shape={tuple(o.shape)} dtype={str(o.dtype).split('.')[-1]} "
+                  f"mean={o.double().mean().item():.6g}")
+        return
 
     if args.try_tokenizer:
         for text in ("Hello world!", "你好 123", "<s>[INST]"):

@@ -528,6 +528,24 @@ class InferenceEngine:
 
         return key, fn, warm_up
 
+    def program_inputs(self, key: tuple) -> tuple:
+        """The fixed input buffers program `key` reads besides the cache:
+        a block's tokens [G, S] and [slot, start, seq_len] rows [3, G]; the
+        sampler's logits [G, V], [seed, step] rows [2, G] and [temperature,
+        top_p] rows [2, G]; the verify pass's tokens [B, K]; a decode step's
+        or block's tokens [B, 1], [active, seed, step] rows [3, B] and
+        [temperature, top_p] rows [2, B]."""
+        kind = key[0]
+        if kind in ("prefill", "prefill_slots"):
+            return self._block_buffers(key[1], key[2])
+        if kind == "sample":
+            return self._sample_buffers(key[1])
+        if kind == "verify":
+            return (self._verify_buffer(key[2]),)
+        if kind in ("decode", "decode_k"):
+            return self._step_tokens, self._step_ints, self._step_floats
+        raise ValueError(f"unknown program key {key!r}")
+
     def _decode_fn(self, K: int, window: int, top_k: int, single: bool):
         """K decode steps on the fixed buffers, what one graph holds: the
         K draws' uniforms at (seed, step + i), computed at once; per step

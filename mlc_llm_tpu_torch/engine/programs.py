@@ -68,8 +68,13 @@ class _Program:
 class StepPrograms:
     """The captured step programs of one engine, by key."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, debug: bool = False):
+        """debug: capture every graph in debug mode keeping its
+        cudaGraph_t (``keep_graph``), so that ``graph.debug_dump(path)``
+        writes it (``debug/dump.py``'s graphs; the engine's own keep
+        neither)."""
         self.device = device
+        self.debug = debug
         self.keys: Set[Hashable] = set()  # every key asked for, on any device
         self.runs = collections.Counter()  # runs by key, on any device
         self.replays = 0  # graph replays (CUDA): every run there
@@ -136,7 +141,9 @@ class StepPrograms:
                 warm_up()
             current.wait_stream(self._stream)
             warmed = [w.launches for w in wrappers]
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
+            if self.debug:
+                graph.enable_debug_mode()
             collecting = gc.isenabled()
             gc.disable()  # torch.cuda.graph collects once before it begins
             try:
@@ -146,6 +153,8 @@ class StepPrograms:
             finally:
                 if collecting:
                     gc.enable()
+            if self.debug:  # a kept graph is instantiated here, not at capture's end
+                graph.instantiate()
             launches = {w: w.launches - n for w, n in zip(wrappers, warmed) if w.launches != n}
         finally:
             for w, n in zip(wrappers, before):

@@ -17,6 +17,7 @@ nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -36,6 +37,9 @@ KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp", "dequant_gem
            "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode", "flash_prefill")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# a kernel library that load_kernel takes in place of csrc/build/<name>.so
+# (debug/dump.py's re-injection of an edited source, for one call)
+_INJECTED: Dict[str, str] = {}
 # the kernels' ticket buffers, by device and stream: see zeroed_tickets;
 # a buffer that a larger one replaced stays alive in _RETIRED, since a
 # captured graph may still point at it
@@ -122,13 +126,46 @@ def load_kernel(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
     and the stream, or ctypes would cut them to 32-bit ints)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_kernels([name])
-        lib = ctypes.CDLL(_lib_path(name))
+        path = _INJECTED.get(name)
+        if path is None:
+            build_kernels([name])
+            path = _lib_path(name)
+        lib = ctypes.CDLL(path)
         for fn, types in argtypes.items():
             getattr(lib, fn).argtypes = types
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def build_library(src: str, out: str, extra_flags=()) -> str:
+    """Compile one kernel source (any path; its includes resolve against
+    csrc/ too) with NVCC_FLAGS into the shared library `out`. Returns
+    nvcc's output; raises on failure."""
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, "-I", CSRC, "-o", out, src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
+    return proc.stdout
+
+
+@contextlib.contextmanager
+def injected_kernel(name: str, so_path: str):
+    """Inside the context the wrappers of kernel `name` launch from the
+    library at so_path (loaded at their next call, argument types and
+    all); after it, from the library they used before. A CUDA graph
+    captured earlier keeps the function it captured: run eagerly."""
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}; have {list(KERNELS)}")
+    saved = _LIBS.pop(name, None)
+    _INJECTED[name] = so_path
+    try:
+        yield
+    finally:
+        del _INJECTED[name]
+        _LIBS.pop(name, None)
+        if saved is not None:
+            _LIBS[name] = saved
 
 
 def check_launch(err: int, name: str) -> None:
@@ -162,7 +199,8 @@ def zeroed_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def kernel_wrappers() -> tuple:
-    """Every kernel wrapper of the port. Each keeps a plain integer
+    """Every kernel wrapper of the port, in the order of KERNELS (wrapper i
+    launches the kernels of csrc/KERNELS[i].cu). Each keeps a plain integer
     ``launches`` that its wrapper adds one to where it launches its
     kernel, and nowhere else (``engine/programs.py`` adds a captured
     graph's launches at each replay)."""

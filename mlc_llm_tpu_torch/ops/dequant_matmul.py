@@ -55,6 +55,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import json
+import os
 from typing import Optional
 
 import torch
@@ -251,16 +253,24 @@ def _stream_scratch(x, m: int, N: int, parts: int, stream: int):
             zeroed_tickets(x.device, stream, -(-N // STREAM_COLS)))
 
 
+def _plane_geometry(fmt: int, m: int, rows: int):
+    """gemm_plane's (K stages, compiled m tiles, gemm_tiles' time model)
+    for `rows` stored word rows of format `fmt` (int8: k rows): the time
+    model of the narrowest of the format's m tiles that holds m (its
+    widest above)."""
+    widths = PLANE_WIDTHS[fmt]
+    mt = next((w for w in widths if w >= m), widths[-1])
+    stage_us, block_us = PLANE_TIMES[fmt][mt]
+    return -(-rows // PLANE_STAGE_ROWS[fmt]), widths, (stage_us, block_us, mt)
+
+
 def plane_tiles(fmt: int, m: int, n: int, rows: int):
     """gemm_plane's launch plan for an [m, n] output over `rows` stored
     word rows of format `fmt` (int8: k rows): the narrowest of the format's
     m tiles that holds m (its widest above), and the split-K plan that
     `gemm_tiles` prices on the format's time model at that tile."""
-    widths = PLANE_WIDTHS[fmt]
-    mt = next((w for w in widths if w >= m), widths[-1])
-    stage_us, block_us = PLANE_TIMES[fmt][mt]
-    return gemm_tiles(m, n, -(-rows // PLANE_STAGE_ROWS[fmt]), widths,
-                      times=(stage_us, block_us, mt))
+    steps, widths, times = _plane_geometry(fmt, m, rows)
+    return gemm_tiles(m, n, steps, widths, times=times)
 
 
 def gemm_tiles(m: int, n: int, steps: int, widths, sms: int = H100_SMS,
@@ -310,6 +320,131 @@ def gemm_tiles(m: int, n: int, steps: int, widths, sms: int = H100_SMS,
         if best is None or cost < best[0]:
             best = (cost, parts, per)
     return mt, best[1], best[2]
+
+
+# the plane kernel's formats by name ("<mode>_<storage>", a launch plan's
+# format): (format id, k a stored row)
+PLANE_FORMAT_NAMES = {
+    f"{mode}_{storage}": (fid, 1 if storage == "i8" else QuantSpec(
+        mode=mode, group_size=group, sym=True, storage=storage).elems_per_word)
+    for (mode, storage, group), fid in PLANE_FORMATS.items()}
+# the plan table that mlc_llm_tpu_torch.tune writes for one card (none is
+# committed: without it every plan is the time models')
+TUNED_PLANS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tuned_plans.json")
+_tuned = None  # (header, plans) of the table in use, read at first need
+
+
+def plan_format(kernel: str, spec: QuantSpec) -> str:
+    """A launch plan's weight format: the int4 kernels' bit order
+    ("qsplit", "pair", "hsplit"), else "<mode>_<storage>"."""
+    if kernel in ("gemv_qs", "gemm_qs", "gemv_gp", "gemm_pairs"):
+        return spec.layout
+    return f"{spec.mode}_{spec.storage}"
+
+
+def plan_body(kernel: str, dtype: torch.dtype, m: int) -> str:
+    """Which body of a kernel runs at m rows in `dtype`: "stream" (the
+    weight-streaming GEMVs: gemv_gp3; gemv_qs and gemv_gp at m = 1,
+    gemv_qs in f32 at every m) or "tiles" (the wgmma bodies). The
+    wrappers and plan_geometry both branch on it."""
+    if kernel == "gemv_gp3" or (kernel in ("gemv_qs", "gemv_gp") and m == 1) or (
+            kernel == "gemv_qs" and dtype == torch.float32):
+        return "stream"
+    return "tiles"
+
+
+def plan_geometry(kernel: str, fmt: str, dtype: torch.dtype, m: int, K: int):
+    """How a kernel's body at m rows over stored K plans its launch:
+    ("stream", K stages, None, {}) for the weight-streaming GEMVs
+    (stream_plan), else ("tiles", K stages, compiled m tiles, gemm_tiles'
+    keyword arguments)."""
+    f32 = dtype == torch.float32
+    if plan_body(kernel, dtype, m) == "stream":
+        order = "int3" if kernel == "gemv_gp3" else fmt
+        return "stream", K // STREAM_STAGE_K[order], None, {}
+    if kernel == "gemv_qs":
+        return "tiles", K // GEMV_STAGE_K, GEMV_WIDTHS, dict(max_splits=GEMV_MAX_SPLITS)
+    if kernel == "gemv_gp":
+        return "tiles", K // GEMV_STAGE_K, GEMV_WIDTHS, dict(times=GP_GEMV_TIMES)
+    if kernel == "gemm_qs":
+        widths, times = QS_PLAN[f32]
+        return "tiles", K // QS_STAGE_K, widths, dict(times=times)
+    if kernel == "gemm_pairs":
+        stage_k, widths, times = PAIRS_PLAN[(fmt, f32)]
+        return "tiles", K // stage_k, widths, dict(times=times)
+    if kernel == "gemm_plane":
+        fid, per_row = PLANE_FORMAT_NAMES[fmt]
+        steps, widths, times = _plane_geometry(fid, m, K // per_row)
+        return "tiles", steps, widths, dict(times=times)
+    raise ValueError(f"no launch plan for kernel {kernel!r}")
+
+
+def model_plan(kernel: str, fmt: str, dtype: torch.dtype, m: int, K: int, N: int):
+    """The plan the time models pick: stream_plan's (columns a block,
+    parts, stages a part) for a streaming body, else gemm_tiles' (m tile,
+    parts, stages a part); gemm_plane's through plane_tiles."""
+    if kernel == "gemm_plane":
+        fid, per_row = PLANE_FORMAT_NAMES[fmt]
+        return plane_tiles(fid, m, N, K // per_row)
+    how, steps, widths, kw = plan_geometry(kernel, fmt, dtype, m, K)
+    if how == "stream":
+        return stream_plan("int3" if kernel == "gemv_gp3" else fmt, m, K, N, dtype.itemsize)
+    return gemm_tiles(m, N, steps, widths, **kw)
+
+
+def plan_key(kernel: str, fmt: str, dtype: torch.dtype, m: int, K: int, N: int) -> str:
+    """A plan table's key: kernel, format, compute dtype, m, stored K, N."""
+    return f"{kernel}:{fmt}:{str(dtype).split('.')[-1]}:{m}:{K}:{N}"
+
+
+def load_tuned_plans(path: str = TUNED_PLANS):
+    """Read the plan table at `path` (written by mlc_llm_tpu_torch.tune)
+    and make it the one launch_plan reads; a missing file is an empty
+    table. Returns (header, plans)."""
+    global _tuned
+    if os.path.exists(path):
+        with open(path) as f:
+            table = json.load(f)
+        _tuned = (table["header"], table["plans"])
+    else:
+        _tuned = ({}, {})
+    _table_plan.cache_clear()
+    return _tuned
+
+
+def launch_plan(kernel: str, fmt: str, dtype: torch.dtype, m: int, K: int, N: int,
+                card: Optional[str] = None):
+    """The launch plan of one call: the plan table's entry for this exact
+    (kernel, format, compute dtype, m, K, N) when the table was written on
+    a card of this name (`card`: torch.cuda.get_device_name of the call's
+    device), else the time models' (model_plan)."""
+    if card is not None:
+        if _tuned is None:
+            load_tuned_plans()
+        hit = _table_plan(kernel, fmt, dtype, m, K, N, card)
+        if hit is not None:
+            return hit
+    return model_plan(kernel, fmt, dtype, m, K, N)
+
+
+# cached until load_tuned_plans reads a table: every decode step asks
+# again for the same shapes
+@functools.lru_cache(maxsize=None)
+def _table_plan(kernel, fmt, dtype, m, K, N, card):
+    """The table's plan for this call on a card named `card`, or None."""
+    header, plans = _tuned
+    hit = plans.get(plan_key(kernel, fmt, dtype, m, K, N))
+    return tuple(hit["plan"]) if hit is not None and header.get("card") == card else None
+
+
+@functools.lru_cache(maxsize=None)
+def _card_of(index: int) -> str:
+    return torch.cuda.get_device_name(index)
+
+
+def _card(x: torch.Tensor) -> Optional[str]:
+    """The name of x's card (None off a CUDA device: no table applies)."""
+    return _card_of(x.device.index or 0) if x.device.type == "cuda" else None
 
 
 def route(spec: QuantSpec, n_groups: int, m: int) -> str:
@@ -581,11 +716,10 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     sym, out_f32 = int(zero is None), int(out_dtype == torch.float32)
     _check_tma("gemv_qs", x.data_ptr(), wp, sp, zp)
-    if m >= 2 and x.dtype != torch.float32:  # the tensor-core body
+    if plan_body("gemv_qs", x.dtype, m) == "tiles":  # the tensor-core body
         if N % TILE_N:
             raise ValueError(f"gemv_qs: N={N} is not a multiple of {TILE_N} at m={m}")
-        _, splits, per = gemm_tiles(m, N, K // GEMV_STAGE_K, GEMV_WIDTHS,
-                                     max_splits=GEMV_MAX_SPLITS)
+        _, splits, per = launch_plan("gemv_qs", "qsplit", x.dtype, m, K, N, _card(x))
         partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
         err = lib.mlc_gemv_qs_tc(
@@ -593,7 +727,7 @@ def gemv_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
             None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, sym,
             out_f32, splits, per, _stream(x))
     else:
-        _, parts, per = stream_plan("qsplit", m, K, N, x.element_size())
+        _, parts, per = launch_plan("gemv_qs", "qsplit", x.dtype, m, K, N, _card(x))
         st = _stream(x)
         partial, tickets = _stream_scratch(x, m, N, parts, st)
         err = lib.mlc_gemv_qs(
@@ -629,11 +763,10 @@ def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloa
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     sym, out_f32 = int(zero is None), int(out_dtype == torch.float32)
     _check_tma("gemv_gp", x.data_ptr(), wp, sp, zp)
-    if m >= 2:  # the tensor-core body
+    if plan_body("gemv_gp", x.dtype, m) == "tiles":  # the tensor-core body
         if N % TILE_N:
             raise ValueError(f"gemv_gp: N={N} is not a multiple of {TILE_N} at m={m}")
-        _, splits, per = gemm_tiles(m, N, K // GEMV_STAGE_K, GEMV_WIDTHS,
-                                     times=GP_GEMV_TIMES)
+        _, splits, per = launch_plan("gemv_gp", layout, x.dtype, m, K, N, _card(x))
         partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
         xt = (torch.empty((2 * m * K + m * (K // 32),), dtype=torch.float32, device=x.device)
@@ -644,7 +777,7 @@ def gemv_gp(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bfloa
             None if partial is None else partial.data_ptr(), out.data_ptr(), m, K, N, sym,
             out_f32, splits, per, _stream(x))
     else:
-        _, parts, per = stream_plan(layout, m, K, N, x.element_size())
+        _, parts, per = launch_plan("gemv_gp", layout, x.dtype, m, K, N, _card(x))
         st = _stream(x)
         partial, tickets = _stream_scratch(x, m, N, parts, st)
         err = lib.mlc_gemv_gp(
@@ -676,8 +809,7 @@ def gemm_qs(x, data, scale, zero, layer=None, out_dtype=torch.bfloat16):
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     _check_tma("gemm_qs", x.data_ptr(), wp, sp, zp)
     f32 = x.dtype == torch.float32
-    widths, times = QS_PLAN[f32]
-    mt, splits, per = gemm_tiles(m, N, K // QS_STAGE_K, widths, times=times)
+    mt, splits, per = launch_plan("gemm_qs", "qsplit", x.dtype, m, K, N, _card(x))
     lib = load_kernel("dequant_gemm_qs", _GEMM_ARGS)
     # f32: the prologue's TF32 hi and lo planes of x
     xt = torch.empty((2, m, K), dtype=torch.float32, device=x.device) if f32 else None
@@ -726,9 +858,7 @@ def gemm_pairs(x, data, scale, zero, layout: str, layer=None, out_dtype=torch.bf
         raise ValueError(f"gemm_pairs: N={N} is not a multiple of {TILE_N}")
     wp, sp, zp = _ptrs(data, scale, zero, layer)
     _check_tma("gemm_pairs", x.data_ptr(), wp, sp, zp)
-    f32 = x.dtype == torch.float32
-    stage_k, widths, times = PAIRS_PLAN[(layout, f32)]
-    mt, splits, per = gemm_tiles(m, N, K // stage_k, widths, times=times)
+    mt, splits, per = launch_plan("gemm_pairs", layout, x.dtype, m, K, N, _card(x))
     lib = load_kernel("dequant_gemm_pairs", _PAIRS_ARGS)
     xt = _pairs_scratch(layout, x)
     partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
@@ -764,7 +894,7 @@ def gemv_gp3(x, data, scale, layer=None, out_dtype=torch.bfloat16):
     lib = load_kernel("dequant_gemv_gp3", _GP3_ARGS)
     wp, sp, _ = _ptrs(data, scale, None, layer)
     _check_tma("gemv_gp3", x.data_ptr(), wp, sp)
-    _, parts, per = stream_plan("int3", m, x.shape[1], N, x.element_size())
+    _, parts, per = launch_plan("gemv_gp3", "int3_u16", x.dtype, m, x.shape[1], N, _card(x))
     st = _stream(x)
     partial, tickets = _stream_scratch(x, m, N, parts, st)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
@@ -806,7 +936,8 @@ def gemm_plane(x, data, scale, zero, spec: QuantSpec, layer=None, out_dtype=torc
         raise ValueError(f"gemm_plane: m={m} outside 1..{GEMM_MAX_M}")
     wp, sp, _ = _ptrs(data, scale, None, layer)
     _check_tma("gemm_plane", x.data_ptr(), wp, sp)
-    mt, splits, per = plane_tiles(fmt, m, N, rows)
+    mt, splits, per = launch_plan("gemm_plane", plan_format("gemm_plane", spec), x.dtype, m,
+                                  x.shape[1], N, _card(x))
     lib = load_kernel("dequant_gemm_plane", _PLANE_ARGS)
     # x in the plane-transposed order (+ int3's word-sum plane), rows of
     # the word count rounded up to 8 (16 bytes): the prologue's output

@@ -13,11 +13,12 @@ q8bf16 and their f16 presets at w_in;
 the streaming m = 1 GEMVs: `gemv_qs` q4bf16 and `gemv_gp3` q3bf16_s16 and
 q3f16_s16 at the Vicuna-7B shapes, `gemv_gp` q4f32 and q4f16_hs at the 3B shapes, the
 lm heads in f32 where the model's is),
-forces each distinct plan (m tile, split-K parts, stages per part) in
-place of `gemm_tiles`' choice (the streaming GEMVs: columns a block,
-parts, stages per part, in place of `stream_plan`'s), holds the result against the plain version
-(1e-2; f32 atol 1e-4, rtol 1e-3) and times it as chip_smoke.py does (CUDA
-events, the L2 flushed before each launch). Prints one JSON line per
+forces each distinct plan (m tile, split-K parts, stages per part; the
+streaming GEMVs: columns a block, parts, stages per part) in place of
+`launch_plan`'s, holds the result against the plain version (1e-2; f32
+atol 1e-4, rtol 1e-3) and times it as chip_smoke.py does (CUDA events, the
+L2 flushed before each launch): the candidates, the check and the timing
+are mlc_llm_tpu_torch/tune.py's (`plan_candidates`, `Case`, `sweep_case`). Prints one JSON line per
 (case, plan) with the plan the wrapper picks marked. Then kernel 7
 (`paged_flash_decode`) at chip_smoke.py's cases (the serve pool's layout:
 page 128, a 16-page window; Vicuna-7B D 128, the NeoX 3B D 80 with f32 and
@@ -53,8 +54,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from mlc_llm_tpu_torch import tune  # noqa: E402
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm  # noqa: E402
-from mlc_llm_tpu_torch.quant import pad_quantized_groups, quantize, resolve_spec  # noqa: E402
+from mlc_llm_tpu_torch.quant import resolve_spec  # noqa: E402
 from mlc_llm_tpu_torch.quant.groupwise import torch_dtype  # noqa: E402
 
 VICUNA = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)]
@@ -97,39 +99,6 @@ PAGED_LENGTHS = [[1, 127, 128, 511, 1023, 1024, 1536, 2047], [1024] * 8, [2047] 
 PAGED_PPS = (1, 2, 3, 4, 6, 8, 16)
 
 
-def time_ms(fn, flush, reps):
-    fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(reps)]
-    for start, end in ev:
-        flush.sum()
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in ev) / reps
-
-
-def geometry(kernel, spec, cd):
-    """(k of a stage, compiled m tiles, gemm_tiles' keyword arguments) of a
-    kernel."""
-    if kernel == "gemv_qs":
-        return dm.GEMV_STAGE_K, dm.GEMV_WIDTHS, dict(max_splits=dm.GEMV_MAX_SPLITS)
-    if kernel == "gemv_gp":
-        return dm.GEMV_STAGE_K, dm.GEMV_WIDTHS, dict(times=dm.GP_GEMV_TIMES)
-    if kernel == "gemm_qs":
-        widths, times = dm.QS_PLAN[cd == torch.float32]
-        return dm.QS_STAGE_K, widths, dict(times=times)
-    stage_k, widths, times = dm.PAIRS_PLAN[(spec.layout, cd == torch.float32)]
-    return stage_k, widths, dict(times=times)
-
-
-def plane_fmt(spec):
-    return dm.PLANE_FORMATS[(spec.mode, spec.storage, spec.group_size)]
-
-
 def time_paged(pa, gen, flush, reps):
     """Kernel 7 under each forced pages-per-split plan."""
     hb, ps, window = 8, 128, 16
@@ -166,7 +135,7 @@ def time_paged(pa, gen, flush, reps):
                             q, kp, vp, ks, vs, table, lens, 1, num_pages_window=window,
                             head_dim=D, pages_per_split=pps)
                         ok = torch.allclose(run().float(), want.float(), atol=1e-2, rtol=1e-2)
-                        t = time_ms(run, flush, reps)
+                        t = tune.time_ms(run, flush, reps)
                     finally:
                         pa.split_pages = picked_split
                     print(json.dumps(dict(kernel="paged_flash_decode", case=name, d=D, q=qname,
@@ -176,38 +145,6 @@ def time_paged(pa, gen, flush, reps):
                                           picked=pps == pick)), flush=True)
                 del kp, vp, ks, vs
             torch.cuda.empty_cache()
-
-
-def streamed(kernel, m, cd):
-    """Whether the case runs the streaming GEMV (csrc/gemv_stream.cuh)."""
-    return (kernel == "gemv_gp3" or (kernel == "gemv_gp" and m == 1)
-            or (kernel == "gemv_qs" and (m == 1 or cd == torch.float32)))
-
-
-def stream_plans(steps):
-    """Every distinct (columns, parts, per) the streaming kernel takes."""
-    out = []
-    for s in range(-(-steps // dm.STREAM_MAX_PER), min(steps, dm.STREAM_MAX_PARTS) + 1):
-        per = -(-steps // s)
-        plan = (dm.STREAM_COLS, -(-steps // per), per)
-        if plan not in out:
-            out.append(plan)
-    return out
-
-
-def plans(m, steps, widths):
-    out = []
-    for mt in widths:
-        if mt < m and mt != widths[-1] and 2 * mt < m:
-            continue
-        seen = set()
-        for s in range(1, min(steps, dm.MAX_SPLITS) + 1):
-            per = -(-steps // s)
-            parts = -(-steps // per)
-            if (parts, per) not in seen:
-                seen.add((parts, per))
-                out.append((mt, parts, per))
-    return out
 
 
 def score(path):
@@ -223,10 +160,10 @@ def score(path):
     for (kernel, quant, K, N, m), rows in cases.items():
         spec = resolve_spec(quant.split(":")[0])
         cd = torch.float32 if quant.endswith(":f32") else torch_dtype(spec.dtype)
-        if not streamed(kernel, m, cd):
+        fmt = "qsplit" if kernel == "gemv_qs" else dm.plan_format(kernel, spec)
+        if dm.plan_geometry(kernel, fmt, cd, m, K)[0] != "stream":
             continue
-        order = ("int3" if kernel == "gemv_gp3" else "qsplit" if kernel == "gemv_qs"
-                 else spec.layout)
+        order = "int3" if kernel == "gemv_gp3" else fmt
         rows.sort(key=lambda r: r["parts"])
         best = min(r["ms"] for r in rows)
         _, parts, _ = dm.stream_plan(order, m, K, N, cd.itemsize)
@@ -265,7 +202,6 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
-    chosen_tiles = dm.gemm_tiles
     for kernel, preset, k, n, m in CASES:
         if only and kernel not in only and f"{kernel}:{preset}" not in only:
             continue
@@ -274,57 +210,13 @@ def main():
             spec = dataclasses.replace(spec, dtype="float32")
         if kernel == "gemm_qs":
             spec = dataclasses.replace(spec, layout="qsplit")
-        qts = [pad_quantized_groups(quantize(
-            torch.randn((k, n), generator=gen, device="cuda") * 0.02, spec)) for _ in range(2)]
-        one = qts[-1]
-        data = torch.stack([q.data for q in qts])
-        scale = torch.stack([q.scale for q in qts])
-        zero = None if one.zero is None else torch.stack([q.zero for q in qts])
-        rows, N = one.data.shape
-        K = rows if spec.storage == "i8" else rows * spec.elems_per_word
-        cd = torch_dtype(spec.dtype)
-        x = torch.zeros((m, K), dtype=cd, device="cuda")
-        x[:, :k] = torch.randn((m, k), generator=gen, device="cuda").to(cd)
-        fn, plain = getattr(dm, kernel), getattr(dm, kernel + "_plain")
-        extra = ((spec,) if kernel == "gemm_plane"
-                 else (spec.layout,) if kernel in ("gemm_pairs", "gemv_gp") else ())
-        # gemv_gp3 takes no minima (sym)
-        zarg, zone = ((), ()) if kernel == "gemv_gp3" else ((zero,), (one.zero,))
-        want = plain(x, one.data, one.scale, *zone, *extra, cd)
-        tol = (dict(atol=1e-4, rtol=1e-3) if cd == torch.float32
-               else dict(atol=1e-2, rtol=1e-2))
-        planner = "gemm_tiles"
-        if streamed(kernel, m, cd):
-            order = "int3" if kernel == "gemv_gp3" else spec.layout
-            candidates = stream_plans(K // dm.STREAM_STAGE_K[order])
-            pick = dm.stream_plan(order, m, K, N, x.element_size())
-            planner = "stream_plan"
-        elif kernel == "gemm_plane":
-            fmt = plane_fmt(spec)
-            widths = dm.PLANE_WIDTHS[fmt]
-            steps = -(-rows // dm.PLANE_STAGE_ROWS[fmt])
-            pick = dm.plane_tiles(fmt, m, N, rows)
-        else:
-            stage_k, widths, kwargs = geometry(kernel, spec, cd)
-            steps = K // stage_k
-            pick = chosen_tiles(m, N, steps, widths, **kwargs)
-        if planner == "gemm_tiles":
-            candidates = plans(m, steps, widths)
-        chosen = getattr(dm, planner)
-        for plan in candidates:
-            setattr(dm, planner, lambda *a, _p=plan, **kw: _p)
-            try:
-                def run():
-                    return fn(x, data, scale, *zarg, *extra, layer=1, out_dtype=cd)
-
-                ok = torch.allclose(run().float(), want.float(), **tol)
-                t = time_ms(run, flush, args.reps)
-            finally:
-                setattr(dm, planner, chosen)
-            print(json.dumps(dict(kernel=kernel, quant=preset, k=K, n=N, m=m, mt=plan[0],
-                                  parts=plan[1], per=plan[2], ms=t, ok=ok,
-                                  picked=plan == pick)), flush=True)
-        del data, scale, zero, qts
+        case = tune.Case(spec, k, n, m, gen)
+        if case.kernel != kernel:
+            sys.exit(f"{kernel} {preset} {k}x{n} at m = {m} routes to {case.kernel}")
+        tune.sweep_case(case, flush, args.reps,
+                        log=lambda r, quant=preset: print(json.dumps(dict(r, quant=quant)),
+                                                         flush=True))
+        del case
         torch.cuda.empty_cache()
     if not only or "paged_flash_decode" in only:
         from mlc_llm_tpu_torch.ops import paged_attention as pa

@@ -1377,3 +1377,91 @@ def test_cuda_flash_reset_and_append_replay_their_own_graphs():
     want = cpu.prefill([prompt])
     for got in (flash, plain):
         torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+# ----------------------------------------------------- tools and host runtime
+
+@pytest.mark.cuda
+def test_cuda_pinned_load_is_bit_equal(vicuna2, tmp_path, monkeypatch):
+    # load_params on the card reads through the pinned ring; a ring of
+    # 1 MB buffers makes every large leaf cross several fills
+    from mlc_llm_tpu_torch.utils import checkpoint
+
+    cfg, params = vicuna2
+    ck = str(tmp_path / "ck")
+    checkpoint.save_params(params, ck, meta={"model": cfg.name})
+    for stage in (checkpoint.STAGE_BYTES, 1 << 20):
+        monkeypatch.setattr(checkpoint, "STAGE_BYTES", stage)
+        loaded, _ = checkpoint.load_params(ck, device="cuda")
+        flat_a, flat_b = _leaves(params), _leaves(loaded)
+        assert flat_a.keys() == flat_b.keys()
+        for k in flat_a:
+            assert flat_b[k].is_cuda and torch.equal(flat_a[k], flat_b[k]), (stage, k)
+
+
+def _leaves(tree, prefix=""):
+    from mlc_llm_tpu_torch.quant import QuantizedTensor
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        elif isinstance(v, QuantizedTensor):
+            out.update({f"{prefix}{k}/{f}": t for f, t in
+                        (("data", v.data), ("scale", v.scale), ("zero", v.zero)) if t is not None})
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_reinject_gemv_qs(vicuna2, tmp_path):
+    # an unchanged copy of csrc/dequant_gemv_qs.cu gives the decode
+    # program's own logits bit for bit; a copy whose group sums are offset
+    # gives others; the built library is back after each call
+    import os
+
+    from mlc_llm_tpu_torch import ops
+    from mlc_llm_tpu_torch.debug import dump
+    from mlc_llm_tpu_torch.engine import InferenceEngine
+
+    cfg, params = vicuna2
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq_len=256, device="cuda")
+    name = next(n for n in dump.engine_program_keys(eng, 16) if n.startswith("decode_w"))
+    src = open(os.path.join(ops.CSRC, "dequant_gemv_qs.cu")).read()
+    edit = "const float base = asym ? 16.f : 23.f;"
+    assert src.count(edit) == 1
+    same, edited = tmp_path / "same.cu", tmp_path / "edited.cu"
+    same.write_text(src)
+    edited.write_text(src.replace(edit, "const float base = asym ? 17.f : 23.f;"))
+    launches = dm.gemv_qs.launches
+    want = dump.run_engine_program(eng, name, 16)[0]
+    got = dump.reinject_engine_program(eng, name, "gemv_qs", str(same), 16)[0]
+    assert torch.equal(got, want)
+    other = dump.reinject_engine_program(eng, name, "dequant_gemv_qs", str(edited), 16)[0]
+    assert torch.isfinite(other).all() and not torch.equal(other, want)
+    assert torch.equal(dump.run_engine_program(eng, name, 16)[0], want)
+    assert dm.gemv_qs.launches == launches and "dequant_gemv_qs" not in ops._INJECTED
+
+
+@pytest.mark.cuda
+def test_cuda_dump_names_every_counted_kernel(vicuna2, tmp_path):
+    import os
+    import re
+
+    from mlc_llm_tpu_torch.debug import dump
+    from mlc_llm_tpu_torch.engine import InferenceEngine
+
+    cfg, params = vicuna2
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq_len=256, device="cuda")
+    written = dump.dump_engine_programs(eng, str(tmp_path), prefill_bucket=16)
+    assert all(os.path.getsize(os.path.join(tmp_path, w)) > 100 for w in written)
+    for name in dump.engine_program_keys(eng, 16):
+        assert {f"{name}.ops.txt", f"{name}.kernels.txt", f"{name}.graph.dot"} <= set(written)
+        text = open(os.path.join(tmp_path, f"{name}.kernels.txt")).read()
+        for wrapper, src, counter, main in re.findall(
+                r"launches (\w+) (\w+) counter=(\d+) main_kernels=(\d+)", text):
+            assert counter == main and int(counter) > 0, (name, wrapper)
+            assert f"{src}.sass" in written and f"{src}.ptx" in written
+    # the b1 decode's m = 1 GEMVs, the 16-token prefill's GEMMs
+    assert {"dequant_gemv_qs.sass", "dequant_gemm_qs.sass"} <= set(written)

@@ -1,7 +1,9 @@
 """The port stands alone: no module of mlc_llm_tpu_torch, and not
 chip_smoke.py, imports jax or anything of the JAX package; importing
 the port's modules loads neither transformers (its loaders import it
-inside the function that needs it) nor safetensors or ml_dtypes."""
+inside the function that needs it) nor safetensors or ml_dtypes; and no
+file of the port names a path into this repo's cpp/ tree, the JAX
+package's host library (the port builds its own copy, csrc/host/)."""
 
 import os
 import pkgutil
@@ -33,9 +35,11 @@ def test_every_module_imports_without_jax():
            "mlc_llm_tpu_torch.serve", "mlc_llm_tpu_torch.version",
            "mlc_llm_tpu_torch.utils.checkpoint", "mlc_llm_tpu_torch.models.hf_loader",
            "mlc_llm_tpu_torch.build", "mlc_llm_tpu_torch.ppl", "mlc_llm_tpu_torch.evaluate",
-           "mlc_llm_tpu_torch.debug.compare"}
+           "mlc_llm_tpu_torch.debug.compare", "mlc_llm_tpu_torch.debug.dump",
+           "mlc_llm_tpu_torch.native", "mlc_llm_tpu_torch.tune",
+           "mlc_llm_tpu_torch.parallel.coordinator", "mlc_llm_tpu_torch.parallel.multihost"}
     assert "mlc_llm_tpu_torch.ops.dequant_matmul" in mods and new <= set(mods)
-    assert len(mods) >= 35
+    assert len(mods) >= 40
     banned = ("jax", "mlc_llm_tpu", "transformers", "safetensors", "ml_dtypes")
     code = (
         "import importlib, sys\n"
@@ -58,3 +62,25 @@ def test_sources_name_no_jax_import():
         src = open(path).read()
         for pat in _BANNED:
             assert not pat.search(src), f"{path}: {pat.pattern}"
+
+
+def test_no_port_file_names_the_jax_cpp_tree():
+    # the JAX package's host library lives under cpp/mlc_host/, built into
+    # cpp/build/; the port's own copy is csrc/host/, built into csrc/build/
+    # (native.py). Citations of the upstream reference's cpp/llm_chat.cc
+    # name no path of this repo.
+    cpp = re.compile(r"cpp/(build|mlc_host)\b|\bmlc_host/|[\"']cpp[\"']")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        if os.path.basename(d) == "build":
+            continue
+        files += [os.path.join(d, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh", ".cc", ".h"))]
+    assert any(f.endswith(os.path.join("host", "ckpt_loader.cc")) for f in files)
+    for path in files:
+        text = open(path, errors="replace").read()
+        hit = cpp.search(text)
+        assert hit is None, f"{path}: names {text[hit.start():hit.start() + 40]!r}"
+    from mlc_llm_tpu_torch import native
+
+    assert native.HOST_SRC.startswith(PKG) and native.LIB_PATH.startswith(PKG)
