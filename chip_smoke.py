@@ -197,6 +197,31 @@ Phases (any failed check exits non-zero before the last line):
    program from an unchanged copy of csrc/dequant_gemv_qs.cu (logits bit
    for bit the program's own) and from an edited one (other logits); the
    engine's cache, runs and counters unchanged;
+10d. tensor-parallel phases (after the tune phase): (b) tp = 1 over NCCL
+   in this process on the q4 params (shard_params at tp = 1 returns them
+   as they are): the engine's programs captured with the all-reduces
+   inside; a b1 prefill's logits and 16 greedy tokens bit for bit equal
+   to the same engine run eagerly and to the unsharded engine's; then the
+   q4 params are freed and (a) tp = 2 over gloo: two child processes of
+   this script (--tp-rank), both on the one card (NCCL refuses two ranks
+   on one device: the run measures correctness and host staging, not
+   NVLink TP), each drawing Vicuna-7B q4bf16 (seed 0) and running its
+   shards (repacked to the pair order: the pair bf16 bodies): the logits
+   gate at 2 layers of full width against the unsharded forward on the
+   same weights in the pair order (LOGIT_RTOL; slot with kernel 8 on 16
+   heads, paged bf16 and int8 pools with kernel 7 on 2 head groups), a b1
+   chat whose first turn is ~1050 tokens (kernel 8) and two short turns,
+   the paged b8 scheduler (8 prompts of 16-1024 tokens, 32 new tokens) on
+   bf16 and on int8 pages, each rank's launches held to the path's
+   (gemv_gp, gemm_pairs, kernel 7, kernel 8), the eager step's wall, its
+   all-reduces' share and its device time; then full-depth Vicuna-7B
+   q4f32 on an f32 slot cache, the slot gate at F32_LOGIT_RTOL; the two
+   ranks' streams equal; (c) u4: `build --random --quantization
+   q4bf16_plane --device cuda` at full depth into a temporary directory,
+   loaded, its bytes printed (on disk, counted, on the card), a b1 chat of
+   3 greedy turns (no kernel launch: the dense route), then 2 layers card
+   vs CPU at LOGIT_RTOL; the kernel phase holds the pair bf16 GEMV (m = 1,
+   8) and GEMM (m = 128, 2048) at the tp = 2 shard shapes;
 11. one JSON line of stats, one of kernels, the card line, and the final
    ok line. Each phase prints its seconds.
 
@@ -226,6 +251,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -259,6 +285,12 @@ from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import matmul as mm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
 from mlc_llm_tpu_torch.parallel.coordinator import HostCoordinator
+from mlc_llm_tpu_torch.parallel.multihost import initialize
+from mlc_llm_tpu_torch.parallel.sharding import (
+    _repack_hsplit_for_sharding,
+    make_mesh,
+    shard_params,
+)
 from mlc_llm_tpu_torch.parallel.wire import RemoteRequest, RemoteScheduler, SchedulerServer
 from mlc_llm_tpu_torch.serve import multi_step_compile_ks
 from mlc_llm_tpu_torch.quant import (
@@ -362,6 +394,17 @@ SOURCES = {
     "flash_prefill": ("mlc_llm_tpu_torch/csrc/flash_prefill.cu",
                       "mlc_llm_tpu/ops/attention.py:125"),
 }
+# Vicuna-7B's rank-local weights at tp = 2 (parallel/sharding.py): wqkv [q_r |
+# k_r | v_r], wo's and w_out's k halves (w_out: 172 groups, padded to 192),
+# w_in [gate_r | up_r] (stored 11264) and the lm head's 16000 columns
+# (stored 16384); q4bf16 repacked to the pair order
+SHAPES_TP2 = [
+    ("wqkv", 4096, 6144),
+    ("wo", 2048, 4096),
+    ("w_in", 4096, 11008),
+    ("w_out", 5504, 4096),
+    ("lm_head", 4096, 16000),
+]
 QSPLIT_F32 = dataclasses.replace(QUANT_PRESETS["q4f32"], layout="qsplit")
 # (label, spec, shapes, lm head in f32, [(kernel, {shape: ms})]): the m of
 # each main-path shape; the lm head is flat (f32 out; in f32 compute where
@@ -394,6 +437,10 @@ MATMUL_CASES = [
      [("gemv_gp", {"w_in": (1,)}), ("gemm_pairs", {"w_in": (128,)})]),
     ("q4bf16_hs", "q4bf16_hs", SHAPES, False,
      [("gemv_gp", {"w_in": (1,)}), ("gemm_pairs", {"w_in": (128,)})]),
+    # the tp = 2 shards' pair bf16 bodies: the TP decode's GEMV (b1 and b8)
+    # and the TP prefill's GEMM
+    ("q4bf16 tp2", "q4bf16_pair", SHAPES_TP2, False,
+     [("gemv_gp", {"*": (1, 8)}), ("gemm_pairs", {"*": (128, 2048)})]),
     # the two 3B chats' presets
     ("q4f32", "q4f32", SHAPES_3B, True,
      [("gemv_gp", {"*": (1, 3, 8)}), ("gemm_pairs", {"*": (128,), "w_in": (128, 2048)})]),
@@ -1226,7 +1273,11 @@ PATH_KERNELS = {"q4bf16": {"prefill": "gemm_qs", "m1": "gemv_qs", "m8": "gemv_qs
                 "q3bf16_s16": {"prefill": "gemm_plane", "m1": "gemv_gp3", "m8": "gemm_plane"},
                 "q3f16_s16": {"prefill": "gemm_plane", "m1": "gemv_gp3", "m8": "gemm_plane"},
                 "q4f32": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"},
-                "q4f16_hs": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"}}
+                "q4f16_hs": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"},
+                # q4bf16 sharded over tp: repacked to the pair order
+                "q4bf16 tp": {"prefill": "gemm_pairs", "m1": "gemv_gp", "m8": "gemv_gp"},
+                # u4 planes reach no kernel: dequantize and multiply
+                "q4bf16_plane": {"prefill": None, "m1": None, "m8": None}}
 
 
 def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0,
@@ -1239,9 +1290,11 @@ def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0
     k, L = PATH_KERNELS[quant], layers
     want = dict.fromkeys(COUNTED, 0)
     want["flash_prefill"] += L * flash_prefills
-    want[k["prefill"]] += 4 * L * prefills
-    want[k["m1"]] += (4 * L + 1) * b1_steps + prefills
-    want[k["m8"]] += (4 * L + 1) * b8_forwards
+    for kname, n in ((k["prefill"], 4 * L * prefills),
+                     (k["m1"], (4 * L + 1) * b1_steps + prefills),
+                     (k["m8"], (4 * L + 1) * b8_forwards)):
+        if kname is not None:
+            want[kname] += n
     want["paged_flash_decode"] += L * b8_forwards
     return want
 
@@ -2726,6 +2779,456 @@ def spec_scheduler_phase(params):
     return paths, out
 
 
+# ---------------------------------------------------------------- tensor parallelism
+# (a) tp = 2 over gloo: two child processes (this script with --tp-rank),
+# both ranks on the one card; (b) tp = 1 over NCCL in this process.
+TP_WORLD = 2
+# the TP chat's first turn: 7 paragraphs, about 1060 tokens with the
+# vicuna template (ByteTokenizer: a token a byte), a reset prefill at the
+# 2048 bucket (kernel 8 on the rank's 16 heads)
+TP_TURN = " ".join(
+    f"Paragraph {i}: the reset prefill attends over its own keys and values, tile by tile, "
+    "with the online softmax kept in registers." for i in range(7))
+# the b8 paged requests' prompt lengths (buckets 16 to 1024), 32 new tokens
+TP_PROMPT_LENS = (16, 100, 200, 300, 500, 700, 900, 1024)
+TP_GATE_STEPS = 3  # decode steps of the logits gate after each prefill
+TP_GATE_PATHS = ("slot", "paged_bf16", "paged_int8")
+TP_GATE_LAYERS = 2  # the bf16 gate's depth: the parity phase's cut
+TP_PROBE_STEPS = 8
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def tp_requests(vocab=VICUNA.vocab_size):
+    rng = np.random.default_rng(3)
+    return [([int(t) for t in rng.integers(3, vocab, n)],
+             GenerationConfig(max_new_tokens=32, temperature=0.0)) for n in TP_PROMPT_LENS]
+
+
+def tp_gate(params, cfg, mesh, ref=None, paths=TP_GATE_PATHS, slot_dtype=torch.bfloat16):
+    """The logits gate's forwards (models.forward, the model API the
+    engine's programs share their body with) on `paths`: "slot", a
+    1100-token reset prefill on a slot cache of slot_dtype (prefill_flash:
+    kernel 8) and TP_GATE_STEPS decode steps; "paged_bf16" and
+    "paged_int8", the 8 TP_PROMPT_LENS prompts as one [8, 1024] prefill on
+    the paged cache and TP_GATE_STEPS decode steps (kernel 7). mesh None:
+    the unsharded forward, whose greedy tokens feed every decode step
+    (ref: those tokens, fed to the sharded one). Returns {path: [(logits
+    on the host, next tokens)]}."""
+    tp = 1 if mesh is None else TP_WORLD
+    gen = torch.Generator().manual_seed(4)
+    out = {}
+
+    def run(name, cache, toks, seq_lens, flash):
+        steps = []
+        lg, cache = forward(params, cfg, toks, cache, seq_lens=seq_lens, prefill_flash=flash,
+                            mesh=mesh)
+        for i in range(TP_GATE_STEPS + 1):
+            nxt = lg.argmax(-1, keepdim=True) if ref is None else ref[name][i][1].cuda()
+            steps.append((lg.float().cpu(), nxt.cpu()))
+            if i == TP_GATE_STEPS:
+                break
+            lg, cache = forward(params, cfg, nxt, cache, mesh=mesh)
+        out[name] = steps
+
+    toks = torch.zeros((1, 1152), dtype=torch.int64)
+    toks[0, :1100] = torch.randint(3, cfg.vocab_size, (1100,), generator=gen)
+    if "slot" in paths:
+        run("slot", init_kv_cache(cfg, 1, SERVE_SEQ, slot_dtype, device="cuda", tp=tp),
+            toks.cuda(), [1100], True)
+    toks = torch.zeros((8, 1024), dtype=torch.int64)
+    for b, n in enumerate(TP_PROMPT_LENS):
+        toks[b, :n] = torch.randint(3, cfg.vocab_size, (n,), generator=gen)
+    pages = SERVE_SEQ // PAGE_SIZE
+    table = 1 + np.arange(8 * pages, dtype=np.int32).reshape(8, pages)
+    for dtype in (torch.bfloat16, torch.int8):
+        if f"paged_{KV_NAMES[dtype]}" not in paths:
+            continue
+        cache = init_paged_kv_cache(cfg, 8, 8 * pages + 1, PAGE_SIZE, pages, dtype=dtype,
+                                    head_block=PAGED_HEAD_BLOCK, device="cuda", tp=tp)
+        cache.set_page_table(table)
+        run(f"paged_{KV_NAMES[dtype]}", cache, toks.cuda(), list(TP_PROMPT_LENS), False)
+    return out
+
+
+def first_layers(params, L):
+    """The params of a model cut to its first L layers (views)."""
+    def cut(v):
+        return v.map(lambda t: t[:L]) if isinstance(v, QuantizedTensor) else v[:L]
+
+    return {k: {n: cut(v) for n, v in params[k].items()} if k == "layers" else params[k]
+            for k in params}
+
+
+def tp_hold(rank, label, got, ref, rtol, other=None):
+    """Each forward's |tp - unsharded| / max |logit| held to rtol (and
+    the logits finite, of the unsharded shape); `other`: a second
+    unsharded run whose distance to `ref` is printed beside. Returns
+    {path: ratios}."""
+    ratios = {}
+    for name, steps in got.items():
+        r = []
+        for (lg, _), (want, _) in zip(steps, ref[name]):
+            if lg.shape != want.shape or not torch.isfinite(lg).all():
+                fail(f"tp rank {rank} {label} {name}: logits of shape {tuple(lg.shape)}, "
+                     f"finite {bool(torch.isfinite(lg).all())}")
+            r.append((lg - want).abs().max().item() / want.abs().max().item())
+        ratios[name] = r
+        beside = ""
+        if other is not None:
+            apart = [(a - b).abs().max().item() / b.abs().max().item()
+                     for (a, _), (b, _) in zip(ref[name], other[name])]
+            beside = f"; the unsharded pair order against the qsplit order {apart}"
+        print(f"  rank {rank} {label} {name}: |tp - unsharded| / max |logit| per forward "
+              f"{r}{beside}")
+        if max(r) > rtol:
+            fail(f"tp rank {rank} {label} {name}: logits beyond {rtol} of the unsharded")
+    return ratios
+
+
+def tp_probe(engine, prompts):
+    """The eager decode step on `engine` (a tp rank's): a prefill of
+    `prompts`, then TP_PROBE_STEPS greedy steps timed by the host clock
+    (synchronized), again with every all-reduce timed (synchronized before
+    and after: its own wall, not the compute queued before it), and again
+    under torch.profiler. Returns the step wall, the collectives' share of
+    the timed run's step wall, and the device ms a step."""
+    engine.reset()
+    B = engine.max_batch
+    tok = engine.prefill(prompts, reserve_tokens=4 * TP_PROBE_STEPS).argmax(-1)
+    active = np.zeros(B, bool)
+    active[:len(prompts)] = True
+    seeds, steps = np.zeros(B, np.int64), np.ones(B, np.int64)
+
+    def run(n):
+        nonlocal tok
+        for _ in range(n):
+            window = engine.decode_window(int(engine.cache.lengths.max()) + 1)
+            tok = engine._decode_sample(tok[:, None], active, seeds, steps, 0.0, 1.0,
+                                        attn_window=window)
+        torch.cuda.synchronize()
+
+    def timed(n):
+        t0 = time.perf_counter()
+        run(n)
+        return (time.perf_counter() - t0) / n * 1e3
+
+    run(2)
+    wall = timed(TP_PROBE_STEPS)
+    spent = [0.0]
+    reduce = tr.all_reduce
+
+    def timed_reduce(x, tp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = reduce(x, tp)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return y
+
+    tr.all_reduce = timed_reduce
+    try:
+        timed_wall = timed(TP_PROBE_STEPS)
+    finally:
+        tr.all_reduce = reduce
+    device_ms = device_busy_ms(lambda: run(TP_PROBE_STEPS)) / TP_PROBE_STEPS
+    return dict(step_wall_ms=wall, timed_step_wall_ms=timed_wall,
+                collective_ms=spent[0] / TP_PROBE_STEPS * 1e3,
+                collective_share=spent[0] * 1e3 / TP_PROBE_STEPS / timed_wall,
+                device_ms=device_ms, device_idle_share=1 - device_ms / wall)
+
+
+def tp_engine_check(engine, label):
+    if not engine.programs.eager or engine.programs.count or engine.programs.replays:
+        fail(f"{label}: a gloo engine must run its programs eagerly, captured "
+             f"{engine.programs.count}, replayed {engine.programs.replays}")
+
+
+def tp_chat(local, mesh, rank):
+    """b1 chat on the rank's slot cache (16 heads), 3 greedy turns of 32
+    tokens: the TP_TURN reset prefill (kernel 8 once a layer), then two
+    short append turns."""
+    engine = InferenceEngine(VICUNA, local, max_batch=1, max_seq_len=SERVE_SEQ, device="cuda",
+                             mesh=mesh)
+    session = ChatSession(engine, ByteTokenizer(), VICUNA,
+                          ChatConfig(temperature=0.0, max_gen_len=32, max_window_size=2048))
+    reset_counters()
+    replies, lens = [], []
+    with finite_logits(f"tp rank {rank} chat"):
+        for prompt in (TP_TURN, "Name three colors.", "Thanks, bye."):
+            before = engine.stats.prefill_tokens
+            replies.append(session.ask(prompt))
+            lens.append(engine.stats.prefill_tokens - before)
+    launches = read_counters()
+    steps = engine.stats.decode_tokens
+    want = expected_launches("q4bf16 tp", b1_steps=steps, prefills=3, flash_prefills=1)
+    tp_engine_check(engine, "tp chat")
+    print(f"  rank {rank} chat: prefill tokens {lens}, {steps} decode steps, step wall "
+          f"{engine.stats.decode_time / max(steps, 1) * 1e3:.2f} ms; launches {launches} "
+          f"(want {want})")
+    if launches != want or steps == 0 or lens[0] < 1024:
+        fail(f"tp rank {rank} chat: launch counts do not match the path")
+    probe = tp_probe(engine, [[VICUNA.bos_token_id] + list(b"Tell me about sharding.")])
+    return dict(replies=replies, prefill_tokens=lens, decode_steps=steps,
+                step_wall_ms=engine.stats.decode_time / max(steps, 1) * 1e3, probe=probe,
+                launches=launches)
+
+
+def tp_serve(local, mesh, rank, dtype):
+    """The paged b8 scheduler on the rank's pool (G/tp head groups): the 8
+    TP_PROMPT_LENS greedy requests of 32 new tokens."""
+    kv = KV_NAMES[dtype]
+    engine = InferenceEngine(VICUNA, local, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                             cache_dtype=dtype, kv_layout="paged", page_size=PAGE_SIZE,
+                             device="cuda", mesh=mesh)
+    G = engine.cache.k_pages.shape[0]
+    sched = ContinuousBatchingScheduler(engine, seed=0)
+    reset_counters()
+    t0 = time.perf_counter()
+    with finite_logits(f"tp rank {rank} serve {kv}"):
+        reqs = [sched.submit(p, g) for p, g in tp_requests()]
+        sched.run()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    forwards, prefills = engine.decode_forwards, engine.prefill_forwards
+    want = expected_launches("q4bf16 tp", b8_forwards=forwards, prefills=prefills)
+    tp_engine_check(engine, f"tp serve {kv}")
+    outputs = [r.output for r in reqs]
+    print(f"  rank {rank} serve {kv}: {G} local head groups, {prefills} admissions, {forwards} "
+          f"b8 forwards, step wall {engine.stats.decode_time / max(forwards, 1) * 1e3:.2f} ms, "
+          f"{sum(map(len, outputs))} tokens in {wall:.2f} s; launches {launches} (want {want})")
+    if launches != want or not all(r.done and r.output for r in reqs):
+        fail(f"tp rank {rank} serve {kv}: launch counts or completions do not match the path")
+    stats = dict(outputs=outputs, head_groups=G, admissions=prefills, decode_forwards=forwards,
+                 step_wall_ms=engine.stats.decode_time / max(forwards, 1) * 1e3, wall_s=wall,
+                 launches=launches)
+    if dtype == torch.bfloat16:
+        stats["probe"] = tp_probe(engine, [p for p, _ in tp_requests()])
+    return stats
+
+
+def tp_rank_main(rank: int, port: str, out_dir: str):
+    """One rank of phase (a). Vicuna-7B q4bf16 drawn on the card (seed 0,
+    as the parent's); the logits gate at TP_GATE_LAYERS layers of full
+    width, the parity phase's cut: this rank's shards (shard_params over
+    a ("dp", "tp") mesh of 2 gloo ranks) against the unsharded forward on
+    the same weights in the pair order the shards are repacked to (exact),
+    within LOGIT_RTOL, on TP_GATE_PATHS (the distance of the unsharded
+    pair order from the qsplit order beside it); then at full depth the
+    chat and the paged b8 scheduler (bf16 and int8 pages), launch counts
+    held; then Vicuna-7B q4f32 at full depth (f32 slot cache), the slot
+    gate within F32_LOGIT_RTOL. Writes tp.<rank>.json into out_dir. In
+    bf16, random full-depth layers amplify the bodies' other rounding
+    points to a third of max |logit| between the unsharded pair and qsplit
+    orders (scripts/torch_tp_gate.py), sharded or not: hence the depth of
+    the bf16 gate and the f32 one at full depth."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: the TP rank needs the GPU")
+    t0 = time.perf_counter()
+    initialize(f"localhost:{port}", TP_WORLD, rank, backend="gloo")
+    mesh = make_mesh(tp=TP_WORLD, device_type="cuda")
+    full = init_random_params(VICUNA, "q4bf16", seed=0, device="cuda")
+    cfg = VICUNA.replace(num_layers=TP_GATE_LAYERS)
+    part = first_layers(full, TP_GATE_LAYERS)
+    ref_qsplit = tp_gate(pad_params(part), cfg, None)
+    ref = tp_gate(pad_params(_repack_hsplit_for_sharding(part)), cfg, None, ref_qsplit)
+    got = tp_gate(pad_params(shard_params(part, mesh, cfg)), cfg, mesh, ref)
+    gate = tp_hold(rank, f"bf16 gate, {TP_GATE_LAYERS} layers", got, ref, LOGIT_RTOL, ref_qsplit)
+    del part, ref_qsplit, ref, got
+    local = shard_params(full, mesh, VICUNA)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = {k: dict(shape=list(v.shape), stored=list(v.data.shape[1:]), layout=v.spec.layout)
+              for k, v in local["layers"].items() if isinstance(v, QuantizedTensor)}
+    shapes["lm_head"] = dict(shape=list(local["lm_head"]["w"].shape),
+                             stored=list(local["lm_head"]["w"].data.shape))
+    print(f"  rank {rank}: shards {shapes}, {param_bytes(local)} bytes; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    result = dict(rank=rank, shards=shapes, gate=gate, chat=tp_chat(local, mesh, rank))
+    for dtype in (torch.bfloat16, torch.int8):
+        result[f"serve_{KV_NAMES[dtype]}"] = tp_serve(local, mesh, rank, dtype)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = init_random_params(VICUNA, "q4f32", seed=0, device="cuda")
+    ref = tp_gate(pad_params(full), VICUNA, None, paths=("slot",), slot_dtype=torch.float32)
+    local = pad_params(shard_params(full, mesh, VICUNA))
+    del full
+    got = tp_gate(local, VICUNA, mesh, ref, paths=("slot",), slot_dtype=torch.float32)
+    result["gate_f32_full_depth"] = tp_hold(rank, "q4f32 gate, full depth", got, ref,
+                                            F32_LOGIT_RTOL)
+    torch.distributed.destroy_process_group()
+    result["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"tp.{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def tp_gloo_phase():
+    """Phase (a): TP_WORLD child processes of this script, each one gloo
+    rank on the one card (NCCL refuses two ranks on one device), so the
+    run measures correctness and host staging, not NVLink TP. Holds each
+    rank's gate, launches and completions (in the child) and the ranks'
+    streams equal to each other; returns rank 0's stats and each rank's
+    launches by path."""
+    print(f"== TP phase (a): tp = {TP_WORLD} over gloo, both ranks on the one card, "
+          f"Vicuna-7B q4bf16 at full depth")
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    port = str(free_port())
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w+") for r in range(TP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               port, out], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(TP_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=900)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()  # the processes started here
+                p.wait()
+    try:
+        for r, log in enumerate(logs):
+            log.seek(0)
+            for line in log.read().splitlines():
+                print(f"  [rank {r}] {line}")
+            log.close()
+        if any(p.returncode != 0 for p in procs):
+            fail(f"tp ranks exited {[p.returncode for p in procs]}")
+        res = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(out, f"tp.{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    streams = [(x["chat"]["replies"], x["serve_bf16"]["outputs"], x["serve_int8"]["outputs"])
+               for x in res]
+    print(f"  the ranks' streams equal: {all(s == streams[0] for s in streams)}; rank 0 "
+          f"chat replies {[len(t) for t in streams[0][0]]} chars, serve tokens bf16 "
+          f"{[len(t) for t in streams[0][1]]}, int8 {[len(t) for t in streams[0][2]]}")
+    if any(s != streams[0] for s in streams):
+        fail("the tp ranks' streams differ")
+    paths = {}
+    for r, x in enumerate(res):
+        for name in ("chat", "serve_bf16", "serve_int8"):
+            paths[f"tp{TP_WORLD}_{name}_rank{r}"] = x[name].pop("launches")
+    stats = res[0]
+    for name in ("chat", "serve_bf16", "serve_int8"):
+        stats[name].pop("outputs", None)
+        stats[name].pop("replies", None)
+    stats["seconds_by_rank"] = [x["seconds"] for x in res]
+    print(f"  rank 0: {json.dumps({k: stats[k] for k in ('gate', 'chat', 'serve_bf16')})}")
+    return paths, stats
+
+
+def tp_nccl_phase(params):
+    """Phase (b): tp = 1 over NCCL in this process, on the q4 params (at tp
+    = 1 shard_params returns them as they are): the engine's programs are
+    captured with the collectives inside. A b1 prefill's logits and 16
+    greedy tokens: graph == eager bit for bit, and == the unsharded
+    engine's (an all-reduce over one rank is the identity)."""
+    print("== TP phase (b): tp = 1 over NCCL, the collectives inside the captured graphs")
+    initialize(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(tp=1, device_type="cuda")
+        local = shard_params(params, mesh, VICUNA)
+        if local is not params:
+            fail("shard_params at tp = 1 copied the params")
+        prompt = [[VICUNA.bos_token_id] + list(b"Tell me about collectives.")]
+        greedy = GenerationConfig(max_new_tokens=16, temperature=0.0)
+        logits, toks, stats = {}, {}, {}
+        for mode in ("graph", "eager", "unsharded"):
+            eng = InferenceEngine(VICUNA, local, max_batch=1, max_seq_len=1536, device="cuda",
+                                  mesh=None if mode == "unsharded" else mesh)
+            eng.cfg = VICUNA.replace(stop_tokens=())  # decode the full count
+            if mode == "eager":
+                eager_steps(eng)
+            if eng.programs.eager:
+                fail("an NCCL engine must capture its programs")
+            logits[mode] = eng.prefill(prompt)
+            toks[mode] = eng.generate(prompt, greedy)[0]
+            eng.stats.reset()
+            mark = program_mark(eng)
+            if eng.generate(prompt, greedy)[0] != toks[mode]:
+                fail(f"tp = 1 {mode}: a second run gave other tokens")
+            stats[f"{mode}_step_ms"] = eng.stats.decode_time / eng.stats.decode_tokens * 1e3
+            if mode == "graph":
+                runs = runs_since(eng, mark, "tp = 1 graph")
+                stats.update(graphs=eng.programs.count, runs=runs)
+
+                def one_step():
+                    eng.generate(prompt, GenerationConfig(max_new_tokens=2, temperature=0.0))
+
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    one_step()
+                    torch.cuda.synchronize()
+                stats["nccl_kernels"] = sum(e.count for e in prof.key_averages()
+                                            if "nccl" in e.key.lower())
+            del eng
+        same = {m: torch.equal(logits["graph"], logits[m]) for m in ("eager", "unsharded")}
+        print(f"  graphs {stats['graphs']}, runs {stats['runs']}; prefill logits graph == eager "
+              f"{same['eager']}, == unsharded {same['unsharded']}; tokens graph "
+              f"{toks['graph']}, eager {toks['eager']}, unsharded {toks['unsharded']}; step ms "
+              f"graph {stats['graph_step_ms']:.3f}, eager {stats['eager_step_ms']:.3f}, "
+              f"unsharded {stats['unsharded_step_ms']:.3f}; NCCL kernels in a 2-token "
+              f"generate's trace {stats['nccl_kernels']}")
+        if not all(same.values()) or len({tuple(t) for t in toks.values()}) != 1:
+            fail("tp = 1 over NCCL: graph, eager and unsharded logits or tokens differ")
+        if stats["runs"] != {"prefill": 1, "sample": 1, "decode": 15, "forwards": 15}:
+            fail(f"tp = 1 graph: the generation ran the programs {stats['runs']}")
+    finally:
+        torch.distributed.destroy_process_group()
+    return stats
+
+
+def u4_phase():
+    """Phase (c): u4 planes (q4bf16_plane, one code a byte on the card; no
+    kernel reads them: every matmul dequantizes and multiplies). `build
+    --random --device cuda` writes full-depth Vicuna-7B into a temporary
+    directory, load_params reads it, a b1 chat of 3 greedy turns runs on
+    it (launches: none; logits finite); then 2 layers at full width card
+    vs CPU within LOGIT_RTOL."""
+    print("== u4 phase (c): Vicuna-7B q4bf16_plane")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_u4_")
+    try:
+        t0 = time.perf_counter()
+        build.main(["--model", VICUNA.name, "--random", "--quantization", "q4bf16_plane",
+                    "-o", tmp, "--device", "cuda"])
+        build_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t0 = time.perf_counter()
+        params, meta = load_params(tmp, device="cuda")
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    planes = [v for v in params["layers"].values() if isinstance(v, QuantizedTensor)]
+    device_bytes = sum(t.numel() * t.element_size() for v in planes
+                       for t in (v.data, v.scale, v.zero))
+    stats = dict(build_s=build_s, load_s=load_s, disk_bytes=disk,
+                 param_bytes=param_bytes(params), layer_device_bytes=device_bytes,
+                 data_dtype=str(planes[0].data.dtype))
+    print(f"  built in {build_s:.1f} s, loaded in {load_s:.1f} s; stored bytes: on disk {disk}, "
+          f"param_bytes (half a byte a code) {stats['param_bytes']}, the layers' planes on the "
+          f"card {device_bytes} ({stats['data_dtype']})")
+    if meta.get("quantization") != "q4bf16_plane" or planes[0].data.dtype != torch.uint8:
+        fail(f"u4 checkpoint: {meta}, {planes[0].data.dtype}")
+    launches, stats["chat"] = chat_phase(params, "q4bf16_plane")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = VICUNA.replace(num_layers=2)
+    card_vs_cpu(cfg, init_random_params(cfg, "q4bf16_plane", seed=0, device="cuda"))
+    return launches, stats
+
+
 def card_name():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2850,7 +3353,18 @@ def main():
     torch.cuda.empty_cache()
     with phase_seconds("tune phase"):
         tune_stats = tune_phase()
+    with phase_seconds("TP phase (b)"):
+        tp_nccl_stats = tp_nccl_phase(params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the TP ranks: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved in this process")
+    with phase_seconds("TP phase (a)"):
+        tp_paths, tp_gloo_stats = tp_gloo_phase()
+    paths.update(tp_paths)
+    with phase_seconds("u4 phase (c)"):
+        paths["u4_chat"], u4_stats = u4_phase()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2984,7 +3498,8 @@ def main():
                       "flash_q4f32": q4f32_flash_stats,
                       "speculation_b1": spec_b1, "speculation_scheduler": spec_sched,
                       "dump": dump_stats, "coordinator": coordinator_stats,
-                      "tune": tune_stats}))
+                      "tune": tune_stats, "tp_gloo": tp_gloo_stats, "tp_nccl": tp_nccl_stats,
+                      "u4": u4_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2993,4 +3508,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

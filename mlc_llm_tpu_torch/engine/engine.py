@@ -54,6 +54,19 @@ functions run eagerly. ``precompile`` captures every program JAX's
 pipelining: the next step is enqueued on the device before the previous
 step's token is read back.
 
+Tensor parallelism: ``mesh`` (a DeviceMesh with a "tp" dimension,
+``parallel/sharding.py``) makes the engine one tp rank's: its params are
+that rank's shards (``parallel.shard_params``), it allocates only its own
+KV (Hkv/tp slot heads; G/tp paged head groups, ``page_head_block``
+defaulting so that G is a multiple of tp) and its programs run the
+sharded forward. Every rank gathers the full logits and draws the same
+tokens: the draws are keyed by (seed, step), so the ranks' streams are
+equal by construction. Every rank runs the same calls in the same order
+(the collectives pair up). Under "dp" each dp group runs its own engine
+over its own requests. An engine whose tp group runs on gloo runs its
+programs eagerly (``engine/programs.py``); under NCCL they are captured
+with the collectives inside.
+
 KV layouts: ``"slot"`` (slot-contiguous [B, Smax] per slot), ``"paged"``
 (one shared page pool + per-slot page tables, ``models/paged_cache.py``)
 or ``"auto"`` (paged for int8 KV at batch > 1, slot otherwise: the slot
@@ -69,14 +82,22 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.config import ModelConfig
-from ..models.paged_cache import PageAllocator, PrefixCache, init_paged_kv_cache
+from ..models.paged_cache import (
+    PageAllocator,
+    PrefixCache,
+    default_head_block,
+    init_paged_kv_cache,
+    paged_flash_tp_enabled,
+)
 from ..models.transformer import (
     forward_block,
     forward_decode,
     forward_verify,
     init_kv_cache,
+    tensor_parallel,
     tree_map,
 )
 from ..ops import resolve_device, synchronize
@@ -127,6 +148,7 @@ class InferenceEngine:
         page_head_block: Optional[int] = None,
         prefix_cache_pages: Optional[int] = None,
         device="cuda",
+        mesh=None,
     ):
         """params may live on any device; they are moved to `device`.
         Every word-packed quantized leaf (u32 or u16 words, any code
@@ -139,13 +161,24 @@ class InferenceEngine:
         num_pages defaults to the slot-equivalent capacity plus the null
         page; size it smaller to oversubscribe (admission then
         backpressures on free pages). prefix_cache_pages enables the
-        page-granular prefix cache (paged only)."""
+        page-granular prefix cache (paged only).
+
+        mesh: a DeviceMesh with a "tp" dimension; params are then this
+        rank's shards (see the module doc)."""
         if kv_layout == "auto":
             kv_layout = "paged" if cache_dtype == torch.int8 and max_batch > 1 else "slot"
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"kv_layout must be slot, paged or auto, got {kv_layout!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        tp = tensor_parallel(mesh)
+        ntp = 1 if tp is None else tp.size
+        want = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim // ntp
+        if params["layers"]["wqkv"].shape[-1] != want:
+            raise ValueError(f"wqkv holds {params['layers']['wqkv'].shape[-1]} columns, "
+                             f"{want} expected at tp = {ntp}: pass this rank's shards "
+                             "(parallel.shard_params) with a mesh, the full params without")
 
         def prep(x):
             x = x.map(lambda t: t.to(self.device)) if isinstance(x, QuantizedTensor) \
@@ -166,7 +199,8 @@ class InferenceEngine:
         self.decode_forwards = 0
         self.prefill_forwards = 0
         self.verify_forwards = 0
-        self.programs = StepPrograms(self.device)
+        self.programs = StepPrograms(
+            self.device, eager=tp is not None and dist.get_backend(tp.group) == "gloo")
         # the programs' fixed input buffers: the decode step's tokens [B,
         # 1], its [active, seed, step] rows and [temperature, top_p] rows;
         # the prefill blocks' tokens by (G, bucket) and [slot, start,
@@ -192,9 +226,14 @@ class InferenceEngine:
             self.allocator = PageAllocator(num_pages)
             self._table_np = np.zeros((max_batch, pages_per_slot), np.int32)
             self._slot_pages = {s: [] for s in range(max_batch)}
+            hb = page_head_block or default_head_block(cfg.num_kv_heads // ntp)
+            if tp is not None and not paged_flash_tp_enabled(cfg.num_kv_heads // hb,
+                                                             cfg.num_heads, mesh):
+                raise ValueError(f"head_block {hb}: the pool's head groups do not split over "
+                                 f"tp = {ntp}")
             self.cache = init_paged_kv_cache(
                 cfg, max_batch, num_pages, page_size, max_pages_per_slot=pages_per_slot,
-                dtype=cache_dtype, head_block=page_head_block, device=self.device)
+                dtype=cache_dtype, head_block=hb, device=self.device, tp=ntp)
             if prefix_cache_pages:
                 self.prefix_cache = PrefixCache(self.allocator, page_size,
                                                 max_pages=prefix_cache_pages)
@@ -202,7 +241,7 @@ class InferenceEngine:
             raise ValueError("prefix_cache_pages requires kv_layout='paged'")
         else:
             self.cache = init_kv_cache(cfg, max_batch, self.max_seq_len, cache_dtype,
-                                       device=self.device)
+                                       device=self.device, tp=ntp)
 
     def _zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -485,7 +524,8 @@ class InferenceEngine:
 
             def fn():
                 return (forward_block(self.params, self.cfg, toks, self.cache, slots, ints[1],
-                                      ints[2], attn_window=window, prefill_flash=flash),)
+                                      ints[2], attn_window=window, prefill_flash=flash,
+                                      mesh=self.mesh),)
 
             def warm_up():
                 staged = ints[2].clone()
@@ -508,7 +548,7 @@ class InferenceEngine:
 
             def fn():
                 logits = forward_verify(self.params, self.cfg, toks, self.cache,
-                                        attn_window=window)
+                                        attn_window=window, mesh=self.mesh)
                 return logits, torch.argmax(logits, dim=-1)
 
             return key, fn, fn
@@ -564,7 +604,7 @@ class InferenceEngine:
             tok, out = self._step_tokens, []
             for i in range(K):
                 logits = forward_decode(self.params, self.cfg, tok, self.cache, active,
-                                        attn_window=window)
+                                        attn_window=window, mesh=self.mesh)
                 drawn = sample_token_perslot(logits, seeds, steps, temps, top_p, top_k,
                                              uniform=u[i])
                 out.append(torch.where(active.bool(), drawn, tok[:, 0]))

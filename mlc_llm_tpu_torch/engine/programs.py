@@ -36,6 +36,15 @@ Launch counters stay exact: a graph's launches per kernel wrapper are
 recorded at capture and added at each replay; the warm-up's and the
 capture's own are taken back out.
 
+Tensor-parallel engines (``InferenceEngine(..., mesh=)``) make
+collectives inside their programs. Under NCCL those are captured with
+the rest, and a replay runs them. Gloo collectives stage through the host
+and cannot be captured, so an engine whose mesh runs on gloo (the CPU, or
+several ranks on one card) builds its programs with ``eager=True``: every
+run calls the function on the CUDA device too, and nothing is captured.
+The engine fixes that at construction from the tp group's backend; it is
+not a fallback taken when a capture fails (a failed capture still raises).
+
 Capture runs with ``capture_error_mode="thread_local"``: a CUDA call of
 another thread (the server's network thread) cannot break it, so graphs
 may be captured lazily while a server runs. Python's garbage collector is
@@ -68,13 +77,16 @@ class _Program:
 class StepPrograms:
     """The captured step programs of one engine, by key."""
 
-    def __init__(self, device: torch.device, debug: bool = False):
+    def __init__(self, device: torch.device, debug: bool = False, eager: bool = False):
         """debug: capture every graph in debug mode keeping its
         cudaGraph_t (``keep_graph``), so that ``graph.debug_dump(path)``
         writes it (``debug/dump.py``'s graphs; the engine's own keep
-        neither)."""
+        neither). eager: run every program's function on a CUDA device as
+        on the CPU, capturing nothing (gloo collectives, see the module
+        doc)."""
         self.device = device
         self.debug = debug
+        self.eager = eager
         self.keys: Set[Hashable] = set()  # every key asked for, on any device
         self.runs = collections.Counter()  # runs by key, on any device
         self.replays = 0  # graph replays (CUDA): every run there
@@ -109,10 +121,10 @@ class StepPrograms:
         """Run program `key`: fn() computes it from the fixed input
         buffers and returns its outputs. CUDA: capture at the first run
         (after warm_up(), which must leave the state as it found it), then
-        replay; returns the static outputs. CPU: returns fn()."""
+        replay; returns the static outputs. CPU or eager: returns fn()."""
         self.keys.add(key)
         self.runs[key] += 1
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             return fn()
         prog = self._programs.get(key) or self.capture(key, fn, warm_up)
         prog.graph.replay()

@@ -7,7 +7,8 @@ NumPy arrays or quantized-tensor objects (``data``, ``scale``, ``zero``,
 the JAX package: the leaves are read by duck typing.
 
 - u32 words become an int32 view and u16 words an int16 view (the same
-  bits); int8 planes pass through.
+  bits); int8 planes pass through; ml_dtypes ``uint4`` planes (one code a
+  byte on the host) become uint8 planes of the same bytes.
 - bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses: it is viewed as int16, then as ``torch.bfloat16``.
 """
@@ -29,6 +30,8 @@ def tensor_from_numpy(a) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int32).copy())
     if a.dtype == np.uint16:
         return torch.from_numpy(a.view(np.int16).copy())
+    if a.dtype.name == "uint4":
+        return torch.from_numpy(a.view(np.uint8).copy())
     return torch.from_numpy(a.copy())
 
 

@@ -30,9 +30,15 @@ of the page it starts in. A dropped position is written to the null
 page rather than left out, so that a block always makes the same number
 of writes (no host value, no data-dependent shape: a graph holds it).
 
-The tensor-parallel routing of the JAX module (``paged_flash_tp_enabled``,
-``paged_flash_decode_tp``) is not ported yet (ROADMAP.md queue 1, its
-sharding item).
+Tensor parallelism: the pool's head groups G are its shard dimension
+(each group's pages and int8 scales are self-contained), so a
+tensor-parallel rank holds G/tp groups (``init_paged_kv_cache(..., tp=)``,
+``parallel.sharding.shard_paged_cache``) and the page table and lengths
+whole. ``paged_flash_tp_enabled`` is JAX's rule for when a sharded decode
+runs kernel 7, and ``paged_flash_decode_tp`` runs it on the rank's local
+groups and query heads: JAX's ``shard_map`` over the mesh, with no
+collective inside (the head-sharded output feeds the row-parallel
+``wo``, whose all-reduce the forward makes).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from ..ops import resolve_device
+from ..ops.paged_attention import paged_flash_decode
 from .config import ModelConfig
 
 
@@ -85,7 +92,11 @@ def default_head_block(num_kv_heads: int) -> int:
 
 def init_paged_kv_cache(cfg: ModelConfig, batch: int, num_pages: int, page_size: int = 128,
                         max_pages_per_slot: Optional[int] = None, dtype=torch.bfloat16,
-                        head_block: Optional[int] = None, device="cuda") -> PagedKVCache:
+                        head_block: Optional[int] = None, device="cuda",
+                        tp: int = 1) -> PagedKVCache:
+    """A zeroed pool of G = Hkv/hb head groups; tp > 1: one
+    tensor-parallel rank's G/tp groups (G must be a multiple of tp: pick
+    head_block so, as JAX's engine note says)."""
     dev = resolve_device(device)
     if max_pages_per_slot is None:
         max_pages_per_slot = -(-cfg.max_seq_len // page_size)
@@ -93,7 +104,10 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, num_pages: int, page_size:
     hb = head_block or default_head_block(H)
     if H % hb:
         raise ValueError(f"head_block {hb} does not divide num_kv_heads {H}")
-    G = H // hb
+    if (H // hb) % tp:
+        raise ValueError(f"tp = {tp} does not divide the pool's {H // hb} head groups "
+                         f"(head_block {hb}); pick head_block <= num_kv_heads / tp")
+    G = H // hb // tp
     kshape = (G, L, num_pages, page_size, hb * D)
     k_scale = v_scale = None
     if dtype == torch.int8:
@@ -105,6 +119,29 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, num_pages: int, page_size:
         page_table=torch.zeros((batch, max_pages_per_slot), dtype=torch.int32, device=dev),
         lengths=torch.zeros((batch,), dtype=torch.int64),
         k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_flash_tp_enabled(G: int, Hq: int, mesh) -> bool:
+    """Does a sharded paged decode run kernel 7 on each rank's shard?
+    JAX's rule: the mesh has a "tp" dimension whose size divides both the
+    pool's head-group count G and the query head count Hq (global
+    counts)."""
+    if mesh is None or "tp" not in (mesh.mesh_dim_names or ()):
+        return False
+    tp = mesh.shape[mesh.mesh_dim_names.index("tp")]
+    return tp >= 1 and G % tp == 0 and Hq % tp == 0
+
+
+def paged_flash_decode_tp(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, layer,
+                          *, num_pages_window: int, head_dim: int, mesh):
+    """Kernel 7 on one tensor-parallel rank: q [B, Hq/tp, 1, D] (the rank's
+    query heads) over its local pools [G/tp, L, P, ps, hb*D] (and int8
+    scales), the page table and lengths whole. No collective: each rank's
+    heads are its own. Returns the rank's [B, Hq/tp, 1, D] output."""
+    if mesh is None or "tp" not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"paged_flash_decode_tp: no 'tp' dimension in mesh {mesh}")
+    return paged_flash_decode(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+                              layer, num_pages_window=num_pages_window, head_dim=head_dim)
 
 
 # ----------------------------------------------------------------- reads

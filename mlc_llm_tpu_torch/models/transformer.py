@@ -36,14 +36,37 @@ slots to start + seq_lens; the host mirror is the caller's to advance.
 the device lengths) and ``forward_verify`` the speculative verify pass
 (slot cache only): an S-token block written at the device lengths, every
 position's logits, no length advanced.
+
+Tensor parallelism (Megatron placement, ``parallel/sharding.py``): every
+entry point takes ``mesh``, a ``torch.distributed`` DeviceMesh with a
+"tp" dimension, or None. With a mesh, ``params`` are this rank's shards
+(``parallel.sharding.shard_params``) and the cache holds this rank's
+heads (``init_kv_cache(..., tp=)``, ``shard_cache``): the rank computes
+its Hq/tp query heads and Hkv/tp kv heads, its columns of ``wqkv`` and
+``w_in`` and its rows of ``wo`` and ``w_out``, each matmul through the
+same kernel route as an unsharded weight of the local shape. The
+collectives, all ``all_reduce`` on the tp group (one code path for gloo
+and NCCL, capturable in a CUDA graph under NCCL): one after ``wo`` and
+one after ``w_out`` in every layer, on the f32 partial sums (rounded once
+to the activation dtype after the sum), the row-parallel biases (``bo``,
+``b_out``) added once after them; one after a vocab-parallel embedding
+(each rank looks up the tokens of its vocab range, zero elsewhere); one
+that gathers a vocab-parallel lm head's logits into a zeroed full-vocab
+buffer, so every rank holds the full [B, V] logits. A replicated
+embedding or lm head needs none. A paged decode runs kernel 7 on the
+rank's local head groups (``paged_flash_decode_tp``). The JAX package
+places the same collectives through GSPMD from sharding annotations;
+the port passes the mesh explicitly and holds no module state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..ops import resolve_device
 from ..ops.attention import attend_cache, flash_prefill, flash_prefill_supported
@@ -64,6 +87,7 @@ from .layers import activate, apply_rotary, layer_norm, make_rotary_tables, rms_
 from .paged_cache import (
     PagedKVCache,
     PagedWriteIndex,
+    paged_flash_decode_tp,
     gather_pages_k,
     gather_pages_scale_k,
     gather_pages_scale_v,
@@ -77,6 +101,34 @@ from .paged_cache import (
 Params = Dict[str, Any]
 
 WEIGHT_KEYS = ("wqkv", "wo", "w_in", "w_out")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The "tp" dimension of a mesh as one forward uses it."""
+
+    mesh: Any
+    group: Any  # the tp process group
+    rank: int   # this process's coordinate on tp
+    size: int
+
+
+def tensor_parallel(mesh) -> Optional[TensorParallel]:
+    """The tp view of a DeviceMesh with a "tp" dimension (None: no mesh)."""
+    if mesh is None:
+        return None
+    names = mesh.mesh_dim_names
+    if not names or "tp" not in names:
+        raise ValueError(f"the mesh needs a 'tp' dimension, got {names}")
+    return TensorParallel(mesh, mesh.get_group("tp"), mesh.get_local_rank("tp"),
+                          mesh.shape[names.index("tp")])
+
+
+def all_reduce(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Sum x over the tp group, in place (x contiguous), in x's dtype."""
+    x = x.contiguous()
+    dist.all_reduce(x, group=tp.group)
+    return x
 
 
 @dataclasses.dataclass
@@ -112,12 +164,16 @@ class KVCache:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: Optional[int] = None,
-                  dtype=torch.bfloat16, device="cuda") -> KVCache:
+                  dtype=torch.bfloat16, device="cuda", tp: int = 1) -> KVCache:
+    """A zeroed slot cache; tp > 1: one tensor-parallel rank's, Hkv/tp
+    heads."""
     if dtype not in (torch.bfloat16, torch.float16, torch.float32, torch.int8):
         raise NotImplementedError(f"KV cache dtype {dtype} is not supported")
+    if cfg.num_kv_heads % tp:
+        raise ValueError(f"tp = {tp} does not divide num_kv_heads {cfg.num_kv_heads}")
     dev = resolve_device(device)
     max_len = max_len or cfg.max_seq_len
-    L, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    L, H, D = cfg.num_layers, cfg.num_kv_heads // tp, cfg.head_dim
     scales = [None, None]
     if dtype == torch.int8:
         scales = [torch.zeros((L, batch, H, max_len), dtype=torch.float32, device=dev)
@@ -180,7 +236,20 @@ def _quantize_kv_t(x):
     return q, scale
 
 
-def _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg: ModelConfig):
+def _row_parallel(x, w, l, bias, tp: Optional[TensorParallel]):
+    """x @ w[l] (+ bias) for a row-parallel weight (wo, w_out): under tp
+    each rank holds k/tp rows, so its product is a partial sum. The
+    partials stay in f32 (the kernels' accumulator), are all-reduced in
+    f32 and rounded once to x's dtype, as the unsharded matmul rounds its
+    f32 sum once; then the (replicated) bias is added once."""
+    if tp is None:
+        return qmatmul_stacked(x, w, l, bias)
+    y = all_reduce(qmatmul_stacked(x, w, l, out_dtype=torch.float32), tp).to(x.dtype)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg: ModelConfig,
+                tp: Optional[TensorParallel] = None):
     """Residual + MLP tail. h_mlp_in is the parallel-residual MLP input
     (None for sequential residual)."""
     if h_mlp_in is None:
@@ -192,7 +261,7 @@ def _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg: ModelConfig):
         mid = torch.nn.functional.silu(gate) * up
     else:
         mid = activate(qmatmul_stacked(h_mlp_in, weights["w_in"], l, lp.get("b_in")), cfg.act)
-    mlp_out = qmatmul_stacked(mid, weights["w_out"], l, lp.get("b_out"))
+    mlp_out = _row_parallel(mid, weights["w_out"], l, lp.get("b_out"), tp)
     if cfg.parallel_residual or cfg.single_norm:
         h = h + attn_out + mlp_out
     else:
@@ -220,9 +289,10 @@ def _pool_rows(x, G):
     return x.reshape(B, S, G, -1).permute(2, 0, 1, 3).reshape(G, B * S, -1)
 
 
-def _attend_paged(q, k, v, cache: PagedKVCache, l, step: _PagedStep, start_dev, d):
+def _attend_paged(q, k, v, cache: PagedKVCache, l, step: _PagedStep, start_dev, d,
+                  tp: Optional[TensorParallel] = None):
     """Write this block's K/V into the pages, then attend (q/k/v
-    [B, S, H, D] after rotary)."""
+    [B, S, H, D] after rotary; under tp the rank's heads and pools)."""
     S = q.shape[1]
     G = cache.k_pages.shape[0]
     if cache.k_pages.dtype == torch.int8:
@@ -237,9 +307,11 @@ def _attend_paged(q, k, v, cache: PagedKVCache, l, step: _PagedStep, start_dev, 
         write_rows_paged(cache.v_pages, _pool_rows(v, G), l, step.index)
     qt = q.transpose(1, 2)
     if step.decode:
-        return paged_flash_decode(qt.contiguous(), cache.k_pages, cache.v_pages,
-                                  cache.k_scale, cache.v_scale, cache.page_table,
-                                  step.lengths, l, num_pages_window=step.maxp, head_dim=d)
+        decode = paged_flash_decode if tp is None else functools.partial(
+            paged_flash_decode_tp, mesh=tp.mesh)
+        return decode(qt.contiguous(), cache.k_pages, cache.v_pages, cache.k_scale,
+                      cache.v_scale, cache.page_table, step.lengths, l,
+                      num_pages_window=step.maxp, head_dim=d)
     table = step.table
     kc = gather_pages_k(cache.k_pages, l, table, step.maxp, d)
     vc = gather_pages_v(cache.v_pages, l, table, step.maxp, d)
@@ -299,9 +371,11 @@ def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window,
 
 def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
            positions, slot_index, slots, start_dev, attn_window: Optional[int],
-           paged: Optional[_PagedStep], prefill_flash: bool = False):
+           paged: Optional[_PagedStep], prefill_flash: bool = False,
+           tp: Optional[TensorParallel] = None):
     B, S, _ = h.shape
-    nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = 1 if tp is None else tp.size
+    nh, nkv, d = cfg.num_heads // n, cfg.num_kv_heads // n, cfg.head_dim
     h_mlp_in = None
     if cfg.single_norm:
         h_attn_in = h_mlp_in = _norm(h, lp["ln1_w"], lp.get("ln1_b"), cfg)
@@ -316,19 +390,19 @@ def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
     k = apply_rotary(k.reshape(B, S, nkv, d), rot_cos, rot_sin, positions, cfg.rotary_style)
     v = v.reshape(B, S, nkv, d)
     if paged is not None:
-        attn = _attend_paged(q, k, v, cache, l, paged, start_dev, d)
+        attn = _attend_paged(q, k, v, cache, l, paged, start_dev, d, tp)
     else:
         attn = _attend_slot(q, k, v, cache, l, slot_index, start_dev, attn_window, slots,
                             prefill_flash)
     attn = attn.transpose(1, 2).reshape(B, S, nh * d)
-    attn_out = qmatmul_stacked(attn, weights["wo"], l, lp.get("bo"))
-    return _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg)
+    attn_out = _row_parallel(attn, weights["wo"], l, lp.get("bo"), tp)
+    return _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg, tp)
 
 
 @torch.no_grad()
 def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
             seq_lens=None, last_only: bool = True, attn_window: Optional[int] = None,
-            prefill_flash: bool = False):
+            prefill_flash: bool = False, mesh=None):
     """Run the decoder over a token block appended at each slot's length.
 
     tokens: [B, S] integer tensor on the params' device. cache: a
@@ -339,6 +413,8 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
     prefill_flash: the caller asserts every slot starts at position 0 (a
     reset prefill); the slot cache's attention then runs the causal flash
     kernel over the block itself where the gate lets it (JAX's argument).
+    mesh: a DeviceMesh with a "tp" dimension when params and cache are one
+    tensor-parallel rank's (the module doc), else None.
     Returns (logits f32 [B, V] at each slot's last real token if
     last_only, else [B, S, V]; the cache, updated in place, its host
     lengths advanced by seq_lens)."""
@@ -347,7 +423,7 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
                 else torch.as_tensor(seq_lens, dtype=torch.int64).cpu())
     dev = tokens.device
     logits = _forward(params, cfg, tokens, cache, None, cache.lengths.to(dev), seq_lens.to(dev),
-                      last_only, attn_window, prefill_flash)
+                      last_only, attn_window, prefill_flash, mesh)
     cache.lengths += seq_lens
     return logits, cache
 
@@ -355,17 +431,17 @@ def forward(params: Params, cfg: ModelConfig, tokens, cache, *,
 @torch.no_grad()
 def forward_block(params: Params, cfg: ModelConfig, tokens, cache, slots, starts, seq_lens, *,
                   attn_window: Optional[int] = None, last_only: bool = True,
-                  prefill_flash: bool = False):
+                  prefill_flash: bool = False, mesh=None):
     """A token block (tokens [G, S]) that reads no host value: row g is
     written into slot slots[g] from position starts[g] (slots None: row g
     is slot g, G == B), seq_lens[g] of its tokens real. slots, starts and
     seq_lens are [G] int64 device tensors. Sets ``cache.lengths_dev`` of
     the target slots to starts + seq_lens, in place; the host mirror is
     the caller's to advance. prefill_flash: every row starts at position 0
-    (see ``forward``). Returns the f32 logits ([G, V] at each row's last
-    real token if last_only, else [G, S, V])."""
+    (see ``forward``), and so is mesh. Returns the f32 logits ([G, V] at
+    each row's last real token if last_only, else [G, S, V])."""
     logits = _forward(params, cfg, tokens, cache, slots, starts, seq_lens, last_only,
-                      attn_window, prefill_flash)
+                      attn_window, prefill_flash, mesh)
     end = starts + seq_lens
     if slots is None:
         cache.lengths_dev.copy_(end)
@@ -375,17 +451,17 @@ def forward_block(params: Params, cfg: ModelConfig, tokens, cache, slots, starts
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens, cache, seq_lens, *,
-                   attn_window: Optional[int] = None):
+                   attn_window: Optional[int] = None, mesh=None):
     """One decode step (tokens [B, 1]) at the device lengths
     ``cache.lengths_dev``, which it advances by seq_lens ([B] int64 on
     the device: 1 active, 0 frozen); the paged write positions come from
     the device page table. Returns the f32 logits [B, V]."""
     return forward_block(params, cfg, tokens, cache, None, cache.lengths_dev, seq_lens,
-                         attn_window=attn_window)
+                         attn_window=attn_window, mesh=mesh)
 
 
 def forward_verify(params: Params, cfg: ModelConfig, tokens, cache, *,
-                   attn_window: Optional[int] = None):
+                   attn_window: Optional[int] = None, mesh=None):
     """The speculative verify pass (tokens [B, S]) that reads no host
     value: the block is written at ``cache.lengths_dev``, K/V rows [len,
     len + S) in place (the start clamped to Smax - S, as JAX's
@@ -396,15 +472,53 @@ def forward_verify(params: Params, cfg: ModelConfig, tokens, cache, *,
         raise ValueError("the speculative verify pass needs the slot KV cache")
     return forward_block(params, cfg, tokens, cache, None, cache.lengths_dev,
                          torch.zeros_like(cache.lengths_dev), attn_window=attn_window,
-                         last_only=False)
+                         last_only=False, mesh=mesh)
+
+
+def _vocab_range(n_local: int, cfg: ModelConfig, tp: Optional[TensorParallel]):
+    """The first vocab id of this rank's embedding or lm head columns,
+    or None when the leaf holds the whole vocabulary (replicated)."""
+    if tp is None or n_local == cfg.vocab_size:
+        return None
+    return tp.rank * n_local
+
+
+def _embed(emb, tokens, cfg: ModelConfig, tp: Optional[TensorParallel]):
+    """Token embeddings [B, S, H]; a vocab-parallel table looks up the
+    tokens of its own range (zero elsewhere), then one all-reduce."""
+    quantized = isinstance(emb, QuantizedTensor)
+    v_local = emb.shape[1] if quantized else emb.shape[0]
+    v0 = _vocab_range(v_local, cfg, tp)
+    if v0 is None:
+        return take_dequantize(emb, tokens) if quantized else emb[tokens]
+    local = tokens - v0
+    mine = (local >= 0) & (local < v_local)
+    local = torch.where(mine, local, torch.zeros_like(local))
+    h = take_dequantize(emb, local) if quantized else emb[local]
+    return all_reduce(torch.where(mine[..., None], h, torch.zeros_like(h)), tp)
+
+
+def _lm_head(h, lm, cfg: ModelConfig, tp: Optional[TensorParallel]):
+    """f32 logits [..., V]; a vocab-parallel head's columns are gathered
+    into a zeroed full-vocab buffer by one all-reduce."""
+    logits = qmatmul(h, lm["w"], lm.get("b"), out_dtype=torch.float32).float()
+    v0 = _vocab_range(logits.shape[-1], cfg, tp)
+    if v0 is None:
+        return logits
+    full = torch.zeros((*logits.shape[:-1], cfg.vocab_size), dtype=torch.float32,
+                       device=logits.device)
+    full[..., v0:v0 + logits.shape[-1]] = logits
+    return all_reduce(full, tp)
 
 
 def _forward(params, cfg: ModelConfig, tokens, cache, slots, start_dev, seq_lens,
-             last_only: bool, attn_window: Optional[int], prefill_flash: bool = False):
+             last_only: bool, attn_window: Optional[int], prefill_flash: bool = False,
+             mesh=None):
     """The decoder body on device values: slots [G] (None: every slot in
     order), start_dev and seq_lens [G] int64 on the tokens' device."""
     B, S = tokens.shape
     dev = tokens.device
+    tp = tensor_parallel(mesh)
     positions = start_dev[:, None] + torch.arange(S, device=dev)[None, :]
     positions = positions.clamp(max=cache.max_len - 1)
     paged = slot_index = None
@@ -422,25 +536,23 @@ def _forward(params, cfg: ModelConfig, tokens, cache, slots, start_dev, seq_lens
     else:
         slot_index = slot_write_index(start_dev, S, cache.max_len, slots)
 
-    emb = params["embed"]["w"]
-    h = take_dequantize(emb, tokens) if isinstance(emb, QuantizedTensor) else emb[tokens]
+    h = _embed(params["embed"]["w"], tokens, cfg, tp)
     rot_cos, rot_sin = params["rotary"]["cos"], params["rotary"]["sin"]
     weights = {k: v for k, v in params["layers"].items() if k in WEIGHT_KEYS}
     small = {k: v for k, v in params["layers"].items() if k not in WEIGHT_KEYS}
     for l in range(cfg.num_layers):
         lp = {k: v[l] for k, v in small.items()}
         h = _layer(h, lp, weights, cache, l, cfg, rot_cos, rot_sin, positions, slot_index,
-                   slots, start_dev, attn_window, paged, prefill_flash)
+                   slots, start_dev, attn_window, paged, prefill_flash, tp)
 
     h = _norm(h, params["final_ln"]["w"], params["final_ln"].get("b"), cfg)
     if last_only:
         # lm head on each slot's last REAL position only
         idx = (seq_lens - 1).clamp(0, S - 1)
         h = h[torch.arange(B, device=dev), idx][:, None]
-    lm = params["lm_head"]
     if cfg.fp32_lm_head:
         h = h.float()
-    logits = qmatmul(h, lm["w"], lm.get("b"), out_dtype=torch.float32).float()
+    logits = _lm_head(h, params["lm_head"], cfg, tp)
     if last_only:
         logits = logits[:, 0]
     return logits
@@ -481,14 +593,16 @@ def init_random_params(cfg: ModelConfig, quant, seed: int = 0, scale: float = 0.
         return torch.randn((k, n), generator=gen, device=dev) * scale
 
     def fab(k, n, fspec: QuantSpec):
-        # the stored layout of quantize(): i8 planes [G*g, N], or words
-        # [G * words_per_group, N] as int32 (u32) / int16 (u16) bits
-        if fspec.storage == "u4":
-            raise NotImplementedError("u4 plane storage is not ported (ROADMAP.md queue 2)")
+        # the stored layout of quantize(): i8 planes and u4 code planes
+        # [G*g, N], or words [G * words_per_group, N] as int32 (u32) /
+        # int16 (u16) bits
         g = fspec.group_size
         ngroups = -(-k // g)
         n_st = pad_cols(n)
-        if fspec.storage == "i8":
+        if fspec.storage == "u4":
+            data = torch.randint(0, 16, (ngroups * g, n_st), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+        elif fspec.storage == "i8":
             data = torch.randint(-127, 128, (ngroups * g, n_st), generator=gen, device=dev,
                                  dtype=torch.int8)
         else:

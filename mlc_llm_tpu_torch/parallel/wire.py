@@ -151,8 +151,11 @@ class SchedulerServer:
                     # operator and stop driving (requests stay unfinished)
                     self.error = traceback.format_exc()
                     return
-            if not busy:
-                time.sleep(0.002)
+            # yield between steps too: a connection thread waiting on _lock
+            # (a submit, a load query) would otherwise wait while this loop
+            # takes the lock back step after step, and least-loaded routing
+            # would read the load of many steps later
+            time.sleep(0 if busy else 0.002)
 
     def _flush_done(self) -> None:
         """Send terminal messages for finished requests (under _lock)."""

@@ -7,7 +7,13 @@ scales and minima, bit for bit, in the same storage layouts:
   ``nbit`` bits per word, LSB first, each group padded to a whole number
   of words (int4: 8 per u32 in the pair, hsplit or qsplit order; int3: 10
   per u32 or 5 per u16; fp4: 8 per u32);
-- ``i8`` planes ``[k_pad, n]`` holding ``code - max_int`` (int8).
+- ``i8`` planes ``[k_pad, n]`` holding ``code - max_int`` (int8);
+- ``u4`` planes ``[k_pad, n]`` (``q4bf16_plane``): one code a byte, as
+  ``torch.uint8``. That is the byte layout ml_dtypes gives JAX's
+  ``uint4`` on the host and the bytes JAX's checkpoints hold; ``nbytes``
+  counts half a byte a code, as JAX's does. No kernel reads u4 (JAX's
+  ``dequant_matmul_supported`` takes u32, u16 and i8 only): a u4 matmul
+  dequantizes and multiplies.
 
 Groups run along k; columns are lane-padded (``pad_cols``). u32 words
 live as ``torch.int32`` and u16 words as ``torch.int16`` holding the same
@@ -15,8 +21,7 @@ bits: torch's unsigned types lack most operators. Right shifts on signed
 types are arithmetic, so every shift is followed by a mask.
 
 fp4 codes are sign | 3-bit exponent, ``±2^(e-7)`` and 0 when e == 0, with
-the group absmax as the scale. The native u4 plane storage
-(``q4bf16_plane``) is not ported (ROADMAP.md queue 2).
+the group absmax as the scale.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ class QuantizedTensor:
     """A packed group-quantized 2-D weight, flat or layer-stacked.
 
     data:  words [KW, N] (or [L, KW, N]): int32 (u32 bits) or int16 (u16
-           bits); or an int8 plane [K, N] for i8 storage.
+           bits); or a plane [K, N]: int8 for i8 storage, uint8 codes
+           for u4.
     scale: [G, N] (or [L, G, N]) in the compute dtype.
     zero:  group minima like scale (asym), else None.
     shape: the LOGICAL (k, n).
@@ -87,9 +93,12 @@ class QuantizedTensor:
         return self.scale.shape[-2]
 
     def nbytes(self) -> int:
-        """Stored bytes: data, scales and minima."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.data, self.scale, self.zero) if t is not None)
+        """Stored bytes: data (half a byte a u4 code, as JAX counts its
+        uint4 plane), scales and minima."""
+        data = (self.data.numel() // 2 if self.spec.storage == "u4"
+                else self.data.numel() * self.data.element_size())
+        return data + sum(t.numel() * t.element_size()
+                          for t in (self.scale, self.zero) if t is not None)
 
     def map(self, fn) -> "QuantizedTensor":
         """Apply fn to every tensor field (device moves, layer slices)."""
@@ -97,12 +106,6 @@ class QuantizedTensor:
             data=fn(self.data), scale=fn(self.scale),
             zero=None if self.zero is None else fn(self.zero),
             spec=self.spec, shape=self.shape)
-
-
-def _check_ported(spec: QuantSpec) -> None:
-    if spec.storage == "u4":
-        raise NotImplementedError(
-            "u4 plane storage (q4bf16_plane) is not ported (ROADMAP.md queue 2)")
 
 
 def _f32_to_f4(x: torch.Tensor) -> torch.Tensor:
@@ -191,7 +194,6 @@ def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
     spec = resolve_spec(spec)
     if not spec.is_quantized:
         raise ValueError("cannot quantize with mode='none'")
-    _check_ported(spec)
     if w.ndim != 2:
         raise ValueError(f"quantize expects a 2-D [k, n] weight, got shape {tuple(w.shape)}")
     k, n = w.shape
@@ -231,7 +233,9 @@ def quantize(w: torch.Tensor, spec) -> QuantizedTensor:
         codes = torch.round((wg - zero_st.float()[:, None, :]) / safe[:, None, :])
         codes = torch.clamp(codes, 0, levels)
     codes = codes.to(torch.int32).reshape(k_pad, n)
-    if spec.storage == "i8":
+    if spec.storage == "u4":
+        data = codes.to(torch.uint8)
+    elif spec.storage == "i8":
         data = (codes - spec.max_int).to(torch.int8)
     else:
         # pad k to a whole number of words per group
@@ -256,8 +260,8 @@ def pad_quantized_groups(qt: QuantizedTensor, mult: int = 32) -> QuantizedTensor
 
     Logical shape is unchanged; padded groups have zero scale and zero
     minimum, and the activations are zero there, so every path stays
-    exact. Word storage only (u32/u16), as in JAX; i8 planes stay as
-    they are. Split layouts map elements by TOTAL k, so they are padded
+    exact. Word storage only (u32/u16), as in JAX; i8 and u4 planes stay
+    as they are. Split layouts map elements by TOTAL k, so they are padded
     at the code level and repacked, one layer at a time (flat [KW, N] or
     stacked [L, KW, N])."""
     spec = qt.spec
@@ -288,10 +292,32 @@ def pad_quantized_groups(qt: QuantizedTensor, mult: int = 32) -> QuantizedTensor
                            zero=padrows(qt.zero, dg), spec=spec, shape=qt.shape)
 
 
+def to_pair_layout(qt: QuantizedTensor) -> QuantizedTensor:
+    """Repack a split-packed (hsplit/qsplit) tensor into the pair element
+    order, exactly: the same codes and scales, only the element -> bit
+    slot map changes. The split maps are global in k (hsplit pairs q with
+    K/2 + q; qsplit spreads a word over four quarters), so a contiguous
+    split of k (row-parallel sharding) is shard-local only in the pair
+    order. Flat [KW, N] or stacked [L, KW, N] (one layer at a time); any
+    other tensor is returned as it is."""
+    spec = qt.spec
+    if spec.layout not in ("hsplit", "qsplit"):
+        return qt
+    pair = dataclasses.replace(spec, layout="pair")
+
+    def repack(d2):
+        return _pack_words(_unpack_words(d2, spec).to(torch.uint8), pair)
+
+    data = (torch.stack([repack(d) for d in qt.data]) if qt.data.ndim == 3
+            else repack(qt.data))
+    return QuantizedTensor(data=data, scale=qt.scale, zero=qt.zero, spec=pair, shape=qt.shape)
+
+
 def _codes(qt: QuantizedTensor) -> torch.Tensor:
     """Storage -> per-element integer codes [k_stored, n] (int32)."""
     spec = qt.spec
-    _check_ported(spec)
+    if spec.storage == "u4":
+        return qt.data.to(torch.int32)
     if spec.storage == "i8":
         return qt.data.to(torch.int32) + spec.max_int
     return _unpack_words(qt.data, spec)

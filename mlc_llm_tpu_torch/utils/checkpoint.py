@@ -10,7 +10,8 @@ The format is the JAX package's in both directions:
   '/' (``layers/wqkv/data`` -> ``layers.wqkv.data.bin``);
 - dtype strings are NumPy's names as JAX writes them: packed words are
   ``"uint32"`` / ``"uint16"`` (the port holds the same bits as int32 /
-  int16) and bf16 is ``"bfloat16"``. Reading needs no ``ml_dtypes``: a
+  int16), u4 planes ``"uint4"`` (one code a byte, which the port holds as
+  uint8) and bf16 is ``"bfloat16"``. Reading needs no ``ml_dtypes``: a
   leaf's bytes land in a tensor of its torch dtype as they are.
 
 Every leaf is read through the port's multithreaded native reader
@@ -38,7 +39,7 @@ import torch
 
 from .. import native
 from ..ops import resolve_device
-from ..quant.groupwise import QuantizedTensor, _check_ported
+from ..quant.groupwise import QuantizedTensor
 from ..quant.spec import QuantSpec
 
 MANIFEST = "manifest.json"
@@ -53,13 +54,14 @@ PIECE_BYTES = 16 << 20
 STAGE_BYTES = 64 << 20
 
 # manifest dtype string -> the torch dtype whose bytes the leaf file holds
-# (packed u32/u16 words as int32/int16, the same bits)
+# (packed u32/u16 words as int32/int16, the same bits; uint4 codes one a
+# byte, as uint8)
 _READ = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
          "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
-         "uint32": torch.int32, "uint16": torch.int16}
+         "uint32": torch.int32, "uint16": torch.int16, "uint4": torch.uint8}
 _NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16", torch.float32: "float32",
           torch.int8: "int8", torch.int32: "int32", torch.int16: "int16"}
-_WORDS = {"u32": "uint32", "u16": "uint16"}
+_WORDS = {"u32": "uint32", "u16": "uint16", "u4": "uint4"}
 
 
 def _flatten(tree, prefix: str, leaves: list, quantized: dict) -> None:
@@ -206,9 +208,7 @@ def load_params(in_dir: str, device="cuda") -> Tuple[Any, Dict[str, Any]]:
     for path, info in manifest["quantized"].items():
         # manifests written before the layout field existed hold pair-packed
         # data (the JAX loader defaults it the same way)
-        spec = QuantSpec(**{"layout": "pair", **info["spec"]})
-        _check_ported(spec)
-        specs[path] = spec
+        specs[path] = QuantSpec(**{"layout": "pair", **info["spec"]})
 
     tree: Dict[str, Any] = {}
     leaves = []

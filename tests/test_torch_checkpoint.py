@@ -123,9 +123,16 @@ def test_manifest_without_layout_loads_as_pair(tmp_path):
 
 
 def test_u4_manifest_raises(tmp_path):
-    w = np.zeros((64, 128), np.float32)
+    # a u4 plane ("uint4", one code a byte) loads bit-equal; a plane file
+    # of another size than its manifest shape raises
+    w = (np.random.default_rng(1).standard_normal((64, 128)) * 0.05).astype(np.float32)
     jckpt.save_params({"w": jquantize(w, "q4bf16_plane")}, str(tmp_path), meta={})
-    with pytest.raises(NotImplementedError, match="u4"):
+    tree, _ = load_params(str(tmp_path), device="cpu")
+    _assert_bit_equal(tree, params_from_jax({"w": jax.tree.map(np.asarray, jquantize(
+        w, "q4bf16_plane"))}))
+    with open(tmp_path / "w.data.bin", "ab") as f:
+        f.write(b"\0")
+    with pytest.raises(ValueError, match="bytes"):
         load_params(str(tmp_path), device="cpu")
 
 

@@ -1465,3 +1465,78 @@ def test_cuda_dump_names_every_counted_kernel(vicuna2, tmp_path):
             assert f"{src}.sass" in written and f"{src}.ptx" in written
     # the b1 decode's m = 1 GEMVs, the 16-token prefill's GEMMs
     assert {"dequant_gemv_qs.sass", "dequant_gemm_qs.sass"} <= set(written)
+
+
+# ------------------------------------------------- tensor parallelism, tp = 2
+# Vicuna-7B's rank-local weights at tp = 2 (parallel/sharding.py): q4bf16
+# repacked to the pair order, so every sharded matmul runs the pair bf16
+# bodies: wqkv, wo, w_in ([gate_r | up_r], stored 11264), w_out (172 groups,
+# padded to 192) and the lm head (16000 columns, stored 16384)
+TP2_SHAPES = [(4096, 6144), (2048, 4096), (4096, 11008), (5504, 4096), (4096, 16000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 128, 2048])
+@pytest.mark.parametrize("k,n", TP2_SHAPES)
+def test_cuda_pair_bf16_at_tp2_shard_shapes(k, n, m):
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qt = pad_quantized_groups(quantize(torch.randn((k, n), generator=g, device="cuda") * 0.02,
+                                       QUANT_PRESETS["q4bf16_pair"]))
+    K = qt.data.shape[0] * 8
+    x = torch.zeros((m, K), dtype=torch.bfloat16, device="cuda")
+    x[:, :k] = (torch.randn((m, k), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    assert dm.route(qt.spec, qt.n_groups, m) == ("gemv_gp" if m <= 8 else "gemm_pairs")
+    fn, plain = (dm.gemv_gp, dm.gemv_gp_plain) if m <= 8 else (dm.gemm_pairs,
+                                                               dm.gemm_pairs_plain)
+    before = fn.launches
+    got = fn(x, qt.data, qt.scale, qt.zero, "pair", out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(x, qt.data, qt.scale, qt.zero, "pair", torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_tp2_gloo_forward_matches_unsharded(tmp_path):
+    """Two gloo ranks on the one card (tests/torch_tp_worker.py, case
+    tp2_q4bf16: the widened tiny llama, q4bf16 repacked to pair): each
+    rank's logits of a prefill and two decode steps against the unsharded
+    forward's on the card, at the CPU tests' 2e-2."""
+    _need_gpu()
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_tp_worker as w
+
+    from mlc_llm_tpu_torch.models import init_random_params
+
+    model, quant, _, kind = w.CASES["tp2_q4bf16"]
+    cfg = w.config(model)
+    params = init_random_params(cfg, quant, seed=1, device="cpu")
+    torch.save(params, tmp_path / f"{model}-{quant}.pt")
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    procs = [subprocess.Popen([sys.executable, w.__file__, "2", str(r), port, str(tmp_path),
+                               "cuda", "tp2_q4bf16"], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), "\n---\n".join(logs)
+    ref = w.run_forward(w.to_device(params, "cuda"), cfg,
+                        w.make_cache(cfg, kind, quant, 2, "cuda"), [0, 1])
+    for r in range(2):
+        got = torch.load(tmp_path / f"tp2_q4bf16.{r}.pt", weights_only=False)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax():
            "mlc_llm_tpu_torch.build", "mlc_llm_tpu_torch.ppl", "mlc_llm_tpu_torch.evaluate",
            "mlc_llm_tpu_torch.debug.compare", "mlc_llm_tpu_torch.debug.dump",
            "mlc_llm_tpu_torch.native", "mlc_llm_tpu_torch.tune",
-           "mlc_llm_tpu_torch.parallel.coordinator", "mlc_llm_tpu_torch.parallel.multihost"}
+           "mlc_llm_tpu_torch.parallel.coordinator", "mlc_llm_tpu_torch.parallel.multihost",
+           "mlc_llm_tpu_torch.parallel.sharding"}
     assert "mlc_llm_tpu_torch.ops.dequant_matmul" in mods and new <= set(mods)
     assert len(mods) >= 40
     banned = ("jax", "mlc_llm_tpu", "transformers", "safetensors", "ml_dtypes")

@@ -23,6 +23,7 @@ from mlc_llm_tpu.quant.spec import QUANT_PRESETS as JPRESETS
 from mlc_llm_tpu_torch.models.convert import params_from_jax, tensor_from_numpy
 from mlc_llm_tpu_torch.quant import (
     QUANT_PRESETS,
+    QuantSpec,
     dequantize,
     pad_quantized_groups,
     quantize,
@@ -108,7 +109,9 @@ def test_take_dequantize_matches():
 
 
 def test_unported_format_raises():
-    # int3, fp4 and int8 are ported (tests/test_torch_lowbit_quant.py);
-    # the native u4 plane storage is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize(torch.zeros(64, 128), "q4bf16_plane")
+    # every storage of the JAX package is ported (int3, fp4 and int8 in
+    # tests/test_torch_lowbit_quant.py, u4 planes in tests/test_torch_u4.py):
+    # a storage outside the spec's table still raises
+    assert quantize(torch.zeros(64, 128), "q4bf16_plane").data.dtype == torch.uint8
+    with pytest.raises(ValueError):
+        quantize(torch.zeros(64, 128), QuantSpec("int4", 32, False, "u8", "bfloat16"))
