@@ -1,0 +1,8 @@
+"""Model-step layer, serving: the decode forwards' least time for their
+active rows (harness/roofline.py) over their replays' device time, in
+percent."""
+from harness import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, ["decode", "decode_k"])

@@ -1,0 +1,8 @@
+"""Model-step layer, serving: the admissions' least time for their real
+prompt tokens (harness/roofline.py: bucket padding is not work) over their
+replays' device time, in percent."""
+from harness import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, ["prefill_slots"])
