@@ -54,6 +54,11 @@ functions run eagerly. ``precompile`` captures every program JAX's
 pipelining: the next step is enqueued on the device before the previous
 step's token is read back.
 
+Tracing: ``engine.trace`` (``engine/trace.py``) holds the engine's spans
+(its programs' and its schedulers' too), off until ``trace.start()``.
+Always on: the forwards each kind of program ran and the readbacks that
+found their result landed or waited for it.
+
 Tensor parallelism: ``mesh`` (a DeviceMesh with a "tp" dimension,
 ``parallel/sharding.py``) makes the engine one tp rank's: its params are
 that rank's shards (``parallel.shard_params``), it allocates only its own
@@ -105,6 +110,7 @@ from ..ops.sampling import counter_uniform, sample_token_perslot
 from ..quant.groupwise import QuantizedTensor, pad_quantized_groups
 from .programs import StepPrograms
 from .stats import RuntimeStats
+from .trace import Trace
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 DEFAULT_TOP_K = 64
@@ -199,8 +205,16 @@ class InferenceEngine:
         self.decode_forwards = 0
         self.prefill_forwards = 0
         self.verify_forwards = 0
+        # readbacks of results: those that found the result already there,
+        # and those that waited for the device (generate_stream's and
+        # verify's blocking copies, the scheduler's drain)
+        self.readbacks_landed = 0
+        self.readbacks_blocked = 0
+        # the engine's spans (engine/trace.py), off until trace.start()
+        self.trace = Trace(self.device)
         self.programs = StepPrograms(
-            self.device, eager=tp is not None and dist.get_backend(tp.group) == "gloo")
+            self.device, eager=tp is not None and dist.get_backend(tp.group) == "gloo",
+            trace=self.trace)
         # the programs' fixed input buffers: the decode step's tokens [B,
         # 1], its [active, seed, step] rows and [temperature, top_p] rows;
         # the prefill blocks' tokens by (G, bucket) and [slot, start,
@@ -253,6 +267,18 @@ class InferenceEngine:
         if self.device.type == "cuda":
             host = host.pin_memory()
         dst.copy_(host, non_blocking=True)
+
+    def _read_back(self, t: torch.Tensor) -> np.ndarray:
+        """t on the host: a blocking copy on the stream, so it waits for
+        every program enqueued before it, the ones after t's too. Counts
+        whether the stream had run dry (landed) or the host waited
+        (blocked)."""
+        if self.device.type == "cuda" and not torch.cuda.current_stream(self.device).query():
+            self.readbacks_blocked += 1
+        else:
+            self.readbacks_landed += 1
+        with self.trace.span("readback"):
+            return t.cpu().numpy()
 
     # ------------------------------------------------------------ precompile
     def precompile_keys(self, multi_step: Union[int, Sequence[int], None] = None) -> List[tuple]:
@@ -393,107 +419,115 @@ class InferenceEngine:
         B = self.max_batch
         if len(prompts) > B:
             raise ValueError(f"{len(prompts)} prompts for max_batch {B}")
-        lens = [len(p) for p in prompts]
-        bucket = self.bucket_for(max(lens))
-        if reset:
-            self.reset(range(len(prompts)))
-        lens_host = self.cache.lengths.numpy().copy()
-        if self.allocator is not None:
-            try:
-                for i, p in enumerate(prompts):
-                    total = int(lens_host[i]) + len(p) + reserve_tokens + 1
-                    self.assign_pages(i, self.pages_needed(i, min(total, self.max_seq_len)),
-                                      push=False)
-            finally:
-                # push even when the pool runs out mid-loop: earlier slots'
-                # table edits must reach the device or their writes land in
-                # the null page
-                self._push_table()
-        toks = np.zeros((B, bucket), np.int64)
-        seq_lens = np.zeros((B,), np.int64)
-        for i, p in enumerate(prompts):
-            toks[i, : len(p)] = p
-            seq_lens[i] = len(p)
-        if reset:
-            window = self.decode_window(bucket)
-        else:
-            start_max = int(lens_host[: len(prompts)].max())
-            window = self.decode_window(min(start_max + bucket, self.max_seq_len))
-        t0 = time.perf_counter()
-        logits = self._run_block("prefill", toks, np.arange(B), lens_host, seq_lens, window,
-                                 reset and self.kv_layout != "paged")
-        self.cache.lengths += torch.from_numpy(seq_lens)
-        synchronize(self.device)
-        self.stats.prefill_time += time.perf_counter() - t0
-        self.stats.prefill_tokens += int(sum(lens))
-        return logits
+        with self.trace.span("prefill"):
+            lens = [len(p) for p in prompts]
+            bucket = self.bucket_for(max(lens))
+            if reset:
+                self.reset(range(len(prompts)))
+            lens_host = self.cache.lengths.numpy().copy()
+            if self.allocator is not None:
+                try:
+                    for i, p in enumerate(prompts):
+                        total = int(lens_host[i]) + len(p) + reserve_tokens + 1
+                        self.assign_pages(i, self.pages_needed(i, min(total, self.max_seq_len)),
+                                          push=False)
+                finally:
+                    # push even when the pool runs out mid-loop: earlier
+                    # slots' table edits must reach the device or their
+                    # writes land in the null page
+                    self._push_table()
+            toks = np.zeros((B, bucket), np.int64)
+            seq_lens = np.zeros((B,), np.int64)
+            for i, p in enumerate(prompts):
+                toks[i, : len(p)] = p
+                seq_lens[i] = len(p)
+            if reset:
+                window = self.decode_window(bucket)
+            else:
+                start_max = int(lens_host[: len(prompts)].max())
+                window = self.decode_window(min(start_max + bucket, self.max_seq_len))
+            t0 = time.perf_counter()
+            logits = self._run_block("prefill", toks, np.arange(B), lens_host, seq_lens, window,
+                                     reset and self.kv_layout != "paged")
+            self.cache.lengths += torch.from_numpy(seq_lens)
+            synchronize(self.device)
+            self.stats.prefill_time += time.perf_counter() - t0
+            self.stats.prefill_tokens += int(sum(lens))
+            return logits
 
     def generate_stream(self, prompts: List[List[int]],
                         gen: GenerationConfig = GenerationConfig(), reset: bool = True):
         """Generator yielding (slot, token) as tokens are read back (one
         decode step behind the device). Slots not in 0..len(prompts)-1
-        keep their state frozen."""
+        keep their state frozen. Traced as a ``turn``: its prefill and
+        first draw, then a ``step`` per decode step (engine/trace.py)."""
         B = self.max_batch
         n = len(prompts)
-        logits = self.prefill(prompts, reset=reset, reserve_tokens=gen.max_new_tokens)
+        tr = self.trace
+        with tr.turn():
+            logits = self.prefill(prompts, reset=reset, reserve_tokens=gen.max_new_tokens)
 
-        # per-slot uint32 seeds from gen.seed: slot b's draw at step s is a
-        # function of (seeds[b], s) alone, JAX's fold_in(PRNGKey(seed), s)
-        base = gen.seed if gen.seed is not None else np.random.randint(0, 2**31 - 1)
-        seeds = np.random.SeedSequence(base).generate_state(B).astype(np.int64)
-        steps = np.zeros((B,), np.int64)
-        temps = np.zeros((B,), np.float32)
-        temps[:n] = gen.temperature
-        first = self.sample(logits, seeds, steps, temps, gen.top_p, gen.top_k)
-        steps[:] = 1
+            # per-slot uint32 seeds from gen.seed: slot b's draw at step s is
+            # a function of (seeds[b], s) alone, JAX's fold_in(PRNGKey(seed), s)
+            base = gen.seed if gen.seed is not None else np.random.randint(0, 2**31 - 1)
+            seeds = np.random.SeedSequence(base).generate_state(B).astype(np.int64)
+            steps = np.zeros((B,), np.int64)
+            temps = np.zeros((B,), np.float32)
+            temps[:n] = gen.temperature
+            first = self.sample(logits, seeds, steps, temps, gen.top_p, gen.top_k)
+            steps[:] = 1
 
-        stop = set(gen.stop_tokens) | set(self.cfg.stop_tokens)
-        emitted = [0] * n
-        done = np.zeros((n,), bool)
-        cur_lens = self.cache.lengths.numpy().copy()
-        cur = first
-        pending = [first]
-        t0 = time.perf_counter()
-        n_steps = 0
-        max_steps = min(gen.max_new_tokens, int(self.max_seq_len - cur_lens[:n].max()))
+            stop = set(gen.stop_tokens) | set(self.cfg.stop_tokens)
+            emitted = [0] * n
+            done = np.zeros((n,), bool)
+            cur_lens = self.cache.lengths.numpy().copy()
+            cur = first
+            pending = [first]
+            t0 = time.perf_counter()
+            n_steps = 0
+            max_steps = min(gen.max_new_tokens, int(self.max_seq_len - cur_lens[:n].max()))
 
-        def drain_one():
-            tok_host = pending.pop(0).cpu().numpy()
-            for i in range(n):
-                if done[i]:
-                    continue
-                tk = int(tok_host[i])
-                if tk in stop:
-                    done[i] = True
-                    continue
-                emitted[i] += 1
-                if emitted[i] >= gen.max_new_tokens:
-                    done[i] = True
-                yield (i, tk)
+            def drain_one():
+                tok_host = self._read_back(pending.pop(0))
+                for i in range(n):
+                    if done[i]:
+                        continue
+                    tk = int(tok_host[i])
+                    if tk in stop:
+                        done[i] = True
+                        continue
+                    emitted[i] += 1
+                    if emitted[i] >= gen.max_new_tokens:
+                        done[i] = True
+                    with tr.span("client"):
+                        yield (i, tk)
 
-        active = np.zeros((B,), bool)
-        active[:n] = True
-        max_len_host = int(cur_lens[:n].max())
-        try:
-            for _ in range(max_steps - 1):
-                max_len_host += 1
-                nxt = self._decode_sample(cur[:, None], active, seeds, steps, temps, gen.top_p,
-                                          attn_window=self.decode_window(max_len_host + 1),
-                                          top_k=gen.top_k)
-                steps[active] += 1
-                pending.append(nxt)
-                cur = nxt
-                n_steps += 1
-                yield from drain_one()
-                if done.all():
-                    break
-                active[:n] = ~done
-            while pending:
-                yield from drain_one()
-        finally:
-            synchronize(self.device)
-            self.stats.decode_time += time.perf_counter() - t0
-            self.stats.decode_tokens += n_steps * int(n)
+            active = np.zeros((B,), bool)
+            active[:n] = True
+            max_len_host = int(cur_lens[:n].max())
+            try:
+                for _ in range(max_steps - 1):
+                    with tr.span("step"):
+                        max_len_host += 1
+                        nxt = self._decode_sample(cur[:, None], active, seeds, steps, temps,
+                                                  gen.top_p,
+                                                  attn_window=self.decode_window(max_len_host + 1),
+                                                  top_k=gen.top_k)
+                        steps[active] += 1
+                        pending.append(nxt)
+                        cur = nxt
+                        n_steps += 1
+                        yield from drain_one()
+                    if done.all():
+                        break
+                    active[:n] = ~done
+                while pending:
+                    with tr.span("step"):
+                        yield from drain_one()
+            finally:
+                synchronize(self.device)
+                self.stats.decode_time += time.perf_counter() - t0
+                self.stats.decode_tokens += n_steps * int(n)
 
     def generate(self, prompts: List[List[int]], gen: GenerationConfig = GenerationConfig(),
                  on_token: Optional[Callable[[int, int], None]] = None,
@@ -640,10 +674,11 @@ class InferenceEngine:
         V]. The host lengths are the caller's to advance."""
         G, S = tokens.shape
         window = window or self.max_seq_len
-        toks, ints = self._block_buffers(G, S)
-        self._upload(toks, np.asarray(tokens, np.int64))
-        self._upload(ints, np.stack([_rows(slots, G, np.int64), _rows(starts, G, np.int64),
-                                     _rows(seq_lens, G, np.int64)]))
+        with self.trace.span("stage"):
+            toks, ints = self._block_buffers(G, S)
+            self._upload(toks, np.asarray(tokens, np.int64))
+            self._upload(ints, np.stack([_rows(slots, G, np.int64), _rows(starts, G, np.int64),
+                                         _rows(seq_lens, G, np.int64)]))
         (logits,) = self.programs.run(*self._program((kind, G, S, window, bool(flash))))
         self.prefill_forwards += 1
         return logits.clone()
@@ -655,13 +690,16 @@ class InferenceEngine:
         temperature and top-p (host scalars or [G]); T < 1e-6 is argmax.
         Returns [G] tokens on the device (a copy); nothing is read back."""
         G = logits.shape[0]
-        buf, ints, floats = self._sample_buffers(G)
-        buf.copy_(logits)
-        self._upload(ints, np.stack([_rows(seeds, G, np.int64), _rows(steps, G, np.int64)]))
-        self._upload(floats, np.stack([_rows(temperature, G, np.float32),
-                                       _rows(top_p, G, np.float32)]))
-        (tok,) = self.programs.run(*self._program(_with_top_k(("sample", G), top_k)))
-        return tok.clone()
+        with self.trace.span("sample"):
+            with self.trace.span("stage"):
+                buf, ints, floats = self._sample_buffers(G)
+                buf.copy_(logits)
+                self._upload(ints, np.stack([_rows(seeds, G, np.int64),
+                                             _rows(steps, G, np.int64)]))
+                self._upload(floats, np.stack([_rows(temperature, G, np.float32),
+                                               _rows(top_p, G, np.float32)]))
+            (tok,) = self.programs.run(*self._program(_with_top_k(("sample", G), top_k)))
+            return tok.clone()
 
     # ------------------------------------------------------ scheduler hooks
     def _stage_decode(self, tokens, active: np.ndarray, seeds, steps, temperature,
@@ -671,14 +709,15 @@ class InferenceEngine:
         temperatures (0 on inactive rows), top-p and the host lengths
         (copies from pinned host memory that do not block)."""
         B = self.max_batch
-        self._step_tokens.copy_(tokens)
-        self._upload(self._step_ints, np.stack([active.astype(np.int64),
-                                                _rows(seeds, B, np.int64),
-                                                _rows(steps, B, np.int64)]))
-        self._upload(self._step_floats,
-                     np.stack([np.where(active, _rows(temperature, B, np.float32), 0.0),
-                               _rows(top_p, B, np.float32)]))
-        self._upload(self.cache.lengths_dev, self.cache.lengths.numpy())
+        with self.trace.span("stage"):
+            self._step_tokens.copy_(tokens)
+            self._upload(self._step_ints, np.stack([active.astype(np.int64),
+                                                    _rows(seeds, B, np.int64),
+                                                    _rows(steps, B, np.int64)]))
+            self._upload(self._step_floats,
+                         np.stack([np.where(active, _rows(temperature, B, np.float32), 0.0),
+                                   _rows(top_p, B, np.float32)]))
+            self._upload(self.cache.lengths_dev, self.cache.lengths.numpy())
 
     def _decode_sample(self, tokens, active: np.ndarray, seeds, steps, temperature, top_p, *,
                        attn_window: int, top_k: int = DEFAULT_TOP_K):
@@ -719,11 +758,12 @@ class InferenceEngine:
         if self.kv_layout != "slot":
             raise ValueError("the speculative verify pass needs kv_layout='slot'")
         B, K = tokens.shape
-        self._upload(self._verify_buffer(K), np.asarray(tokens, np.int64))
-        self._upload(self.cache.lengths_dev, self.cache.lengths.numpy())
+        with self.trace.span("stage"):
+            self._upload(self._verify_buffer(K), np.asarray(tokens, np.int64))
+            self._upload(self.cache.lengths_dev, self.cache.lengths.numpy())
         _, got = self.programs.run(*self._program(("verify", B, K, attn_window)))
         self.verify_forwards += 1
-        return got.cpu().numpy()
+        return self._read_back(got)
 
     def _prefill_slot(self, tokens: np.ndarray, seq_len: int, slot: int, append: bool = False,
                       attn_window: Optional[int] = None):
@@ -736,11 +776,12 @@ class InferenceEngine:
         scheduler passes ``prefill_flash=not append``; its paged program
         has no flash). The slot layout writes the slot's cache rows, the
         paged layout the slot's pages through its page-table row."""
-        start = int(self.cache.lengths[slot]) if append else 0
-        logits = self._run_block("prefill_slots", tokens, slot, start, seq_len, attn_window,
-                                 not append and self.kv_layout == "slot")
-        self.cache.lengths[slot] = start + int(seq_len)
-        return logits
+        with self.trace.span("prefill"):
+            start = int(self.cache.lengths[slot]) if append else 0
+            logits = self._run_block("prefill_slots", tokens, slot, start, seq_len, attn_window,
+                                     not append and self.kv_layout == "slot")
+            self.cache.lengths[slot] = start + int(seq_len)
+            return logits
 
     def _prefill_slots(self, tokens: np.ndarray, seq_lens: np.ndarray, slots: Sequence[int],
                        attn_window: Optional[int] = None):
@@ -752,7 +793,8 @@ class InferenceEngine:
         if self.kv_layout != "slot":
             raise ValueError("grouped admission prefill is slot-layout only")
         seq_lens = np.asarray(seq_lens, np.int64)
-        logits = self._run_block("prefill_slots", tokens, np.asarray(slots, np.int64), 0,
-                                 seq_lens, attn_window, True)
-        self.cache.lengths[list(slots)] = torch.from_numpy(seq_lens)
-        return logits
+        with self.trace.span("prefill"):
+            logits = self._run_block("prefill_slots", tokens, np.asarray(slots, np.int64), 0,
+                                     seq_lens, attn_window, True)
+            self.cache.lengths[list(slots)] = torch.from_numpy(seq_lens)
+            return logits

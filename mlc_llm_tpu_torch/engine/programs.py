@@ -32,6 +32,9 @@ returns clones; a program that reads another's result, as the
 first-token sampler reads a prefill's logits, takes a copy into its own
 fixed input buffer).
 
+While the engine's trace (``engine/trace.py``) is on, every run is a
+``replay`` span carrying its key, between two CUDA events on the card.
+
 Launch counters stay exact: a graph's launches per kernel wrapper are
 recorded at capture and added at each replay; the warm-up's and the
 capture's own are taken back out.
@@ -59,11 +62,12 @@ import collections
 import dataclasses
 import gc
 import time
-from typing import Any, Callable, Dict, Hashable, Set
+from typing import Any, Callable, Dict, Hashable, Optional, Set
 
 import torch
 
 from ..ops import kernel_wrappers
+from .trace import Trace
 
 
 @dataclasses.dataclass
@@ -77,16 +81,20 @@ class _Program:
 class StepPrograms:
     """The captured step programs of one engine, by key."""
 
-    def __init__(self, device: torch.device, debug: bool = False, eager: bool = False):
+    def __init__(self, device: torch.device, debug: bool = False, eager: bool = False,
+                 trace: Optional[Trace] = None):
         """debug: capture every graph in debug mode keeping its
         cudaGraph_t (``keep_graph``), so that ``graph.debug_dump(path)``
         writes it (``debug/dump.py``'s graphs; the engine's own keep
         neither). eager: run every program's function on a CUDA device as
         on the CPU, capturing nothing (gloo collectives, see the module
-        doc)."""
+        doc). trace: the engine's ``Trace``, which times every run as a
+        ``replay`` span (and a capture as a ``capture`` span) while it is
+        on; default, one of its own."""
         self.device = device
         self.debug = debug
         self.eager = eager
+        self.trace = trace if trace is not None else Trace(device)
         self.keys: Set[Hashable] = set()  # every key asked for, on any device
         self.runs = collections.Counter()  # runs by key, on any device
         self.replays = 0  # graph replays (CUDA): every run there
@@ -125,9 +133,11 @@ class StepPrograms:
         self.keys.add(key)
         self.runs[key] += 1
         if self.device.type != "cuda" or self.eager:
-            return fn()
+            with self.trace.replay(key):
+                return fn()
         prog = self._programs.get(key) or self.capture(key, fn, warm_up)
-        prog.graph.replay()
+        with self.trace.replay(key):
+            prog.graph.replay()
         self.replays += 1
         for wrapper, n in prog.launches.items():
             wrapper.launches += n
@@ -140,6 +150,11 @@ class StepPrograms:
         self.keys.add(key)
         if key in self._programs:
             return self._programs[key]
+        with self.trace.capture(key):
+            return self._capture(key, fn, warm_up)
+
+    def _capture(self, key: Hashable, fn: Callable[[], Any],
+                 warm_up: Callable[[], None]) -> _Program:
         wrappers = kernel_wrappers()
         before = [w.launches for w in wrappers]
         t0 = time.perf_counter()

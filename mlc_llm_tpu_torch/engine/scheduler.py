@@ -31,6 +31,11 @@ greedy and transient, a step is one synchronous verify pass over a
 [B, K] block of drafts (the engine's verify program, a graph replay on
 the card), after the plain pipeline's lag is drained; other steps run
 the plain pipelined path.
+
+Observability: each request's ``submitted_at``, ``admitted_at`` (given
+its slot) and ``first_token_at``; the decode rows dispatched, active,
+emitted and dropped (always counted); and, while the engine's trace is
+on, the spans of every step in the engine's trace (``engine/trace.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ class Request:
     slot: Optional[int] = None
     done: bool = False
     submitted_at: float = 0.0
+    admitted_at: Optional[float] = None  # given its slot (its queue wait ends)
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     seed: int = 0  # resolved uint32 sampling seed (from gen.seed or the scheduler)
@@ -137,7 +143,7 @@ class ContinuousBatchingScheduler:
 
         speculative_max_batch: speculation engages only while at most
         this many slots are active (a verify pass forwards B*K tokens)."""
-        self.engine = engine
+        self.engine = engine  # its trace holds the scheduler's spans too
         self.slots = list(slots) if slots is not None else list(range(engine.max_batch))
         if prefill_chunk is not None and prefill_chunk not in engine.buckets:
             raise ValueError(f"prefill_chunk {prefill_chunk} must be one of the "
@@ -166,6 +172,15 @@ class ContinuousBatchingScheduler:
         self._pending_slots: Deque = deque()
         self._first_token: Dict[int, torch.Tensor] = {}  # slot -> first token [1]
         self._cur_tokens: Optional[torch.Tensor] = None  # [B, 1] on the device
+        # decode rows (one a slot and forward, a K-step block K a slot):
+        # dispatched (B x forwards), active at dispatch, handed to a client,
+        # and dropped at drain (inactive, past a stop or the length cap, a
+        # recycled slot's, the stop token's own); once drained, dispatched =
+        # emitted + dropped
+        self.rows_dispatched = 0
+        self.rows_active = 0
+        self.rows_emitted = 0
+        self.rows_dropped = 0
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt: List[int], gen: GenerationConfig = GenerationConfig(),
@@ -274,15 +289,17 @@ class ContinuousBatchingScheduler:
         group = group[:G]
         toks = np.zeros((G, bucket), np.int64)
         lens = np.zeros((G,), np.int64)
+        t0 = time.perf_counter()
         for g, (req, slot) in enumerate(group):
             toks[g, : len(req.prompt)] = req.prompt
             lens[g] = len(req.prompt)
             req.slot = slot
-        t0 = time.perf_counter()
-        logits = eng._prefill_slots(toks, lens, [s for _, s in group],
-                                    attn_window=eng.decode_window(bucket))
-        # the same first draw per request as the single path
-        firsts = self._sample_first(logits, [r for r, _ in group], top_k)
+            req.admitted_at = t0
+        with eng.trace.span("admit"):  # G requests: no one id
+            logits = eng._prefill_slots(toks, lens, [s for _, s in group],
+                                        attn_window=eng.decode_window(bucket))
+            # the same first draw per request as the single path
+            firsts = self._sample_first(logits, [r for r, _ in group], top_k)
         eng.stats.prefill_time += time.perf_counter() - t0
         eng.stats.prefill_tokens += int(lens.sum())
         for g, (req, slot) in enumerate(group):
@@ -384,12 +401,14 @@ class ContinuousBatchingScheduler:
                            and (eng.max_seq_len - req.start_len) > self.prefill_chunk)
             eng.assign_pages(slot, eng.pages_needed(slot, total))
         req.slot = slot
-        if chunked:
-            req.pf_pos = 0
-            self._prefilling[slot] = req
-            self._prefill_chunk_step(req, slot)
-        else:
-            self._prefill_segment(req, slot, req.prompt, pos=0, final=True)
+        req.admitted_at = time.perf_counter()
+        with eng.trace.span("admit", req.id):
+            if chunked:
+                req.pf_pos = 0
+                self._prefilling[slot] = req
+                self._prefill_chunk_step(req, slot)
+            else:
+                self._prefill_segment(req, slot, req.prompt, pos=0, final=True)
         return True
 
     def _prefill_segment(self, req: Request, slot: int, seg, pos: int, final: bool) -> None:
@@ -542,88 +561,94 @@ class ContinuousBatchingScheduler:
 
     def _decode_dispatch(self, k_steps: Optional[int] = None) -> None:
         eng = self.engine
-        B = eng.max_batch
-        active = np.zeros((B,), bool)
-        temp = np.zeros((B,), np.float32)
-        topp = np.ones((B,), np.float32)
-        seeds = np.zeros((B,), np.int64)
-        steps = np.zeros((B,), np.int64)
-        owners = []
-        top_k = 64
-        for slot, req in self.active.items():
-            active[slot] = True
-            temp[slot] = req.gen.temperature
-            topp[slot] = req.gen.top_p
-            seeds[slot] = req.seed
-            steps[slot] = req.sampled
-            req.sampled += k_steps or 1
-            owners.append((slot, req.id))
-            # exact sampling (top_k=0) wins; else the widest prefilter
-            top_k = 0 if (top_k == 0 or req.gen.top_k == 0) else max(top_k, req.gen.top_k)
-        max_len = max((r.start_len + len(r.prompt) + len(r.output) + 2
-                       for r in self.active.values()), default=2)
-        if k_steps:
-            nxt = eng._decode_sample_k(self._cur_tokens, active, seeds, steps, temp, topp,
-                                       attn_window=eng.decode_window(max_len + k_steps),
-                                       top_k=top_k, k_steps=k_steps)  # [K, B]
-            last = nxt[-1]
-        else:
-            nxt = eng._decode_sample(self._cur_tokens, active, seeds, steps, temp, topp,
-                                     attn_window=eng.decode_window(max_len), top_k=top_k)
-            last = nxt
-        # start the device->host copy now; the drain reads it later
-        self._pending_tokens.append(_Readback(nxt))
-        self._pending_slots.append(owners)
-        self._pending_rows.append(k_steps or 1)
-        self._cur_tokens = last[:, None]
+        with eng.trace.span("dispatch"):
+            B = eng.max_batch
+            active = np.zeros((B,), bool)
+            temp = np.zeros((B,), np.float32)
+            topp = np.ones((B,), np.float32)
+            seeds = np.zeros((B,), np.int64)
+            steps = np.zeros((B,), np.int64)
+            owners = []
+            top_k = 64
+            for slot, req in self.active.items():
+                active[slot] = True
+                temp[slot] = req.gen.temperature
+                topp[slot] = req.gen.top_p
+                seeds[slot] = req.seed
+                steps[slot] = req.sampled
+                req.sampled += k_steps or 1
+                owners.append((slot, req.id))
+                # exact sampling (top_k=0) wins; else the widest prefilter
+                top_k = 0 if (top_k == 0 or req.gen.top_k == 0) else max(top_k, req.gen.top_k)
+            max_len = max((r.start_len + len(r.prompt) + len(r.output) + 2
+                           for r in self.active.values()), default=2)
+            self.rows_dispatched += B * (k_steps or 1)
+            self.rows_active += len(owners) * (k_steps or 1)
+            if k_steps:
+                nxt = eng._decode_sample_k(self._cur_tokens, active, seeds, steps, temp, topp,
+                                           attn_window=eng.decode_window(max_len + k_steps),
+                                           top_k=top_k, k_steps=k_steps)  # [K, B]
+                last = nxt[-1]
+            else:
+                nxt = eng._decode_sample(self._cur_tokens, active, seeds, steps, temp, topp,
+                                         attn_window=eng.decode_window(max_len), top_k=top_k)
+                last = nxt
+            # start the device->host copy now; the drain reads it later
+            self._pending_tokens.append(_Readback(nxt))
+            self._pending_slots.append(owners)
+            self._pending_rows.append(k_steps or 1)
+            self._cur_tokens = last[:, None]
 
     def step(self) -> None:
         """One scheduler iteration: admit, advance chunked prefills by
         ONE chunk each, decode-dispatch, drain."""
-        # snapshot BEFORE admission: a request admitted this step already
-        # ran its first chunk inside _admit_one
-        continuing = list(self._prefilling.items())
-        self._admit()
-        for slot, req in continuing:
-            if self._prefilling.get(slot) is req:
-                self._prefill_chunk_step(req, slot)
-        if not self.active:
-            self._drain(all_remaining=True)
-            return
-        self._sync_first_tokens()
-        t0 = time.perf_counter()
-        if self._speculative_ready():
-            self._drain(all_remaining=True)  # flush the plain pipeline's lag first
-            if self.active:
-                self._decode_dispatch_speculative()
+        with self.engine.trace.span("step"):
+            # snapshot BEFORE admission: a request admitted this step already
+            # ran its first chunk inside _admit_one
+            continuing = list(self._prefilling.items())
+            self._admit()
+            for slot, req in continuing:
+                if self._prefilling.get(slot) is req:
+                    with self.engine.trace.span("admit", req.id):
+                        self._prefill_chunk_step(req, slot)
+            if not self.active:
+                self._drain(all_remaining=True)
+                return
+            self._sync_first_tokens()
+            t0 = time.perf_counter()
+            if self._speculative_ready():
+                self._drain(all_remaining=True)  # flush the plain pipeline's lag first
+                if self.active:
+                    with self.engine.trace.span("dispatch"):
+                        self._decode_dispatch_speculative()
+                self.engine.stats.decode_time += time.perf_counter() - t0
+                return
+            k = self._choose_k()
+            # dispatch budget: a length-capped request can use only
+            # max_new_tokens - emitted - in-flight more rows; session requests
+            # get +1 (their last token's KV row must be written for the next
+            # turn). Without the cap, dispatch-ahead keeps issuing dead rows
+            # while a wave of requests finishes.
+            inflight = sum(self._pending_rows)
+            max_useful = max(
+                (r.gen.max_new_tokens - len(r.output) - inflight
+                 + (1 if (r.pin_slot is not None or r.append) else 0)
+                 for r in self.active.values()),
+                default=0)
+            if max_useful <= 0:
+                # everything still needed is in flight: flush it
+                self._drain(all_remaining=True)
+                self.engine.stats.decode_time += time.perf_counter() - t0
+                return
+            ms = k if (k and k > 1 and self._multi_step_ready(k)) else None
+            if ms and ms > max_useful:
+                ms = 1 << (max_useful.bit_length() - 1)
+                if ms <= 1:
+                    ms = None
+            self._decode_dispatch(k_steps=ms)
+            self._drain()
             self.engine.stats.decode_time += time.perf_counter() - t0
-            return
-        k = self._choose_k()
-        # dispatch budget: a length-capped request can use only
-        # max_new_tokens - emitted - in-flight more rows; session requests
-        # get +1 (their last token's KV row must be written for the next
-        # turn). Without the cap, dispatch-ahead keeps issuing dead rows
-        # while a wave of requests finishes.
-        inflight = sum(self._pending_rows)
-        max_useful = max(
-            (r.gen.max_new_tokens - len(r.output) - inflight
-             + (1 if (r.pin_slot is not None or r.append) else 0)
-             for r in self.active.values()),
-            default=0)
-        if max_useful <= 0:
-            # everything still needed is in flight: flush it
-            self._drain(all_remaining=True)
-            self.engine.stats.decode_time += time.perf_counter() - t0
-            return
-        ms = k if (k and k > 1 and self._multi_step_ready(k)) else None
-        if ms and ms > max_useful:
-            ms = 1 << (max_useful.bit_length() - 1)
-            if ms <= 1:
-                ms = None
-        self._decode_dispatch(k_steps=ms)
-        self._drain()
-        self.engine.stats.decode_time += time.perf_counter() - t0
-        self.engine.stats.decode_tokens += len(self.active) * (ms or 1)
+            self.engine.stats.decode_tokens += len(self.active) * (ms or 1)
 
     # ------------------------------------------------------- token plumbing
     def _sync_first_tokens(self) -> None:
@@ -685,22 +710,37 @@ class ContinuousBatchingScheduler:
         ahead depth, or already landed. Tokens are matched by (slot,
         request-id), so a slot recycled mid-lag never delivers a stale
         token to its new occupant."""
-        while self._pending_tokens and (
-                all_remaining or len(self._pending_tokens) > self.decode_ahead
-                or self._pending_tokens[0].landed()):
-            toks = self._pending_tokens.popleft().numpy()
-            owners = self._pending_slots.popleft()
-            self._pending_rows.popleft()
-            if isinstance(owners, tuple) and owners[0] == "first":
-                _, slot, req_id = owners
-                req = self.active.get(slot)
-                if req is not None and not req.done and req.id == req_id:
-                    self._emit(req, int(toks.reshape(-1)[0]))
-                continue
-            rows = toks[None, :] if toks.ndim == 1 else toks  # [K, B]
-            for row in rows:
-                for slot, req_id in owners:
-                    req = self.active.get(slot)
-                    if req is None or req.done or req.id != req_id:
-                        continue  # post-stop / post-recycle rows are dropped
-                    self._emit(req, int(row[slot]))
+        eng = self.engine
+        with eng.trace.span("drain"):
+            while self._pending_tokens and (
+                    all_remaining or len(self._pending_tokens) > self.decode_ahead
+                    or self._pending_tokens[0].landed()):
+                rb = self._pending_tokens.popleft()
+                if rb.landed():
+                    eng.readbacks_landed += 1
+                    toks = rb.numpy()
+                else:
+                    eng.readbacks_blocked += 1
+                    with eng.trace.span("readback"):
+                        toks = rb.numpy()
+                owners = self._pending_slots.popleft()
+                self._pending_rows.popleft()
+                with eng.trace.span("emit"):
+                    if isinstance(owners, tuple) and owners[0] == "first":
+                        _, slot, req_id = owners
+                        req = self.active.get(slot)
+                        if req is not None and not req.done and req.id == req_id:
+                            self._emit(req, int(toks.reshape(-1)[0]))
+                        continue
+                    rows = toks[None, :] if toks.ndim == 1 else toks  # [K, B]
+                    emitted = 0
+                    for row in rows:
+                        for slot, req_id in owners:
+                            req = self.active.get(slot)
+                            if req is None or req.done or req.id != req_id:
+                                continue  # post-stop / post-recycle rows are dropped
+                            n = len(req.output)
+                            self._emit(req, int(row[slot]))
+                            emitted += len(req.output) - n
+                    self.rows_emitted += emitted
+                    self.rows_dropped += rows.size - emitted

@@ -8,6 +8,7 @@ the port, so it runs where JAX is not installed:
 """
 
 import dataclasses
+import time
 
 import pytest
 import torch
@@ -918,6 +919,58 @@ def test_cuda_decode_graph_matches_eager_step(vicuna2, batch):
     # a repeated run captures nothing new and gives the same tokens
     count = geng.programs.count
     assert geng.generate(prompts, gen) == gtoks and geng.programs.count == count
+
+
+@pytest.mark.cuda
+def test_cuda_trace_places_replays_on_the_host_clock(vicuna2):
+    from mlc_llm_tpu_torch.engine import GenerationConfig
+    from mlc_llm_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+
+    eng, _ = _graph_engine(vicuna2, 1)
+    tr = eng.trace
+    tr.start()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        toks = eng.generate(_graph_prompts(1), GenerationConfig(max_new_tokens=12,
+                                                               temperature=0.0))[0]
+    t_stop = time.perf_counter()
+    tr.stop()
+    assert len(toks) == 12
+    # the prefill, the draw and the decode step were captured inside the trace
+    assert tr.captures == 3 and [s.key[0] for s in tr.named("capture")] == [
+        "prefill", "sample", "decode"]
+    replays = tr.named("replay")
+    assert len(replays) == 13 and all(s.device is not None for s in replays)
+    for s in replays:
+        a, b = s.device
+        # the device starts a replay after the host launched it and ends it
+        # before stop() (the clocks are tied to within a wake-up of the host)
+        assert s.start - 2e-3 <= a < b <= t_stop + 2e-3
+    dev = [s.device for s in replays]
+    assert all(p[1] <= q[0] + 1e-6 for p, q in zip(dev, dev[1:]))
+    by_key = tr.device_seconds()
+    assert sum(n for n, _ in by_key.values()) == 13
+    assert {k[0] for k in by_key} == {"prefill", "sample", "decode"}
+    gaps = tr.gaps()
+    split = tr.gap_split()
+    assert gaps and abs(sum(split.values()) - sum(b - a for a, b in gaps)) < 1e-9
+    assert eng.readbacks_landed + eng.readbacks_blocked == 12
+    names = {e.key for e in prof.key_averages()}
+    assert {"mlc/turn", "mlc/step", "mlc/replay", "mlc/capture"} <= names
+    # the pool's events serve the next start, and an off trace records nothing
+    pooled = len(tr._pool)
+    assert pooled == 26
+    n = len(tr.spans)
+    eng.generate(_graph_prompts(1), GenerationConfig(max_new_tokens=4, temperature=0.0))
+    assert len(tr.spans) == n
+    tr.start()
+    forwards = eng.decode_forwards
+    sched = ContinuousBatchingScheduler(eng, seed=0)
+    sched.submit(_graph_prompts(1)[0], GenerationConfig(max_new_tokens=6, temperature=0.0))
+    sched.run()
+    tr.stop()
+    assert len(tr._pool) >= pooled and all(s.device for s in tr.named("replay"))
+    assert sched.rows_emitted == 5 and sched.rows_dispatched == eng.decode_forwards - forwards
 
 
 @pytest.mark.cuda
