@@ -4,7 +4,7 @@
 
 Phases (any failed check exits non-zero before the last line):
 
-1. card identity (nvidia-smi name and power limit), then the eight kernel
+1. card identity (nvidia-smi name and power limit), then the nine kernel
    sources are built from csrc/ with nvcc, one process per source, all at
    once (build seconds printed, and ptxas's registers, shared memory,
    spills and performance notes of the five sources on the wgmma
@@ -46,6 +46,9 @@ Phases (any failed check exits non-zero before the last line):
    int8 KV) and MOSS's (D 256, bf16 q and KV), each under the wrapper's
    split-KV plan (printed), held against the plain version under the same
    plan; each row prints its TFLOP/s and its time over the library call's;
+   kernel 9 (residual_norm) at dolly-v2-3b's and MOSS's decode and 2048-row
+   prefill norm sites and Vicuna-7B's decode site, against the plain op
+   chain (h' bit for bit, the chain's device launches counted);
    then one m = 1 call of each streaming GEMV body (qsplit bf16, f16 and
    f32; pair and hsplit in bf16, f16 and f32; int3/u16 in bf16 and f16 at
    m = 1 and 2), at
@@ -283,6 +286,7 @@ from mlc_llm_tpu_torch.ops import BUILD_DIR, CSRC, KERNELS, _nvcc, build_kernels
 from mlc_llm_tpu_torch.ops import attention as att
 from mlc_llm_tpu_torch.ops import dequant_matmul as dm
 from mlc_llm_tpu_torch.ops import matmul as mm
+from mlc_llm_tpu_torch.ops import norm
 from mlc_llm_tpu_torch.ops import paged_attention as pa
 from mlc_llm_tpu_torch.parallel.coordinator import HostCoordinator
 from mlc_llm_tpu_torch.parallel.multihost import initialize
@@ -393,6 +397,10 @@ SOURCES = {
     # (jax 0.9.0, jax/experimental/pallas/ops/tpu/flash_attention.py:342)
     "flash_prefill": ("mlc_llm_tpu_torch/csrc/flash_prefill.cu",
                       "mlc_llm_tpu/ops/attention.py:125"),
+    # the JAX package's norms (layer_norm :21, rms_norm :28) and the adds
+    # before them, which XLA fuses
+    "residual_norm": ("mlc_llm_tpu_torch/csrc/residual_norm.cu",
+                      "mlc_llm_tpu/models/layers.py:21"),
 }
 # Vicuna-7B's rank-local weights at tp = 2 (parallel/sharding.py): wqkv [q_r |
 # k_r | v_r], wo's and w_out's k halves (w_out: 172 groups, padded to 192),
@@ -596,9 +604,12 @@ def fail(msg: str):
     sys.exit(1)
 
 
+# the wrappers whose launches each path's expectation counts, in the order of
+# KERNELS
 COUNTED = {"gemv_qs": dm.gemv_qs, "gemm_qs": dm.gemm_qs, "gemv_gp": dm.gemv_gp,
            "gemm_pairs": dm.gemm_pairs, "gemv_gp3": dm.gemv_gp3, "gemm_plane": dm.gemm_plane,
-           "paged_flash_decode": pa.paged_flash_decode, "flash_prefill": att.flash_prefill}
+           "paged_flash_decode": pa.paged_flash_decode, "flash_prefill": att.flash_prefill,
+           "residual_norm": norm.residual_norm}
 
 
 def reset_counters():
@@ -967,12 +978,85 @@ def flash_rows(gen, flush):
     return rows
 
 
+# kernel 9's sites at the cells' shapes: (label, rows, H, dtype, kind, terms,
+# biased terms, norms); the f16 sites clamp
+NORM_CASES = [
+    ("dolly decode", 8, 2560, torch.float16, "layernorm", 2, 2, 2),
+    ("moss decode", 1, 6144, torch.bfloat16, "layernorm", 2, 1, 1),
+    ("dolly prefill", 2048, 2560, torch.float16, "layernorm", 2, 2, 2),
+    ("moss prefill", 2048, 6144, torch.bfloat16, "layernorm", 2, 1, 1),
+    ("vicuna decode", 1, 4096, torch.bfloat16, "rmsnorm", 1, 0, 1),
+]
+
+
+def device_kernels(fn) -> int:
+    """Device kernels one call of fn launches (dump.device_kernel_names)."""
+    fn()
+    torch.cuda.synchronize()
+    return len(dump.device_kernel_names(fn))
+
+
+def norm_rows(gen, flush):
+    """residual_norm (kernel 9) at each NORM_CASES site against the plain
+    op chain it replaced: h' bit for bit, the outputs within one ulp
+    (compared as KERNEL_TOL), ms of both, the chain's launches, and the
+    byte bound: h and the terms read, biases and norm parameters read
+    once, h' and the outputs written."""
+    rows = []
+    for label, R, H, dt, kind, nterms, nbiased, nnorms in NORM_CASES:
+        def rand(*shape, center=0.0, std=1.0):
+            return (center + std * torch.randn(shape, generator=gen, device="cuda")).to(dt)
+
+        h = rand(R, H)
+        terms = [rand(R, H) for _ in range(nterms)]
+        biases = [rand(H, std=0.1) if j >= nterms - nbiased else None for j in range(nterms)]
+        norms = [(rand(H, center=1.0), rand(H, std=0.1) if kind == "layernorm" else None)
+                 for _ in range(nnorms)]
+        clamp = 55504.0 if dt == torch.float16 else None
+        args = (h, terms, biases, norms, 1e-5, kind, clamp)
+
+        def run_kernel():
+            return norm.residual_norm(*args)
+
+        def run_plain():
+            return norm.residual_norm_plain(*args)
+
+        (gh, got), (wh, want) = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        ok = torch.equal(gh, wh) and all(
+            torch.allclose(a.float(), b.float(), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+            for a, b in zip(got, want))
+        es = h.element_size()
+        nparams = nbiased + nnorms * (2 if kind == "layernorm" else 1)
+        nbytes = (R * H * (1 + nterms + (1 if nterms else 0) + nnorms) + H * nparams) * es
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        dts = str(dt).replace("torch.", "")
+        row = dict(kernel="residual_norm", shape=f"{label} {R}x{H}", dtype=dts, m=R, k=H,
+                   n=nnorms, max_abs_err=err, ms=time_ms(run_kernel, flush, 50),
+                   plain_ms=time_ms(run_plain, flush, 20), bound_ms=b_ms, bound_by="bytes",
+                   library_ms=None,
+                   plain_launches=device_kernels(run_plain),
+                   launches_a_call=device_kernels(run_kernel))
+        print(f"  residual_norm {label} {R}x{H} {dts} {kind} terms={nterms} norms={nnorms}: "
+              f"max_abs_err={err:.3g} h' equal={torch.equal(gh, wh)} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} ({row['plain_launches']} launches; kernel "
+              f"{row['launches_a_call']}) bound_ms={b_ms:.6f} (bytes) "
+              f"{row['ms'] / b_ms:.1f}x bound")
+        if not ok or row["launches_a_call"] != 1:
+            fail(f"residual_norm {label} disagrees with the plain chain (max {err}) or is not "
+                 "one launch")
+        rows.append(row)
+    return rows
+
+
 def kernel_phase():
     print("== kernel phase (torch.backends.cuda.matmul.allow_tf32 = False)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
-    rows = flash_rows(gen, flush) + matmul_rows(gen, flush) + paged_rows(gen, flush)
+    rows = (flash_rows(gen, flush) + matmul_rows(gen, flush) + paged_rows(gen, flush)
+            + norm_rows(gen, flush))
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -997,8 +1081,6 @@ ONE_LAUNCH_CASES = [
 def one_launch_phase():
     """Each case's call is one device kernel (torch.profiler), from two
     before the split parts were combined in the same launch."""
-    from torch.profiler import ProfilerActivity, profile
-
     print("== one-launch phase (torch.profiler, CUDA activity)")
     gen = torch.Generator(device="cuda").manual_seed(3)
     for label, spec, k, n, m in ONE_LAUNCH_CASES:
@@ -1012,18 +1094,9 @@ def one_launch_phase():
             x.element_size())
         call_kernel(kname, x, w, None, x.dtype)  # warm: the build and the tickets
         torch.cuda.synchronize()
-        # a trace that holds no device activity at all measured nothing (the
-        # call raises if its launch fails): it is taken again, up to 3 times
-        for tries in range(1, 4):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                call_kernel(kname, x, w, None, x.dtype)
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-            if names:
-                break
+        names = dump.device_kernel_names(lambda: call_kernel(kname, x, w, None, x.dtype))
         print(f"  {label} ({kname}, {parts} parts of {per} stages, {cols} columns a block): "
-              f"{len(names)} device kernel(s) {names} (trace {tries})")
+              f"{len(names)} device kernel(s) {names}")
         if len(names) != 1:
             fail(f"{label}: one m = {m} call launched {len(names)} device kernels, not 1")
         del w, x
@@ -1280,15 +1353,25 @@ PATH_KERNELS = {"q4bf16": {"prefill": "gemm_qs", "m1": "gemv_qs", "m8": "gemv_qs
                 "q4bf16_plane": {"prefill": None, "m1": None, "m8": None}}
 
 
-def expected_launches(quant, *, layers=VICUNA.num_layers, b1_steps=0, prefills=0,
-                      b8_forwards=0, flash_prefills=0):
+def norm_sites(cfg) -> int:
+    """Norm sites (kernel 9 launches) of one forward of cfg: layer 0's
+    entry, one between layers, the last with final_ln, and under the
+    sequential residual one more a layer (h + attn_out with ln2)."""
+    L = cfg.num_layers
+    return L + 1 + (0 if cfg.parallel_residual else L)
+
+
+def expected_launches(quant, *, cfg=VICUNA, b1_steps=0, prefills=0, b8_forwards=0,
+                      flash_prefills=0):
     """Launch counts a path implies: per prefill 4L layer matmuls and the
     lm head at m=1; per b1 decode step 4L + 1 matmuls at m=1; per b8
     decode forward 4L + 1 matmuls at m=8 and L paged decodes; per reset
     prefill of at least 1024 tokens on the slot cache (flash_prefills of
-    the prefills) L flash attentions (kernel 8)."""
-    k, L = PATH_KERNELS[quant], layers
+    the prefills) L flash attentions (kernel 8); per forward of any of
+    them norm_sites(cfg) residual norms (kernel 9)."""
+    k, L = PATH_KERNELS[quant], cfg.num_layers
     want = dict.fromkeys(COUNTED, 0)
+    want["residual_norm"] = norm_sites(cfg) * (prefills + b1_steps + b8_forwards)
     want["flash_prefill"] += L * flash_prefills
     for kname, n in ((k["prefill"], 4 * L * prefills),
                      (k["m1"], (4 * L + 1) * b1_steps + prefills),
@@ -1452,8 +1535,8 @@ def chat_phase(params, quant="q4bf16", cache_dtype=torch.bfloat16, cfg=VICUNA,
     if runs != {"prefill": len(prompts), "sample": len(prompts), "decode": steps,
                 "forwards": steps}:
         fail(f"{len(prompts)} turns of {steps} decode steps ran the programs {runs}")
-    want = expected_launches(quant, layers=cfg.num_layers, b1_steps=steps,
-                             prefills=len(prompts), flash_prefills=flash)
+    want = expected_launches(quant, cfg=cfg, b1_steps=steps, prefills=len(prompts),
+                             flash_prefills=flash)
     print(f"  launches: {launches} (want {want}; {flash} flash reset prefills)")
     if steps == 0 or launches != want:
         fail("launch counts do not match the chat path")
@@ -1550,8 +1633,7 @@ def flash_chat_phase(params, cfg=VICUNA, quant="q4bf16"):
     runs = runs_since(engine, mark, f"{cfg.name} flash chat")
     steps = engine.stats.decode_tokens
     keys = sorted(k for k in engine.programs.keys if k[0] == "prefill")
-    want = expected_launches(quant, layers=cfg.num_layers, b1_steps=steps, prefills=2,
-                             flash_prefills=1)
+    want = expected_launches(quant, cfg=cfg, b1_steps=steps, prefills=2, flash_prefills=1)
     stats = dict(model=cfg.name, quant=quant, prefill_tokens=engine.stats.prefill_tokens,
                  prefill_ms=prefill_ms, flash_launches_by_turn=per_turn, decode_steps=steps,
                  prefill_keys=[list(k) for k in keys], **graph_stats(engine))
@@ -1764,6 +1846,7 @@ def tools_phase(tmp):
     windows = len(range(0, 2048 - 1, 256))
     want = dict.fromkeys(COUNTED, 0)
     want["gemm_qs"] = windows * (4 * VICUNA.num_layers + 1)
+    want["residual_norm"] = windows * norm_sites(VICUNA)
     print(f"  launches {paths['ppl']} (want {want}); flat matmuls (kernel, m): {flat}")
     if (not math.isfinite(res["perplexity"]) or paths["ppl"] != want
             or flat != [("gemm_qs", 512)] * windows):
@@ -2314,7 +2397,7 @@ def model_serve_phase(params, cfg, quant, idle_share=False, page_dtype=torch.bfl
     launches = read_counters()
     runs = runs_since(engine, mark, f"{cfg.name} serve")
     forwards, n_pre, L = engine.decode_forwards, len(admitted), cfg.num_layers
-    want = expected_launches(quant, layers=L, b8_forwards=forwards, prefills=n_pre)
+    want = expected_launches(quant, cfg=cfg, b8_forwards=forwards, prefills=n_pre)
     lens = [len(r.output) for r in reqs]
     stats = dict(model=cfg.name, quant=quant, requests=len(reqs), tokens=sum(lens), wall_s=wall,
                  decode_tok_s=engine.stats.decode_tps, decode_forwards=forwards,
@@ -2732,6 +2815,7 @@ def spec_scheduler_phase(params):
         want = dict.fromkeys(COUNTED, 0)
         want["gemm_qs"] = (4 * L + 1) * passes + 4 * L * len(prefills)
         want["gemv_qs"] = (4 * L + 1) * steps + len(prefills)
+        want["residual_norm"] = norm_sites(VICUNA) * (passes + steps + len(prefills))
         print(f"  {name}: {passes} verify passes, {steps} plain b8 steps, {len(prefills)} "
               f"prefills, outputs {[len(r.output) for r in reqs]}; launches {launches} "
               f"(want {want})")
@@ -3194,7 +3278,7 @@ def u4_phase():
     kernel reads them: every matmul dequantizes and multiplies). `build
     --random --device cuda` writes full-depth Vicuna-7B into a temporary
     directory, load_params reads it, a b1 chat of 3 greedy turns runs on
-    it (launches: none; logits finite); then 2 layers at full width card
+    it (launches: kernel 9's alone; logits finite); then 2 layers at full width card
     vs CPU within LOGIT_RTOL."""
     print("== u4 phase (c): Vicuna-7B q4bf16_plane")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_u4_")
@@ -3453,10 +3537,12 @@ def main():
         torch.cuda.empty_cache()
 
     # per kernel: its main-path shape (GEMVs: w_in at decode m=1; GEMMs: w_in
-    # at prefill m=128; paged: bf16 KV at b8); every shape is in "shapes".
+    # at prefill m=128; paged: bf16 KV at b8; residual_norm: dolly's b8
+    # decode site); every shape is in "shapes".
     # launches: the count on the kernel's own slice's path (the q4 serve
     # phase for rows 1-3 and 7, the q3 chat phase for rows 4-6, the
-    # RedPajama q4f32 chat for the pair/hsplit bodies), and each path's
+    # RedPajama q4f32 chat for the pair/hsplit bodies, the dolly serve
+    # phase for row 9), and each path's
     # count in launches_by_path (q3f16_chat and q3f16_serve: the f16 bodies
     # of rows 4-6)
     kernels = []
@@ -3467,7 +3553,8 @@ def main():
             "gemv_gp3": ("q3bf16_s16", "w_in", 1, "q3_chat"),
             "gemm_plane": ("q3bf16_s16", "w_in", 128, "q3_chat"),
             "paged_flash_decode": (None, "vicuna b8 bfloat16 KV", SERVE_BATCH, "serve"),
-            "flash_prefill": (None, "vicuna b1 S1024 D128 bfloat16", 1024, "flash_chat")}
+            "flash_prefill": (None, "vicuna b1 S1024 D128 bfloat16", 1024, "flash_chat"),
+            "residual_norm": (None, "dolly decode 8x2560", 8, "dolly_serve")}
     for kname, (quant, shape, m, path) in tops.items():
         mine = [r for r in rows if r["kernel"] == kname]
         top = next(r for r in mine
@@ -3483,7 +3570,7 @@ def main():
             shapes=[{k: r.get(k) for k in ("quant", "dtype", "shape", "m", "k", "n",
                                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "bound_f32_fma_ms", "library_ms",
-                                           "tflops", "vs_library")}
+                                           "tflops", "vs_library", "plain_launches")}
                     for r in mine]))
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels):
         fail("a kernel time is not finite or a kernel never ran on its path")

@@ -54,7 +54,7 @@ import os
 import re
 import subprocess
 import tempfile
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -63,11 +63,15 @@ from .. import ops
 from ..engine.programs import StepPrograms
 
 # the kernels a wrapper call launches once (the rest are prologues and
-# split-K reductions): the wgmma mainloop, the streaming GEMVs, kernels 7
-# and 8
+# split-K reductions): the wgmma mainloop, the streaming GEMVs, kernels 7,
+# 8 and 9
 MAIN_KERNELS = ("gemm_kernel", "stream_kernel", "paged_flash_decode_kernel",
-                "flash_prefill_wg", "flash_prefill_tf32")
+                "flash_prefill_wg", "flash_prefill_tf32", "residual_norm_kernel")
 TRACES = 3  # profiled replays a program's kernels.txt may take (see dump_engine_programs)
+# device_kernel_names: the small kernels that open a profiled window, and
+# the torch.cuda._sleep cycles of a mark either side of the call it profiles
+LEAD_IN = 64
+MARK_CYCLES = 1000
 
 
 def program_name(key: tuple) -> str:
@@ -249,25 +253,54 @@ def _base_name(kernel: str) -> str:
     return head.split()[-1].split("::")[-1] if head.split() else head
 
 
+def between_marks(names: List[str]) -> Optional[List[str]]:
+    """The device kernel names between the last two marks (torch.cuda._sleep's
+    ``spin_kernel``) of a trace's names in device order; None where the
+    trace holds fewer than two marks."""
+    marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
+    return names[marks[-2] + 1:marks[-1]] if len(marks) >= 2 else None
+
+
+def device_kernel_names(fn) -> List[str]:
+    """The device kernels one call of fn launches, in device order
+    (torch.profiler, CUDA activity). The profiler can drop the first records
+    of a window, so the window opens with LEAD_IN small kernels and fn runs
+    between two marks, whose records delimit its own. A trace with a mark
+    missing or nothing between the marks is taken again, up to 3 times
+    ([] if each is)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.zeros(1, device="cuda")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                lead.add_(1)
+            torch.cuda._sleep(MARK_CYCLES)
+            fn()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = between_marks([e.name for e in events])
+        if names:
+            return names
+    return []
+
+
 def _replay_kernels(progs: StepPrograms, key, fn, warm_up):
     """Capture program `key` in progs and profile one replay: (device
     event names, {wrapper name: launches the replay counted})."""
-    from torch.profiler import ProfilerActivity, profile
-
     progs.capture(key, fn, warm_up)
     wrappers = ops.kernel_wrappers()
-    # a trace that holds no device activity at all measured nothing: it is
-    # taken again, up to 3 times
-    for _ in range(3):
+    counted = {}
+
+    def replay():
         before = [w.launches for w in wrappers]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            progs.run(key, fn, warm_up)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    counted = {w.__name__: w.launches - n for w, n in zip(wrappers, before)}
-    return names, counted
+        progs.run(key, fn, warm_up)
+        counted.update({w.__name__: w.launches - n for w, n in zip(wrappers, before)})
+
+    return device_kernel_names(replay), counted
 
 
 def _kernels_text(name: str, key, names, counted, symbols, trace: int) -> tuple:

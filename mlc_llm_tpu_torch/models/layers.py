@@ -1,27 +1,14 @@
 """Functional layers shared by all families (``mlc_llm_tpu/models/layers.py``).
 
-Norms accumulate in f32, rotary is applied in f32 from precomputed
-cos/sin tables, results return in the input dtype.
+The norms live in ``ops/norm.py``, beside the kernel that fuses them
+with the residual sum. Rotary is applied in f32 from precomputed cos/sin
+tables, results return in the input dtype.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-
-def rms_norm(x, w, eps: float):
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
-
-
-def layer_norm(x, w, b, eps: float):
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    return (out * w.float() + b.float()).to(x.dtype)
 
 
 def make_rotary_tables(head_dim: int, rotary_pct: float, base: float,

@@ -49,7 +49,8 @@ collectives, all ``all_reduce`` on the tp group (one code path for gloo
 and NCCL, capturable in a CUDA graph under NCCL): one after ``wo`` and
 one after ``w_out`` in every layer, on the f32 partial sums (rounded once
 to the activation dtype after the sum), the row-parallel biases (``bo``,
-``b_out``) added once after them; one after a vocab-parallel embedding
+``b_out``) added once after them, by the norm site that takes the sum as
+its term; one after a vocab-parallel embedding
 (each rank looks up the tokens of its vocab range, zero elsewhere); one
 that gathers a vocab-parallel lm head's logits into a zeroed full-vocab
 buffer, so every rank holds the full [B, V] logits. A replicated
@@ -57,6 +58,18 @@ embedding or lm head needs none. A paged decode runs kernel 7 on the
 rank's local head groups (``paged_flash_decode_tp``). The JAX package
 places the same collectives through GSPMD from sharding annotations;
 the port passes the mesh explicitly and holds no module state.
+
+Norm sites. Each norm of the decoder and the residual sum before it are
+one call of ``ops.norm.residual_norm`` (kernel 9 on the card, the plain
+op chain on the CPU): layer 0's entry takes the norm(s) of the embedding;
+layer l's entry sums layer l-1's residual (its attention and MLP outputs,
+with their row-parallel biases ``bo`` and ``b_out``, clamped in f16) and
+takes layer l's ln1, with ln2 from the same pass under the parallel
+residual, or the one norm both branches share (``single_norm``); under
+the sequential residual ``h + attn_out`` is summed with ln2 mid-layer,
+unclamped; the last layer's residual is summed with ``final_ln``. The
+rounding points are the op chain's: each biased term rounded to the
+dtype, then ``(h + t1) + t2``, then the clamp.
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ import torch.distributed as dist
 from ..ops import resolve_device
 from ..ops.attention import attend_cache, flash_prefill, flash_prefill_supported
 from ..ops.matmul import qmatmul, qmatmul_stacked
+from ..ops.norm import residual_norm
 from ..ops.paged_attention import paged_flash_decode
 from ..quant.groupwise import (
     QuantizedTensor,
@@ -83,7 +97,7 @@ from ..quant.groupwise import (
 )
 from ..quant.spec import QuantSpec, resolve_spec, spec_for_k
 from .config import ModelConfig
-from .layers import activate, apply_rotary, layer_norm, make_rotary_tables, rms_norm
+from .layers import activate, apply_rotary, make_rotary_tables
 from .paged_cache import (
     PagedKVCache,
     PagedWriteIndex,
@@ -211,10 +225,26 @@ def param_bytes(params) -> int:
     return sum(sizes)
 
 
-def _norm(x, w, b, cfg: ModelConfig):
-    if cfg.norm_type == "rmsnorm":
-        return rms_norm(x, w, cfg.norm_eps)
-    return layer_norm(x, w, b, cfg.norm_eps)
+# the reference's fp16-safety clamp at the end of a layer, under float16's
+# 65504 max
+F16_CLAMP = 55504.0
+
+
+def _norm_site(h, terms, biases, norms, cfg: ModelConfig, layer_end: bool):
+    """h + the terms (each plus its bias), clamped in f16 where a layer
+    ends, and the norms ((w, b) pairs) of the sum: (h', [normalised])."""
+    clamp = F16_CLAMP if layer_end and h.dtype == torch.float16 else None
+    return residual_norm(h, terms, biases, norms, cfg.norm_eps, cfg.norm_type, clamp)
+
+
+def _entry_norms(lp, cfg: ModelConfig):
+    """The norms a layer's entry takes: ln1, and ln2 of the same h under
+    the parallel residual (the single norm of ``single_norm`` serves both
+    branches)."""
+    norms = [(lp["ln1_w"], lp.get("ln1_b"))]
+    if cfg.parallel_residual and not cfg.single_norm:
+        norms.append((lp["ln2_w"], lp.get("ln2_b")))
+    return norms
 
 
 def _quantize_kv(x):
@@ -236,40 +266,37 @@ def _quantize_kv_t(x):
     return q, scale
 
 
-def _row_parallel(x, w, l, bias, tp: Optional[TensorParallel]):
-    """x @ w[l] (+ bias) for a row-parallel weight (wo, w_out): under tp
-    each rank holds k/tp rows, so its product is a partial sum. The
-    partials stay in f32 (the kernels' accumulator), are all-reduced in
-    f32 and rounded once to x's dtype, as the unsharded matmul rounds its
-    f32 sum once; then the (replicated) bias is added once."""
+def _row_parallel(x, w, l, tp: Optional[TensorParallel]):
+    """x @ w[l] for a row-parallel weight (wo, w_out), without its bias
+    (the norm site adds it): under tp each rank holds k/tp rows, so its
+    product is a partial sum. The partials stay in f32 (the kernels'
+    accumulator), are all-reduced in f32 and rounded once to x's dtype, as
+    the unsharded matmul rounds its f32 sum once."""
     if tp is None:
-        return qmatmul_stacked(x, w, l, bias)
-    y = all_reduce(qmatmul_stacked(x, w, l, out_dtype=torch.float32), tp).to(x.dtype)
-    return y if bias is None else y + bias.to(y.dtype)
+        return qmatmul_stacked(x, w, l)
+    return all_reduce(qmatmul_stacked(x, w, l, out_dtype=torch.float32), tp).to(x.dtype)
 
 
-def _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg: ModelConfig,
+def _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg: ModelConfig, next_norms,
                 tp: Optional[TensorParallel] = None):
-    """Residual + MLP tail. h_mlp_in is the parallel-residual MLP input
-    (None for sequential residual)."""
+    """MLP tail and the norm site that ends the layer: (h', the norms of
+    next_norms). attn_out comes without ``bo``; h_mlp_in is the
+    parallel-residual MLP input (None for the sequential residual, whose
+    mid-layer site sums h + attn_out and takes ln2)."""
+    terms, biases = [attn_out], [lp.get("bo")]
     if h_mlp_in is None:
-        h = h + attn_out
-        h_mlp_in = _norm(h, lp["ln2_w"], lp.get("ln2_b"), cfg)
+        h, (h_mlp_in,) = _norm_site(h, terms, biases, [(lp["ln2_w"], lp.get("ln2_b"))], cfg,
+                                    layer_end=False)
+        terms, biases = [], []
     if cfg.act == "silu_gated":
         gate_up = qmatmul_stacked(h_mlp_in, weights["w_in"], l, lp.get("b_in"))
         gate, up = gate_up.chunk(2, dim=-1)
         mid = torch.nn.functional.silu(gate) * up
     else:
         mid = activate(qmatmul_stacked(h_mlp_in, weights["w_in"], l, lp.get("b_in")), cfg.act)
-    mlp_out = _row_parallel(mid, weights["w_out"], l, lp.get("b_out"), tp)
-    if cfg.parallel_residual or cfg.single_norm:
-        h = h + attn_out + mlp_out
-    else:
-        h = h + mlp_out
-    if h.dtype == torch.float16:
-        # the reference's fp16-safety clamp under float16's 65504 max
-        h = h.clamp(-55504.0, 55504.0)
-    return h
+    mlp_out = _row_parallel(mid, weights["w_out"], l, tp)
+    return _norm_site(h, terms + [mlp_out], biases + [lp.get("b_out")], next_norms, cfg,
+                      layer_end=True)
 
 
 @dataclasses.dataclass
@@ -369,20 +396,17 @@ def _attend_slot(q, k, v, cache: KVCache, l, slot_index, start_dev, attn_window,
                         window(cache.k_scale), window(cache.v_scale), start_dev)
 
 
-def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
-           positions, slot_index, slots, start_dev, attn_window: Optional[int],
+def _layer(h, normed, lp, next_norms, weights, cache, l: int, cfg: ModelConfig, rot_cos,
+           rot_sin, positions, slot_index, slots, start_dev, attn_window: Optional[int],
            paged: Optional[_PagedStep], prefill_flash: bool = False,
            tp: Optional[TensorParallel] = None):
+    """Layer l from h and its entry norms `normed` (``_entry_norms``):
+    returns the next site's (h', norms of next_norms)."""
     B, S, _ = h.shape
     n = 1 if tp is None else tp.size
     nh, nkv, d = cfg.num_heads // n, cfg.num_kv_heads // n, cfg.head_dim
-    h_mlp_in = None
-    if cfg.single_norm:
-        h_attn_in = h_mlp_in = _norm(h, lp["ln1_w"], lp.get("ln1_b"), cfg)
-    else:
-        h_attn_in = _norm(h, lp["ln1_w"], lp.get("ln1_b"), cfg)
-        if cfg.parallel_residual:
-            h_mlp_in = _norm(h, lp["ln2_w"], lp.get("ln2_b"), cfg)
+    h_attn_in = normed[0]
+    h_mlp_in = normed[-1] if cfg.parallel_residual or cfg.single_norm else None
 
     qkv = qmatmul_stacked(h_attn_in, weights["wqkv"], l, lp.get("bqkv"))
     q, k, v = qkv.split([nh * d, nkv * d, nkv * d], dim=-1)
@@ -395,8 +419,8 @@ def _layer(h, lp, weights, cache, l: int, cfg: ModelConfig, rot_cos, rot_sin,
         attn = _attend_slot(q, k, v, cache, l, slot_index, start_dev, attn_window, slots,
                             prefill_flash)
     attn = attn.transpose(1, 2).reshape(B, S, nh * d)
-    attn_out = _row_parallel(attn, weights["wo"], l, lp.get("bo"), tp)
-    return _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg, tp)
+    attn_out = _row_parallel(attn, weights["wo"], l, tp)
+    return _layer_tail(h, attn_out, h_mlp_in, lp, weights, l, cfg, next_norms, tp)
 
 
 @torch.no_grad()
@@ -490,7 +514,9 @@ def _embed(emb, tokens, cfg: ModelConfig, tp: Optional[TensorParallel]):
     v_local = emb.shape[1] if quantized else emb.shape[0]
     v0 = _vocab_range(v_local, cfg, tp)
     if v0 is None:
-        return take_dequantize(emb, tokens) if quantized else emb[tokens]
+        # a quantized table's rows come out as a transposed view: the first
+        # norm site takes its rows contiguous
+        return take_dequantize(emb, tokens).contiguous() if quantized else emb[tokens]
     local = tokens - v0
     mine = (local >= 0) & (local < v_local)
     local = torch.where(mine, local, torch.zeros_like(local))
@@ -540,12 +566,16 @@ def _forward(params, cfg: ModelConfig, tokens, cache, slots, start_dev, seq_lens
     rot_cos, rot_sin = params["rotary"]["cos"], params["rotary"]["sin"]
     weights = {k: v for k, v in params["layers"].items() if k in WEIGHT_KEYS}
     small = {k: v for k, v in params["layers"].items() if k not in WEIGHT_KEYS}
-    for l in range(cfg.num_layers):
-        lp = {k: v[l] for k, v in small.items()}
-        h = _layer(h, lp, weights, cache, l, cfg, rot_cos, rot_sin, positions, slot_index,
-                   slots, start_dev, attn_window, paged, prefill_flash, tp)
+    lps = [{k: v[l] for k, v in small.items()} for l in range(cfg.num_layers)]
+    final = [(params["final_ln"]["w"], params["final_ln"].get("b"))]
+    h, normed = _norm_site(h, [], [], _entry_norms(lps[0], cfg), cfg, layer_end=False)
+    for l, lp in enumerate(lps):
+        next_norms = _entry_norms(lps[l + 1], cfg) if l + 1 < len(lps) else final
+        h, normed = _layer(h, normed, lp, next_norms, weights, cache, l, cfg, rot_cos, rot_sin,
+                           positions, slot_index, slots, start_dev, attn_window, paged,
+                           prefill_flash, tp)
 
-    h = _norm(h, params["final_ln"]["w"], params["final_ln"].get("b"), cfg)
+    h = normed[0]
     if last_only:
         # lm head on each slot's last REAL position only
         idx = (seq_lens - 1).clamp(0, S - 1)

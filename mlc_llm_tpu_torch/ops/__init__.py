@@ -1,5 +1,5 @@
-"""Compute ops: quantized matmul, attention, sampling; device helpers and
-the loader of the hand-written CUDA kernels.
+"""Compute ops: quantized matmul, attention, norms, sampling; device
+helpers and the loader of the hand-written CUDA kernels.
 
 There is no kernel mode. A kernel wrapper picks its path from the
 device of the tensors it is given: on CPU tensors it runs its plain
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every source under csrc/: the kernels of the port's paths
 KERNELS = ("dequant_gemv_qs", "dequant_gemm_qs", "dequant_gemv_gp", "dequant_gemm_pairs",
-           "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode", "flash_prefill")
+           "dequant_gemv_gp3", "dequant_gemm_plane", "paged_flash_decode", "flash_prefill",
+           "residual_norm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # a kernel library that load_kernel takes in place of csrc/build/<name>.so
@@ -206,7 +207,8 @@ def kernel_wrappers() -> tuple:
     graph's launches at each replay)."""
     from . import dequant_matmul as dm
     from .attention import flash_prefill
+    from .norm import residual_norm
     from .paged_attention import paged_flash_decode
 
     return (dm.gemv_qs, dm.gemm_qs, dm.gemv_gp, dm.gemm_pairs, dm.gemv_gp3, dm.gemm_plane,
-            paged_flash_decode, flash_prefill)
+            paged_flash_decode, flash_prefill, residual_norm)

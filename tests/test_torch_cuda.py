@@ -1593,3 +1593,200 @@ def test_cuda_tp2_gloo_forward_matches_unsharded(tmp_path):
         got = torch.load(tmp_path / f"tp2_q4bf16.{r}.pt", weights_only=False)
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)
+
+
+# ------------------------------------------------- kernel 9: residual + norm
+
+NORM_HIDDEN = (2560, 4096, 5120, 6144, 8192)  # every preset's hidden size
+NORM_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def _norm_site(R, H, dtype, kind, nterms, nnorms, biased, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, center=0.0, std=1.0):
+        return (center + std * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+
+    h = rand(R, H)
+    terms = [rand(R, H) for _ in range(nterms)]
+    biases = [rand(H, std=0.1) if biased else None for _ in range(nterms)]
+    norms = [(rand(H, center=1.0, std=0.1), rand(H, std=0.1) if kind == "layernorm" else None)
+             for _ in range(nnorms)]
+    return h, terms, biases, norms
+
+
+def _within_one_ulp(got, want):
+    # 16-bit outputs: the same value or a neighbour (the kernel's f32 sums
+    # run in another order, so a value next to a rounding boundary may
+    # round the other way); f32 outputs carry that order's difference
+    # unrounded: a few f32 ulps of the row's scale
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+        return
+    bits = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    near_zero = (got.float() - want.float()).abs() <= 1e-6
+    assert bool(((bits <= 1) | near_zero).all()), \
+        f"max bit distance {int(bits.max())}, max diff {(got.float() - want.float()).abs().max()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8, 2048])
+@pytest.mark.parametrize("H", NORM_HIDDEN)
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("kind,nterms,nnorms,biased", [
+    ("layernorm", 2, 2, True),     # a parallel-residual layer's end: dolly, NeoX
+    ("layernorm", 2, 1, True),     # MOSS: one norm for both branches, b_out only
+    ("rmsnorm", 1, 1, False),      # Llama's sequential sites
+    ("layernorm", 0, 2, False),    # layer 0's entry: the embedding's norms
+], ids=["ln-2t-2n", "ln-2t-1n", "rms-1t-1n", "ln-0t-2n"])
+def test_cuda_residual_norm_matches_plain(R, H, dtype, kind, nterms, nnorms, biased):
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import norm
+
+    assert norm.residual_norm_supported(H, dtype)
+    h, terms, biases, norms = _norm_site(R, H, dtype, kind, nterms, nnorms, biased)
+    clamp = 55504.0 if dtype == torch.float16 and nterms else None
+    before = norm.residual_norm.launches
+    got_h, got = norm.residual_norm(h, terms, biases, norms, 1e-5, kind, clamp)
+    torch.cuda.synchronize()
+    assert norm.residual_norm.launches == before + 1
+    want_h, want = norm.residual_norm_plain(h, terms, biases, norms, 1e-5, kind, clamp)
+    assert torch.equal(got_h, want_h)  # the adds and the clamp round as the chain does
+    assert len(got) == nnorms
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == h.shape
+        _within_one_ulp(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8, 2048])
+def test_cuda_residual_norm_clamps_f16(R):
+    # f16 rows near 65504: the sum overflows or passes the bound and is
+    # clamped to +-55504 as torch.clamp rounds it (55488), bit for bit
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import norm
+
+    h, terms, biases, norms = _norm_site(R, 2560, torch.float16, "layernorm", 2, 2, True, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    # finite rows of +-40000: h + t1 passes 55504 or overflows to inf
+    h, *terms = ((torch.rand((R, 2560), generator=g, device="cuda") * 2 - 1) * 40000.0
+                 for _ in range(3))
+    h, terms = h.half(), [t.half() for t in terms]
+    got_h, got = norm.residual_norm(h, terms, biases, norms, 1e-5, "layernorm", 55504.0)
+    want_h, want = norm.residual_norm_plain(h, terms, biases, norms, 1e-5, "layernorm", 55504.0)
+    torch.cuda.synchronize()
+    assert float(want_h.abs().max()) == 55488.0
+    assert torch.equal(got_h, want_h)
+    for a, b in zip(got, want):
+        _within_one_ulp(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "f16", "f32"])
+def test_cuda_residual_norm_graph_replay_counts_launches(dtype):
+    # captured in a step program: a replay adds its one launch to the
+    # counter and gives the eager result bit for bit on new inputs
+    _need_gpu()
+    from mlc_llm_tpu_torch.engine.programs import StepPrograms
+    from mlc_llm_tpu_torch.ops import norm
+
+    h, terms, biases, norms = _norm_site(8, 2560, dtype, "layernorm", 2, 2, True)
+    progs = StepPrograms(torch.device("cuda"))
+
+    def fn():
+        h2, outs = norm.residual_norm(h, terms, biases, norms, 1e-5, "layernorm")
+        return (h2, *outs)
+
+    before = norm.residual_norm.launches
+    progs.run("site", fn, fn)
+    assert norm.residual_norm.launches == before + 1  # the replay's; capture's taken out
+    for seed in (1, 2):
+        nh, nterms, _, _ = _norm_site(8, 2560, dtype, "layernorm", 2, 2, True, seed=seed)
+        h.copy_(nh)
+        for dst, src in zip(terms, nterms):
+            dst.copy_(src)
+        before = norm.residual_norm.launches
+        out = progs.run("site", fn, fn)
+        want = fn()
+        torch.cuda.synchronize()
+        assert norm.residual_norm.launches == before + 2  # the replay's and the eager call's
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert progs.count == 1 and progs.replays == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["width", "param-dtype", "kind"])
+def test_cuda_residual_norm_refused_raises(case):
+    # a CUDA site the kernel does not take raises; nothing falls back
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import norm
+
+    H = 2564 if case == "width" else 2560
+    assert norm.residual_norm_supported(H, torch.bfloat16) == (case != "width")
+    h, terms, biases, norms = _norm_site(8, H, torch.bfloat16, "layernorm", 1, 1, True)
+    kind = "layernorm"
+    if case == "param-dtype":
+        norms = [(w.float(), b) for w, b in norms]
+    if case == "kind":
+        kind = "groupnorm"
+    before = norm.residual_norm.launches
+    with pytest.raises(ValueError if case == "kind" else NotImplementedError):
+        norm.residual_norm(h, terms, biases, norms, 1e-5, kind)
+    assert norm.residual_norm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,quant,batch", [("dolly-v2-3b", "q4f16_hs", 8),
+                                               ("moss-moon-003-sft", "q4bf16", 1)])
+def test_cuda_decode_graph_runs_one_residual_norm_a_site(model, quant, batch):
+    # a decode forward replays L + 1 norm sites (33 at dolly's 32 layers,
+    # 35 at MOSS's 34), and its eager program has no aten.mean of a norm
+    _need_gpu()
+    from mlc_llm_tpu_torch.debug import dump
+    from mlc_llm_tpu_torch.engine import GenerationConfig, InferenceEngine
+    from mlc_llm_tpu_torch.models import get_config, init_random_params
+    from mlc_llm_tpu_torch.ops import norm
+
+    cfg = get_config(model).replace(num_layers=GRAPH_LAYERS)
+    params = init_random_params(cfg, quant, seed=0, device="cuda")
+    kw = dict(kv_layout="paged", page_size=128) if batch > 1 else {}
+    eng = InferenceEngine(cfg, params, max_batch=batch, max_seq_len=2048, device="cuda", **kw)
+    eng.cfg = cfg.replace(stop_tokens=())
+    prompts = [list(range(5, 5 + 40 + 7 * i)) for i in range(batch)]
+    gen = GenerationConfig(max_new_tokens=6, temperature=0.0)
+    eng.generate(prompts, gen)  # captures every program this path runs
+    f0, n0 = eng.decode_forwards, norm.residual_norm.launches
+    eng.generate(prompts, gen)
+    torch.cuda.synchronize()
+    forwards = eng.decode_forwards - f0
+    # the prefill's sites once, then L + 1 a decode forward
+    assert forwards == 5
+    assert norm.residual_norm.launches - n0 == (cfg.num_layers + 1) * (forwards + 1)
+    key = next(k for k in eng.programs.keys if k[0] == "decode")
+    with dump._on_cache_copy(eng, [key]):
+        with dump._OpLog() as log:
+            dump._program(eng, key)(*dump._zero_args(eng, key))
+    torch.cuda.synchronize()
+    assert log.lines and not [ln for ln in log.lines if ln.startswith("aten.mean")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "f16", "f32"])
+def test_cuda_residual_norm_reads_strided_rows(dtype):
+    # h and the terms as column slices of wider buffers (a matmul's padded
+    # output): the kernel reads each at its row stride
+    _need_gpu()
+    from mlc_llm_tpu_torch.ops import norm
+
+    h, terms, biases, norms = _norm_site(8, 2560, dtype, "layernorm", 2, 2, True)
+    wide = [torch.zeros((8, 2688), dtype=dtype, device="cuda") for _ in range(3)]
+    for w, t in zip(wide, (h, *terms)):
+        w[:, :2560] = t
+    sh, *sterms = (w[:, :2560] for w in wide)
+    assert norm.row_stride(sh) == 2688 and not sh.is_contiguous()
+    got_h, got = norm.residual_norm(sh, sterms, biases, norms, 1e-5, "layernorm")
+    want_h, want = norm.residual_norm_plain(h, terms, biases, norms, 1e-5, "layernorm")
+    torch.cuda.synchronize()
+    assert got_h.is_contiguous() and torch.equal(got_h, want_h)
+    for a, b in zip(got, want):
+        _within_one_ulp(a, b)

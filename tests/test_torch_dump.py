@@ -144,6 +144,19 @@ def test_reinject_raises_off_the_card(params, tmp_path):
     assert dump._source("gemv_qs") == dump._source("dequant_gemv_qs") == "dequant_gemv_qs"
 
 
+@pytest.mark.parametrize("names, want", [
+    (["lead", "lead", "at::cuda::spin_kernel(long)", "k1", "k2", "at::cuda::spin_kernel(long)"],
+     ["k1", "k2"]),
+    # kernels before the first mark are the window's lead-in
+    (["k0", "spin_kernel", "k1", "spin_kernel"], ["k1"]),
+    (["spin_kernel", "spin_kernel"], []),
+    (["k1", "k2", "spin_kernel"], None),
+    ([], None),
+])
+def test_between_marks(names, want):
+    assert dump.between_marks(names) == want
+
+
 def test_cli_debug_flags(tmp_path, capsys):
     outdir = str(tmp_path / "d")
     base = ["--model", "tiny-llama", "--random-weights", "--device", "cpu"]
