@@ -15,7 +15,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from harness import check, guard, loops, program, readers, roofline, spec, traffic
+from harness import check, guard, loops, program, readers, spec, traffic
 from harness.record import Recorder, now
 from harness.trace import Tracer
 
@@ -50,7 +50,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
 
     # ---- set-up: weights from the seed, the engine, its programs, a warm request
     t = now()
-    engine = program.build_engine(model, dep, seed, device)
+    engine = program.build_engine(cell.arch, model, dep, seed, device)
     sched = program.build_scheduler(engine, dep, seed) if mix["loop"] == "open" else None
     t = _phase(phases, "weights_engine", t, on_card)
     program.warm_up(engine, program.warm_keys(engine, mix, dep))
@@ -89,9 +89,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     dev_info = card_info(device)
 
     ctx = readers.Context(cell=cell, window=win, seconds=seconds, setup_s=setup_s, rec=rec,
-                          trace=summary, shapes=roofline.Shapes.of(model, dep),
+                          trace=summary, shapes=cell.arch.work(model, dep),
                           batch=engine.max_batch, on_card=on_card,
-                          quiet_end=tracer.quiet_end)
+                          quiet_end=tracer.quiet_end, engine=engine, scheduler=sched)
     metrics = spec.read_metrics(cell.per_layer if trace else cell.end_to_end, ctx,
                                 cell.bench_dir)
     meas = readers.measured(ctx)
@@ -101,11 +101,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     # ---- free the program, then the reference over a sample of what it served
     picked = check.sample(win, seed, sample_count or cell.config["correct"]["sample"])
     segs, wanted, tokens = check.segments_of(win, picked)
+    ctx.engine = ctx.scheduler = None
     del engine, sched, rec.runs
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    from reference.model import Reference
+    Reference = cell.arch.Reference
 
     t_ref = now()
     ref = Reference(model, dep, seed, device)

@@ -3,7 +3,8 @@
 Once the window has closed and the program is freed, a sample drawn from
 the seed of the greedy requests (or turns) that finished, the one with
 the most served tokens always among them, is run through the plain
-reference (``reference/model.py``) once, over each cached context with
+reference of the configuration's architecture (``arch/<name>.py``) once,
+over each cached context with
 its served tokens. At every served token the reading is how far the
 token's reference logit lies below the reference's best there. A served
 token that the reference also ranks first reads 0; rounding can make the

@@ -1,19 +1,21 @@
-"""The system under test, set up from a configuration file: the port's
-parameter tree quantized by the port from the benchmark's draws, its
-engine, and the warm-up of the step programs this cell's traffic reaches.
+"""The system under test, set up from a configuration file: its engine
+over the parameter tree that the configuration's architecture builds
+(``arch/<name>.py``, its ``build_params``, with the helpers here), the
+scheduler, and the warm-up of the step programs this cell's traffic
+reaches.
 
-This is the one module of the harness that imports the program
-(``mlc_llm_tpu_torch``), and it imports nothing else of the repository.
+This module and each architecture's ``build_params`` are all of the
+benchmark that imports the program (``mlc_llm_tpu_torch``), each lazily,
+inside the function that needs it; they import nothing else of the
+repository.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Iterable, List
 
 import torch
-
-from harness import weights
 
 
 def model_config(model: dict):
@@ -27,19 +29,19 @@ def model_config(model: dict):
     return ModelConfig(**kw)
 
 
-def _stacked(mats: "_Layers", quantize, spec):
-    """Quantize each layer's [k, n] matrix into one stacked QuantizedTensor,
-    filling preallocated storage layer by layer."""
+def stack_quantized(draws: Iterable[torch.Tensor], count: int, quantize, spec):
+    """Quantize `count` [k, n] matrices, taken from `draws` one at a time,
+    into one stacked QuantizedTensor, filling preallocated storage."""
     from mlc_llm_tpu_torch.quant import QuantizedTensor
 
     data = scale = zero = None
-    for l, w in enumerate(mats):
+    for l, w in enumerate(draws):
         q = quantize(w, spec)
         del w
         if data is None:
-            data = q.data.new_empty((mats.n, *q.data.shape))
-            scale = q.scale.new_empty((mats.n, *q.scale.shape))
-            zero = None if q.zero is None else q.zero.new_empty((mats.n, *q.zero.shape))
+            data = q.data.new_empty((count, *q.data.shape))
+            scale = q.scale.new_empty((count, *q.scale.shape))
+            zero = None if q.zero is None else q.zero.new_empty((count, *q.zero.shape))
             shape, spec_q = q.shape, q.spec
         data[l].copy_(q.data)
         scale[l].copy_(q.scale)
@@ -48,58 +50,12 @@ def _stacked(mats: "_Layers", quantize, spec):
     return QuantizedTensor(data=data, scale=scale, zero=zero, spec=spec_q, shape=shape)
 
 
-class _Layers:
-    """The L draws of one leaf, made as they are taken."""
-
-    def __init__(self, model, seed, leaf, device):
-        self.model, self.seed, self.leaf, self.device = model, seed, leaf, device
-        self.n = model["num_layers"]
-
-    def __iter__(self):
-        for l in range(self.n):
-            yield weights.layer_matrix(self.model, self.seed, self.leaf, l, self.device)
-
-
-def build_params(model: dict, deployment: dict, seed: int, device):
-    """The port's parameter tree from the seed's draws: every product
-    quantized by the port's quantizer in the deployment's preset (the
-    embedding stored transposed [H, V], as the port's q4 trees hold it),
-    norms and biases in the compute type, the rotary tables the port makes."""
-    from mlc_llm_tpu_torch.models.layers import make_rotary_tables
-    from mlc_llm_tpu_torch.quant import quantize, resolve_spec, spec_for_k
-    from mlc_llm_tpu_torch.quant.groupwise import torch_dtype
-
-    cfg = model_config(model)
-    spec = resolve_spec(deployment["quantization"])
-    dtype = torch_dtype(spec.dtype)
-    shp = weights.shapes(model)
-    layers = {leaf: _stacked(_Layers(model, seed, leaf, device), quantize,
-                             spec_for_k(spec, shp[leaf][0])) for leaf in weights.BIG}
-    small = weights.small_leaves(model, seed, device)
-    for name, t in small.items():
-        if t.dim() == 2:
-            layers[name] = t.to(dtype)
-    head_spec = (dataclasses.replace(spec, dtype="float32") if cfg.fp32_lm_head else spec)
-    H = cfg.hidden_size
-    emb = weights.embedding(model, seed, device)
-    embed = quantize(emb.T, spec_for_k(spec, H))
-    del emb
-    head = quantize(weights.lm_head(model, seed, device), spec_for_k(head_spec, H))
-    cos, sin = make_rotary_tables(cfg.head_dim, cfg.rotary_pct, cfg.rotary_base,
-                                  cfg.max_seq_len, cfg.rotary_style, device=device)
-    params = {"embed": {"w": embed}, "layers": layers,
-              "final_ln": {"w": small["final_ln_w"].to(dtype), "b": small["final_ln_b"].to(dtype)},
-              "lm_head": {"w": head}, "rotary": {"cos": cos, "sin": sin}}
-    if "lm_head_b" in small:
-        params["lm_head"]["b"] = small["lm_head_b"].to(
-            torch.float32 if cfg.fp32_lm_head else dtype)
-    return cfg, params
-
-
-def build_engine(model: dict, deployment: dict, seed: int, device):
+def build_engine(arch, model: dict, deployment: dict, seed: int, device):
+    """The engine over the parameter tree that the architecture module
+    `arch` builds from the seed's draws."""
     from mlc_llm_tpu_torch.engine.engine import InferenceEngine
 
-    cfg, params = build_params(model, deployment, seed, device)
+    cfg, params = arch.build_params(model, deployment, seed, device)
     kv = {"bfloat16": torch.bfloat16, "float16": torch.float16, "int8": torch.int8,
           "float32": torch.float32}[deployment["kv_dtype"]]
     engine = InferenceEngine(cfg, params, max_batch=deployment["max_batch"],

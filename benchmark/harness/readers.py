@@ -3,7 +3,9 @@
 A reader gets the run's Context and returns a number, or None when the
 run holds nothing for it to read (the metric is then left out). Shares
 are in percent. Device numbers come only from a run on the card: on any
-other device the device readers return None.
+other device the device readers return None. While the metrics are read
+the program is still in reach (``engine``, ``scheduler``: its always-on
+counters); it is freed right after.
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ class Context:
     setup_s: float
     rec: object             # harness.record.Recorder
     trace: object           # harness.trace.TraceSummary or None
-    shapes: roofline.Shapes
+    shapes: object          # the architecture's work count (arch/<name>.py, its work)
     batch: int              # rows a decode forward computes
     on_card: bool
     quiet_end: float = float("inf")   # where the traced stretch begins
+    engine: object = None   # the program's engine, while the metrics are read
+    scheduler: object = None  # and its scheduler (open loop), or None
 
     @property
     def host_end(self) -> float:
@@ -88,7 +92,7 @@ def least_s(ctx: Context, run) -> float:
     for i in range(run.steps):
         rows = [(c + i * n, n) for c, n in run.rows]
         if rows:
-            total += roofline.step_least_s(s, rows, len(rows))
+            total += s.step_least_s(rows, len(rows))
     return total
 
 

@@ -2,8 +2,10 @@
 
 A cell names a configuration and a traffic mix; the configuration's entry
 names its file, the mix is ``traffic/<name>.json`` and each metric is
-``metrics/<name>.py``. Nothing here lists configurations, mixes or metrics:
-a new one is a new file and a new entry.
+``metrics/<name>.py``. The configuration's file names its architecture
+under ``"arch"`` (``dense`` where it names none): ``arch/<name>.py``.
+Nothing here lists configurations, architectures, mixes or metrics: a new
+one is a new file and a new entry.
 """
 
 from __future__ import annotations
@@ -12,9 +14,13 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+import sys
+import zlib
 from typing import Dict, List
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # benchmark/
+DEFAULT_ARCH = "dense"
 
 
 @dataclasses.dataclass
@@ -27,7 +33,7 @@ class Cell:
     mix: dict                 # the traffic file
     end_to_end: List[dict]    # the metrics this cell reports with --trace 0
     per_layer: List[dict]     # ... with --trace 1
-    bench_dir: str = HERE     # where traffic/ and metrics/ are
+    bench_dir: str = HERE     # where arch/, traffic/ and metrics/ are
 
     @property
     def model(self) -> dict:
@@ -36,6 +42,11 @@ class Cell:
     @property
     def deployment(self) -> dict:
         return self.config["deployment"]
+
+    @property
+    def arch(self):
+        """The configuration's architecture module."""
+        return load_arch(self.config.get("arch", DEFAULT_ARCH), self.bench_dir)
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -57,6 +68,40 @@ def load_cell(root: str, name: str, bench_dir: str = HERE) -> Cell:
     e2e = [m for m in bench["end_to_end"] if _applies(m, name)]
     per = [m for m in bench["per_layer"] if _applies(m, name)]
     return Cell(name, root, bench, w, config, mix, e2e, per, bench_dir)
+
+
+def load_arch(name: str, bench_dir: str = HERE):
+    """arch/<name>.py, loaded once a process. An architecture module gives
+    everything of a configuration that depends on its block:
+
+    - ``leaves(model)``: its drawn matrices (``harness.weights.Leaf``: [k, n],
+      scale, the layers that hold it, how many a layer), each drawn alone
+      by ``weights.draw`` from (seed, leaf, layer[, index]);
+    - ``build_params(model, deployment, seed, device)``: (the port's
+      ModelConfig, its parameter tree) from those draws, quantized by the
+      port; it imports the program inside the function;
+    - ``Reference(model, deployment, seed, device, precision)`` with
+      ``logits(segments, wanted)``: the plain f32 reference and its fp8 and
+      bf16 controls (``reference.model.Plain``), which import nothing of
+      the program;
+    - ``work(model, deployment)``: the work count readers read as
+      ``Context.shapes``, with ``step_least_s(rows, head_rows)`` and
+      ``products_bound_s(m, head_m)`` and what its own kernels' bounds need.
+    """
+    path = os.path.join(bench_dir, "arch", f"{name}.py")
+    key = "bench_arch_%s_%08x" % (re.sub(r"\W", "_", name),
+                                  zlib.crc32(os.path.abspath(path).encode()))
+    mod = sys.modules.get(key)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(key, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return mod
 
 
 def metric_reader(name: str, bench_dir: str = HERE):

@@ -1,6 +1,6 @@
 """Model-step layer, chat: the decode steps' least time on an H100 (their
 real rows' operations at 989 TFLOP/s or bytes at 3.35 TB/s, whichever is
-longer: harness/roofline.py) over their device time (CUDA events around
+longer: the architecture's work count) over their device time (CUDA events around
 each replay), in percent."""
 from harness import readers
 

@@ -1,5 +1,5 @@
 """Model-step layer, serving: the decode forwards' least time for their
-active rows (harness/roofline.py) over their replays' device time, in
+active rows (the architecture's work count) over their replays' device time, in
 percent."""
 from harness import readers
 

@@ -1,5 +1,5 @@
 """Model-step layer, serving: the admissions' least time for their real
-prompt tokens (harness/roofline.py: bucket padding is not work) over their
+prompt tokens (the architecture's work count: bucket padding is not work) over their
 replays' device time, in percent."""
 from harness import readers
 

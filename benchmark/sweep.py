@@ -48,7 +48,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     torch.set_num_threads(1)
     seeds = [int(x) for x in args.seeds.split(",")]
-    engine = program.build_engine(cell.model, cell.deployment, seeds[0], dev)
+    engine = program.build_engine(cell.arch, cell.model, cell.deployment, seeds[0], dev)
     program.warm_up(engine, program.warm_keys(engine, cell.mix, cell.deployment))
     for r, seed in [(r, s) for r in args.rates.split(",") for s in seeds]:
         mix = copy.deepcopy(cell.mix)

@@ -30,7 +30,9 @@ def _sources():
 
 def test_no_source_the_benchmark_runs_imports_them():
     bad = []
-    for path in _sources():
+    sources = list(_sources())
+    assert os.path.join(BENCH, "arch", "dense.py") in sources
+    for path in sources:
         tree = ast.parse(open(path).read())
         for node in ast.walk(tree):
             names = []
@@ -44,8 +46,9 @@ def test_no_source_the_benchmark_runs_imports_them():
 
 
 def test_a_run_loads_none_of_them():
-    """Every module of the harness, the reference, the metrics and the port
-    they drive, imported in a fresh process, then sys.modules checked."""
+    """Every module of the harness, the reference, the architectures, the
+    metrics and the port they drive, imported in a fresh process, then
+    sys.modules checked."""
     code = f"""
 import glob, importlib.util, os, sys
 sys.path[:0] = [{BENCH!r}, {ROOT!r}]
@@ -55,6 +58,10 @@ import mlc_llm_tpu_torch.engine.engine, mlc_llm_tpu_torch.engine.scheduler
 for p in glob.glob(os.path.join({BENCH!r}, "metrics", "*.py")):
     s = importlib.util.spec_from_file_location("m" + str(abs(hash(p))), p)
     s.loader.exec_module(importlib.util.module_from_spec(s))
+archs = glob.glob(os.path.join({BENCH!r}, "arch", "*.py"))
+assert archs
+for p in archs:
+    spec.load_arch(os.path.basename(p)[:-3])
 print(guard.forbidden_modules())
 """
     env = dict(os.environ, USE_FLAX="0")

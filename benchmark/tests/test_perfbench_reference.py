@@ -26,14 +26,16 @@ def test_reference_quantizer_is_the_ports(dtype):
 
 @pytest.mark.parametrize("family", ["moss", "gpt_neox"])
 def test_reference_matches_the_port(family):
-    from harness import program
+    from harness import spec
     from mlc_llm_tpu_torch.models.transformer import forward, init_kv_cache
-    from reference.model import Reference
+
+    dense = spec.load_arch("dense")
+    Reference = dense.Reference
 
     cell = tiny_cell(CELLS[family])
     model, dep = cell.model, cell.deployment
     seed = 2**31 + 99
-    cfg, params = program.build_params(model, dep, seed, "cpu")
+    cfg, params = dense.build_params(model, dep, seed, "cpu")
     toks = torch.randint(0, model["vocab_size"], (1, 96), generator=torch.Generator().manual_seed(1))
     cache = init_kv_cache(cfg, 1, 128, torch.float32, device="cpu")
     got, _ = forward(params, cfg, toks, cache, last_only=False)
@@ -50,8 +52,9 @@ def test_reference_matches_the_port(family):
 
 
 def test_fp8_control_reads_further_from_the_reference():
-    from harness import check
-    from reference.model import Reference
+    from harness import check, spec
+
+    Reference = spec.load_arch("dense").Reference
 
     cell = tiny_cell(CELLS["moss"], hidden_size=256, intermediate_size=1024, num_heads=2,
                      num_kv_heads=2)
@@ -66,7 +69,9 @@ def test_fp8_control_reads_further_from_the_reference():
 
 
 def test_bf16_rounds_between_f32_and_fp8():
-    from reference.model import Reference
+    from harness import spec
+
+    Reference = spec.load_arch("dense").Reference
 
     cell = tiny_cell(CELLS["gpt_neox"], hidden_size=256, intermediate_size=1024, num_heads=4,
                      num_kv_heads=4)

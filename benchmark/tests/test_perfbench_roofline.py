@@ -7,15 +7,16 @@ from conftest import ROOT
 
 
 def _shapes(name):
-    from harness import roofline, spec
+    from harness import spec
 
     c = spec.load_cell(ROOT, name)
-    return roofline.Shapes.of(c.model, c.deployment)
+    return spec.load_arch("dense").Shapes.of(c.model, c.deployment)
 
 
 def test_moss_weight_bytes():
-    from harness import roofline
+    from harness import spec
 
+    roofline = spec.load_arch("dense")
     s = _shapes("moss16b-q4bf16.chat-b1")
     # codes k n / 2, then a bf16 scale and a bf16 minimum per 32 rows a column
     assert roofline.weight_bytes(s, 6144, 18432, "bfloat16") == 56623104 + 14155776
@@ -30,8 +31,9 @@ def test_moss_weight_bytes():
 
 
 def test_dolly_weight_bytes_f32_head():
-    from harness import roofline
+    from harness import spec
 
+    roofline = spec.load_arch("dense")
     s = _shapes("dolly3b-q4f16hs.serve-chat")
     assert s.head_dtype == "float32" and s.act_dtype == "float16"
     assert roofline.layer_weight_bytes(s) == 12288000 + 4096000 + 16384000 + 16384000
@@ -41,8 +43,9 @@ def test_dolly_weight_bytes_f32_head():
 
 
 def test_dolly_prefill_is_bound_by_operations():
-    from harness import roofline
+    from harness import spec
 
+    roofline = spec.load_arch("dense")
     s = _shapes("dolly3b-q4f16hs.serve-chat")
     n = 1500
     params = 2560 * (7680 + 2560 + 10240) + 10240 * 2560
@@ -56,8 +59,9 @@ def test_dolly_prefill_is_bound_by_operations():
 
 
 def test_products_bound_counts_rows():
-    from harness import roofline
+    from harness import spec
 
+    roofline = spec.load_arch("dense")
     s = _shapes("dolly3b-q4f16hs.serve-chat")
     b1 = roofline.products_bound_s(s, 1, 1)
     b8 = roofline.products_bound_s(s, 8, 8)
@@ -66,7 +70,9 @@ def test_products_bound_counts_rows():
     head8 = 8 * 2560 * 4 + 8 * 50280 * 4
     assert b8 - b1 == pytest.approx(((x8 + head8) - (x8 + head8) / 8) / 3.35e12, rel=1e-9)
     # a share never passes 1 when the time measured is at least the bound
-    assert roofline.share(b8, b8) == 1.0 and roofline.share(b8, 0) is None
+    from harness.roofline import share
+
+    assert share(b8, b8) == 1.0 and share(b8, 0) is None
 
 
 def test_k_step_block_least_counts_every_step():
@@ -79,7 +85,8 @@ def test_k_step_block_least_counts_every_step():
         shapes = s
 
     run = ProgramRun(0, ("decode_k", 8, 4, 512), 0.0, 0.0, [(100, 1), (300, 1)], 4, 2)
-    from harness import roofline
+    from harness import spec
 
+    roofline = spec.load_arch("dense")
     want = sum(roofline.step_least_s(s, [(100 + i, 1), (300 + i, 1)], 2) for i in range(4))
     assert readers.least_s(C, run) == pytest.approx(want)

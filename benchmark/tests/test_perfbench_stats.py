@@ -28,15 +28,16 @@ def test_failed_requests_raise_the_tail():
 
 
 def _ctx(served, start=0.0, end=10.0):
-    from harness import readers, roofline
+    from harness import readers, spec
     from harness.loops import Window
     from harness.record import Recorder
     import torch
 
     win = Window(start, end, served, {})
-    shapes = roofline.Shapes(hidden=64, ffn=256, layers=2, heads=4, kv_heads=4, head_dim=16,
-                             vocab=256, gated=False, act_dtype="bfloat16",
-                             head_dtype="bfloat16", kv_dtype="bfloat16")
+    dense = spec.load_arch("dense")
+    shapes = dense.Shapes(hidden=64, ffn=256, layers=2, heads=4, kv_heads=4, head_dim=16,
+                          vocab=256, gated=False, act_dtype="bfloat16",
+                          head_dtype="bfloat16", kv_dtype="bfloat16")
     return readers.Context(cell=None, window=win, seconds=end - start, setup_s=1.0,
                            rec=Recorder(False, torch.device("cpu")), trace=None, shapes=shapes,
                            batch=1, on_card=False)
